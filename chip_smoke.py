@@ -1,0 +1,393 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, so the script never exits 0 after one):
+
+1. the card's name and power limit, the torch/CUDA versions, and the build
+   of every kernel under ``short_ldpc_decoding_osd_tpu_torch/csrc/``;
+2. every kernel against its plain PyTorch version on the card, at the
+   shapes the main path gives it (and a small irregular / odd shape), with
+   CUDA-event times of kernel, plain version and, where one PyTorch call
+   computes the same function, that call;
+3. the main path at full width: 8 rounds of the 262,144-frame capture step
+   plus phase 2 (capture 32,768) at 3.0 dB with the ``runs/r4_pipeline``
+   artifacts, with every launch count reset just before and read just
+   after; its NMS FER and OSD success share must agree statistically with
+   the JAX package's record (``BENCH_r05.json``), and the card's results
+   must equal the port's CPU results on the committed failure set;
+4. one main-path round under ``torch.profiler``: the device's busy share
+   and the kernels that take the most device time.
+
+The line before the last is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
+prints no result.  It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+
+from short_ldpc_decoding_osd_tpu_torch import _kernels, system
+from short_ldpc_decoding_osd_tpu_torch._device import synchronize
+from short_ldpc_decoding_osd_tpu_torch.channel import ChannelSpec, sample_batch
+from short_ldpc_decoding_osd_tpu_torch.codes import get_code
+from short_ldpc_decoding_osd_tpu_torch.convert import load_run
+from short_ldpc_decoding_osd_tpu_torch.mc.harness import count_and_capture
+from short_ldpc_decoding_osd_tpu_torch.ops import nms_edge, osd_disc
+from short_ldpc_decoding_osd_tpu_torch.osd import engine, segments
+from short_ldpc_decoding_osd_tpu_torch.utils.metrics import wilson_interval
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# H100 SXM data-sheet peaks at 700 W (dense): HBM bytes/s; f32 instructions/s
+# outside the tensor cores (67 TFLOP/s counts an FMA as two FLOPs, so an
+# add, compare, min or FMA issues at half that rate); int8 tensor-core OP/s
+HBM_BPS = 3.35e12
+F32_INSTR = 67e12 / 2
+INT8_OPS = 1979e12
+Z999 = 3.2905  # two-sided 99.9% normal quantile
+# the JAX package's two-phase record at 3.0 dB on the same artifacts
+# (BENCH_r05.json: system_fer_nms, system_frames, system_osd_success,
+# system_failures)
+REF_FER, REF_FRAMES = 0.104169, 2_097_152
+REF_OSD_SUCC, REF_FAILURES = 215_746, 218_456
+CAP_B, CAP, ROUNDS, ITERS = 262_144, 32_768, 8, 12
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn()`` over ``reps`` CUDA-event timings."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, *unit_times_s: float):
+    """(least time in ms, what bounds it): the larger of the compulsory
+    bytes over the HBM rate and the busiest unit's operation time (units
+    such as the tensor cores and the f32 pipe run concurrently)."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = max(unit_times_s)
+    if t_ops > t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def nms_edge_ops(h, batch: int, iters: int) -> float:
+    """f32 instructions the edge decode needs, whatever the design: per
+    iteration 8 per real edge (column add, vc = total - cv, |vc|, the
+    min/submin update (2), the sign parity, the outgoing magnitude select,
+    the sign apply), 2 per check (the weight on min and submin) and 1 per
+    variable (total = w * llr + colsum); the closing column sums add 1 per
+    edge and 1 per variable."""
+    m, n = h.shape
+    edges = int(h.sum())
+    return batch * (iters * (8 * edges + 2 * m + n) + edges + n)
+
+
+def compare(name, got, want, rel: bool = False):
+    """Max abs error; raises past 1e-5 (abs + rel, or rel only)."""
+    diff = (got - want).abs()
+    scale = want.abs().clamp(min=1.0) if rel else 1.0 + want.abs()
+    worst = float((diff / scale).max())
+    err = float(diff.max())
+    if not math.isfinite(worst) or worst > 1e-5:
+        raise AssertionError(f"{name}: kernel vs plain error {worst:.3g} > 1e-5")
+    return err
+
+
+def phase_environment():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
+    t0 = time.perf_counter()
+    per_source = _kernels.build_all()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s wall, per source "
+        + json.dumps({k: round(v, 2) for k, v in per_source.items()}))
+    for name, text in _kernels.BUILD_LOG.items():
+        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
+        log(f"  {name}.cu ptxas: " + " | ".join(regs))
+    return smi
+
+
+def main_path_inputs(dev):
+    """K1/K2/K5 inputs as the main path makes them: one 262,144-frame
+    sample, its 32,768-row failure capture, the capture's trajectories and
+    its prepared OSD batch."""
+    run = load_run(os.path.join(ROOT, "runs", "r4_pipeline"), dev)
+    code = run["code"]
+    params = {k: v.cpu() for k, v in run["nms_params"].items()}
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    llr, words = sample_batch(gen, ChannelSpec.awgn(3.0, code.rate),
+                              torch.as_tensor(code.g, device=dev), CAP_B)
+    soft = nms_edge.decode_final_edge(params, code.h, llr, ITERS)
+    _, cap = count_and_capture(llr, words, soft, code.h, CAP)
+    traj = nms_edge.decode_traj_edge(params, code.h, cap["llr"], ITERS)
+    refined = run["dia"].refine_fast(traj.permute(1, 0, 2))
+    prep = engine.prepare(refined, cap["llr"], cap["labels"], code.h_osd, code.k)
+    _, u_l, _, _ = engine._discrepancy_terms(prep, code.k)
+    blocks, _ = segments.build_tep_blocks(run["path"], code.k, 6)
+    teps, _, _ = segments.pack_tep_chunks(blocks)
+    t_flat = torch.as_tensor(teps.reshape(-1, code.k), device=dev)
+    return run, params, llr, cap, refined, prep, u_l.contiguous(), t_flat
+
+
+def phase_kernels(dev):
+    run, params, llr, cap, refined, prep, u_l, t_flat = main_path_inputs(dev)
+    code = run["code"]
+    weights = nms_edge._scalar_weights(params, "NMS-1")
+    rows = []
+
+    def edge_row(name, traj, source_line, x, h_batch_note):
+        fn = nms_edge.decode_traj_edge if traj else nms_edge.decode_final_edge
+        got = fn(params, code.h, x, ITERS)
+        want = nms_edge._decode_edge_plain(x, code.h, ITERS, weights, traj)
+        err = compare(name, got, want)
+        if not torch.equal(got < 0, want < 0):
+            raise AssertionError(f"{name}: hard decisions differ")
+        # the irregular qc_96_48 code (check degrees {6, 7}, dummy edges)
+        qc = get_code("qc_96_48")
+        xq = torch.randn((4096, qc.n), generator=torch.Generator(device=dev)
+                         .manual_seed(3), device=dev) * 0.8 + 1.0
+        got_q = fn(params, qc.h, xq, ITERS)
+        want_q = nms_edge._decode_edge_plain(xq, qc.h, ITERS, weights, traj)
+        err = max(err, compare(name + " qc_96_48", got_q, want_q))
+        if not torch.equal(got_q < 0, want_q < 0):
+            raise AssertionError(f"{name} qc_96_48: hard decisions differ")
+        b = x.shape[0]
+        slots = ITERS + 1 if traj else 1
+        nbytes = 4 * b * code.n * (1 + slots)
+        ms, bound_by = bound_ms(nbytes, nms_edge_ops(code.h, b, ITERS) / F32_INSTR)
+        row = {
+            "name": name, "route": "cuda",
+            "source": "short_ldpc_decoding_osd_tpu_torch/csrc/nms_edge.cu",
+            "replaces": source_line,
+            "launches": None, "max_abs_err": err,
+            "ms": cuda_ms(lambda: fn(params, code.h, x, ITERS), 20),
+            "plain_ms": cuda_ms(lambda: nms_edge._decode_edge_plain(
+                x, code.h, ITERS, weights, traj), 5, warmup=1),
+            "bound_ms": ms, "bound_by": bound_by, "library_ms": None,
+            "shape": h_batch_note,
+        }
+        log(f"{name}: max_abs_err {err:.3g}, kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, bound {ms:.4f} ms ({bound_by})")
+        rows.append(row)
+
+    edge_row("K1 nms_edge_final", False,
+             "short_ldpc_decoding_osd_tpu/ops/nms_edge_pallas.py:330",
+             llr, f"llr ({CAP_B}, 128) f32 -> ({CAP_B}, 128), T=12")
+    edge_row("K2 nms_edge_traj", True,
+             "short_ldpc_decoding_osd_tpu/ops/nms_edge_pallas.py:406",
+             cap["llr"].contiguous(), f"llr ({CAP}, 128) f32 -> (13, {CAP}, 128)")
+
+    m_mat = prep.m_matrix.contiguous()
+    got = osd_disc.lterm(m_mat, u_l, t_flat)
+    want = osd_disc.lterm_reference(m_mat, u_l, t_flat)
+    err = compare("K5 lterm", got, want, rel=True)
+    del want
+    rng = np.random.default_rng(1)
+    small = [torch.as_tensor(a, device=dev) for a in (
+        rng.integers(0, 2, (5, 61, 60)).astype(np.int8),
+        rng.normal(0, 1.5, (5, 61)).astype(np.float32),
+        rng.integers(0, 2, (130, 60)).astype(np.int8))]
+    err = max(err, compare("K5 lterm (5,61,60)x130", osd_disc.lterm(*small),
+                           osd_disc.lterm_reference(*small), rel=True))
+    b, m, k = m_mat.shape
+    ntot = t_flat.shape[0]
+    nbytes = m_mat.numel() + 4 * u_l.numel() + t_flat.numel() + 4 * b * ntot
+    # binary MACs on the int8 tensor cores; one f32 FMA per (frame, row, TEP)
+    # for the u_l-weighted parity sum
+    bms, bound_by = bound_ms(nbytes, 2.0 * b * m * k * ntot / INT8_OPS,
+                             1.0 * b * m * ntot / F32_INSTR)
+
+    def library():
+        # one einsum on the fp16 tensor cores (0/1 sums <= 64 are exact in
+        # fp16), mod 2, then the u_l reduction: the yardstick, never used
+        # by the port
+        prods = torch.einsum("bmk,nk->bmn", m_mat.half(), t_flat.half()).float()
+        return torch.einsum("bm,bmn->bn", u_l, prods.remainder_(2.0))
+
+    compare("K5 library yardstick", library(), got, rel=True)
+    row = {
+        "name": "K5 lterm", "route": "cuda",
+        "source": "short_ldpc_decoding_osd_tpu_torch/csrc/osd_disc.cu",
+        "replaces": "short_ldpc_decoding_osd_tpu/ops/osd_disc_pallas.py:40",
+        "launches": None, "max_abs_err": err,
+        "ms": cuda_ms(lambda: osd_disc.lterm(m_mat, u_l, t_flat), 20),
+        "plain_ms": cuda_ms(lambda: osd_disc.lterm_reference(m_mat, u_l, t_flat),
+                            3, warmup=1),
+        "bound_ms": bms, "bound_by": bound_by,
+        "library_ms": cuda_ms(library, 3, warmup=1),
+        "shape": f"M ({b}, {m}, {k}) int8, u_l ({b}, {m}) f32, T ({ntot}, {k}) "
+                 f"int8 -> ({b}, {ntot}) f32",
+    }
+    log(f"K5 lterm: max_abs_err {err:.3g}, kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
+        f"{bms:.4f} ms ({bound_by})")
+    rows.append(row)
+
+    # the GPU's prepare (stable sort, first-index GE pivots) bit-exact
+    # against the same function on the CPU
+    ref = engine.prepare(*(t[:4096].cpu() for t in (
+        refined, cap["llr"], cap["labels"])), code.h_osd, code.k)
+    for field in ("order_updated", "order_original", "order_labels", "m_matrix",
+                  "swap_len", "lrb_ranks", "hard_original", "hard_updated",
+                  "mag_original"):
+        if not torch.equal(getattr(prep, field)[:4096].cpu(), getattr(ref, field)):
+            raise AssertionError(f"prepare.{field}: GPU differs from CPU")
+    compare("prepare.truth_discrepancy", prep.truth_discrepancy[:4096].cpu(),
+            ref.truth_discrepancy, rel=True)
+    log("prepare: GPU == CPU bit for bit on 4096 captured rows")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_main_path(dev, rows):
+    """The entry point ``run_two_phase`` spelled out, so that the launch
+    counts bracket exactly the timed rounds: reset after the warm-up, read
+    before the per-stage split (which calls K2 and K5 on its own)."""
+    two_phase = system.TwoPhase(cap_b=CAP_B, cap=CAP, snr_db=3.0, device=dev)
+    two_phase.full_round(10**6)  # warm-up
+    synchronize(dev)
+    _kernels.reset_launches()
+    out = two_phase.measure(ROUNDS)
+    launches = dict(_kernels.LAUNCHES)
+    out["system_stage_s"] = two_phase.stage_times(ROUNDS)
+    want = {"nms_edge_final": 2 * ROUNDS, "nms_edge_traj": ROUNDS, "lterm": ROUNDS}
+    log(f"main path launches over {ROUNDS} timed rounds: {launches} "
+        f"(expected {want})")
+    for row, key in zip(rows, ("nms_edge_final", "nms_edge_traj", "lterm")):
+        row["launches"] = launches[key]
+    if launches != want:
+        raise AssertionError(f"main-path launches {launches} != {want}")
+
+    frames, errors = out["system_frames"], out["system_frame_errors"]
+    failures, succ = out["system_failures"], out["system_osd_success"]
+    fer_ci = wilson_interval(errors, frames, Z999)
+    ref_fer_ci = wilson_interval(round(REF_FER * REF_FRAMES), REF_FRAMES, Z999)
+    share_ci = wilson_interval(succ, failures, Z999)
+    ref_share_ci = wilson_interval(REF_OSD_SUCC, REF_FAILURES, Z999)
+    fer99 = wilson_interval(errors, frames, 2.5758)
+    log(f"frames {frames}, NMS FER {errors / frames:.6f} (99% Wilson "
+        f"{fer99[0]:.6f}-{fer99[1]:.6f}), failures {failures}, OSD successes "
+        f"{succ} ({succ / failures:.5f}), strict {out['system_osd_strict_success']}, "
+        f"unconfirmed {out['system_osd_unconfirmed']}, capture overflow "
+        f"{out['system_capture_overflow']}")
+    split = out["system_split_s"]
+    log(f"phase 1 {split['phase1_nms_capture_only']:.4f} s, phase 2 "
+        f"{split['phase2_implied']:.4f} s, total {split['two_phase_total']:.4f} s, "
+        f"system {out['system_codewords_per_s']:.1f} cw/s, OSD "
+        f"{out['system_osd_failures_per_s']:.1f} failures/s "
+        f"on {torch.cuda.get_device_name(0)}")
+    log("stages (s): " + json.dumps(out["system_stage_s"]))
+    log("system: " + json.dumps(out))
+    if not (fer_ci[0] <= ref_fer_ci[1] and ref_fer_ci[0] <= fer_ci[1]):
+        raise AssertionError(f"NMS FER CI {fer_ci} misses the record {ref_fer_ci}")
+    if not (share_ci[0] <= ref_share_ci[1] and ref_share_ci[0] <= share_ci[1]):
+        raise AssertionError(
+            f"OSD success share CI {share_ci} misses the record {ref_share_ci}")
+    log("statistics agree with BENCH_r05.json (99.9% Wilson intervals overlap)")
+
+
+def phase_profile(dev, cap_b: int = CAP_B, cap: int = CAP):
+    """One main-path round under ``torch.profiler``: the device's busy share
+    (device time over the same round's unprofiled wall time) and the
+    kernels that take the most device time."""
+    two_phase = system.TwoPhase(cap_b=cap_b, cap=cap, device=dev)
+    two_phase.full_round(1)  # warm-up
+    synchronize(dev)
+    t0 = time.perf_counter()
+    two_phase.full_round(1)
+    synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        two_phase.full_round(1)
+        synchronize(dev)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms <= 0:
+        log(f"profile: one round {wall_ms:.2f} ms wall; the profiler saw no "
+            "device time, so the device busy share is not measured")
+        return
+    log(f"profile of one round: {wall_ms:.2f} ms wall (unprofiled), device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in kernels)} device operations")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+
+
+def phase_card_vs_cpu(dev):
+    """Walk decisions on the committed failure set: card == CPU, frame for
+    frame."""
+    blob = np.load(os.path.join(ROOT, "runs", "refparity", "failures.npz"))
+    results = []
+    for d in (dev, torch.device("cpu")):
+        run = load_run(os.path.join(ROOT, "runs", "r4_pipeline"), d)
+        code = run["code"]
+        blocks, acc = segments.build_tep_blocks(run["path"], code.k, 6)
+        teps, mask, bounds = segments.pack_tep_chunks(blocks)
+        step = engine.make_dl_osd_step_from_llr(run["dia"], code, "NMS-1", ITERS,
+                                                bounds=bounds)
+        out, _, det = step({k: v.cpu() for k, v in run["nms_params"].items()},
+                           torch.as_tensor(blob["llr"], device=d),
+                           torch.as_tensor(blob["labels"], device=d),
+                           torch.as_tensor(teps, device=d),
+                           torch.as_tensor(mask, device=d), acc, run["fcn"])
+        results.append({k: out[k].cpu() for k in (
+            "success", "strict_success", "complexity", "window_num")} | {
+            "detected": det.cpu()})
+    for key, val in results[0].items():
+        if not torch.equal(val, results[1][key]):
+            raise AssertionError(f"{key}: card differs from CPU on refparity")
+    log(f"refparity (96 rows): card == CPU frame for frame; "
+        f"{int(results[0]['success'].sum())} successes")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = phase_environment()
+    rows = phase_kernels(dev)
+    phase_card_vs_cpu(dev)
+    phase_main_path(dev, rows)
+    phase_profile(dev)
+    log(json.dumps({"kernels": rows}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

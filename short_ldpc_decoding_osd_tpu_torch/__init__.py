@@ -1,0 +1,21 @@
+"""PyTorch + CUDA port of ``short_ldpc_decoding_osd_tpu`` for NVIDIA Hopper.
+
+Module names mirror the JAX package so each counterpart is easy to find.
+The JAX package stays the reference; this package imports ``torch`` and
+never ``jax``, ``flax`` or anything of the JAX package (the small host-numpy
+modules it needs are copied, not imported).
+
+Entry points take an explicit ``device=`` that defaults to ``"cuda"``; they
+raise when CUDA is unavailable instead of falling back to the CPU.  Tests
+pass ``device="cpu"``, where every hand-written kernel's wrapper runs its
+plain PyTorch twin.
+
+TF32 is switched off for matmuls and convolutions: the JAX package runs the
+weighted contractions at ``Precision.HIGHEST`` (``osd/engine.py``,
+``models/dia.py``), and a TF32 product flips reliability ranks near ties.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,135 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library under ``build/kernels/`` (next to
+the package, git-ignored), then loaded with ``ctypes``.  All sources build
+at the first CUDA use, one ``nvcc`` process per source, all started
+together.  The library file name carries a digest of its source, so an
+edited kernel is never served by a stale build.
+
+``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main path
+went through the kernels.  ``reset_launches`` sets every count to 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+SOURCES = ("nms_edge", "osd_disc")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no fused multiply-add: the kernels then round exactly like their plain
+    # PyTorch twins, which multiply and add in separate steps
+    "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+LAUNCHES = {"nms_edge_final": 0, "nms_edge_traj": 0, "lterm": 0}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# seconds spent in nvcc and its -Xptxas -v report, per source
+BUILD_SECONDS: dict[str, float] = {}
+BUILD_LOG: dict[str, str] = {}
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "nms_edge": {
+        # llr, out, edge_col, var_edges, batch, n, m, dc, dv, iters,
+        # w_vc, w_chk, w_marg, traj, stream
+        "nms_edge_decode": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                            _F, _F, _F, _I, _VP],
+    },
+    "osd_disc": {
+        # m_matrix, u_l, teps, out, batch, m, k, ntot, stream
+        "lterm_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    },
+}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as fh:
+        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build_all() -> dict[str, float]:
+    """Compile every source that has no current build, in parallel; return
+    the seconds each build took (0 for a library already built)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in SOURCES:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            BUILD_SECONDS.setdefault(name, 0.0)
+            continue
+        tmp = out + f".tmp{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return dict(BUILD_SECONDS)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, building all sources on first use."""
+    with _lock:
+        if name not in _libs:
+            build_all()
+            for src in SOURCES:
+                lib = ctypes.CDLL(_lib_path(src))
+                for fn, argtypes in _SIGNATURES[src].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _libs[src] = lib
+        return _libs[name]
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` code returned by a launch."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {status}")
+
+
+def stream_handle(device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
+    return torch.cuda.current_stream(device).cuda_stream

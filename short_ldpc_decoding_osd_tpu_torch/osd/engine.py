@@ -1,0 +1,348 @@
+"""Batched OSD engine: reorder -> GF(2) elimination -> TEP walk -> stopper.
+
+Port of ``short_ldpc_decoding_osd_tpu/osd/engine.py`` (reference
+``DL_OSD_Testing_serial/ordered_statistics_decoding.py``):
+
+* the permutation dance (stable |LLR| co-sort, GE column swaps, MRB re-sort)
+  is ``ops.gf2ops``, bit-exact against the JAX package;
+* candidate re-encoding and the weighted-Hamming discrepancy fold into the
+  affine map ``c0 + u_l @ mod2(M @ T^T) + u_m @ T^T`` (``x ^ y = x + y -
+  2xy``), whose parity term is the CUDA kernel K5 (``ops.osd_disc.lterm``)
+  in the chunked TEP layout;
+* the sliding-window stopper walk is replayed for all frames at once.
+
+The JAX package demotes to a slower path when a fused kernel fails to
+compile (``make_dl_osd_step*``); the port does not: a kernel that fails to
+build or launch fails the run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops import gf2ops, nms, nms_edge, osd_disc
+from ..ops.nms import first_argmin, first_index
+
+_BIG = 3.4e38  # f32-representable "no candidate" discrepancy
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedBatch:
+    """Per-frame quantities in the final (reliability + GE) column order."""
+
+    order_updated: torch.Tensor  # (B, n) DIA-refined / last-iteration inputs
+    order_original: torch.Tensor  # (B, n) channel-iteration inputs
+    order_labels: torch.Tensor  # (B, n) int8 transmitted bits
+    m_matrix: torch.Tensor  # (B, m, k) int8
+    swap_len: torch.Tensor  # (B,)
+    lrb_ranks: torch.Tensor  # (B, n-k)
+    hard_original: torch.Tensor  # (B, n) 0/1 from the original channel
+    hard_updated: torch.Tensor  # (B, n) 0/1 from the updated metric
+    mag_original: torch.Tensor  # (B, n) |original|
+    truth_discrepancy: torch.Tensor  # (B,) weighted dist of label vs hard_original
+
+
+def prepare(updated: torch.Tensor, original: torch.Tensor,
+            labels: torch.Tensor, h, k: int) -> PreparedBatch:
+    """Sort by |updated| ascending, run GE, apply the final index order
+    (``check_matrix_reorder`` + ``identify_mrb`` + the gathers of
+    ``sliding_osd``, ``ordered_statistics_decoding.py:169-185``).
+
+    The sort must be STABLE and carry ``updated``, ``original`` and
+    ``labels`` in exactly its order (``engine.py:67-74`` uses ``lax.sort``
+    with an iota tiebreak): equal |updated| values do occur, and an unstable
+    CUDA sort would reorder them and change the MRB."""
+    perm = torch.sort(updated.abs(), dim=1, stable=True).indices
+    u_s = torch.gather(updated, 1, perm)
+    o_s = torch.gather(original, 1, perm)
+    l_s = torch.gather(labels.to(torch.int8), 1, perm)
+    mrb = gf2ops.identify_mrb_from_perm(perm, h, k)
+    io = mrb["index_order"]
+    order_updated = torch.gather(u_s, 1, io)
+    order_original = torch.gather(o_s, 1, io)
+    order_labels = torch.gather(l_s, 1, io)
+    hard_original = (order_original <= 0).to(torch.int8)
+    hard_updated = (order_updated <= 0).to(torch.int8)
+    mag_original = order_original.abs()
+    truth = ((order_labels ^ hard_original).to(torch.float32)
+             * mag_original).sum(1)
+    return PreparedBatch(
+        order_updated=order_updated,
+        order_original=order_original,
+        order_labels=order_labels,
+        m_matrix=mrb["m_matrix"],
+        swap_len=mrb["swap_len"],
+        lrb_ranks=mrb["lrb_ranks"],
+        hard_original=hard_original,
+        hard_updated=hard_updated,
+        mag_original=mag_original,
+        truth_discrepancy=truth,
+    )
+
+
+def _discrepancy_terms(prep: PreparedBatch, k: int):
+    """(c0, u_l, u_m, base_mrb) of the affine TEP-discrepancy map."""
+    n = prep.hard_original.shape[1]
+    m = n - k
+    h_l = prep.hard_original[:, :m].to(torch.float32)
+    h_m = prep.hard_original[:, m:].to(torch.float32)
+    w_l = prep.mag_original[:, :m]
+    w_m = prep.mag_original[:, m:]
+    base_mrb = prep.hard_updated[:, m:].to(torch.float32)  # (B, k)
+    # v = M @ base_mrb (the base LRB estimate), e = v ^ h_l
+    v = gf2ops.mod2_matmul(prep.m_matrix, base_mrb[..., None])[..., 0]
+    v = v.to(torch.float32)
+    e = v + h_l - 2.0 * v * h_l
+    f = base_mrb + h_m - 2.0 * base_mrb * h_m
+    c0 = (w_l * e).sum(1) + (w_m * f).sum(1)
+    u_l = w_l * (1.0 - 2.0 * e)
+    u_m = w_m * (1.0 - 2.0 * f)
+    return c0, u_l, u_m, base_mrb
+
+
+def _disc_flat_chunked(prep: PreparedBatch, teps: torch.Tensor,
+                       mask: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, C*chunk) masked discrepancies for the dense-chunked TEP layout;
+    the ``u_l``-weighted parity term is kernel K5 on CUDA."""
+    c0, u_l, u_m, _ = _discrepancy_terms(prep, k)
+    t_flat = teps.reshape(-1, teps.shape[-1]).to(torch.int8).contiguous()
+    lterm = osd_disc.lterm(prep.m_matrix.contiguous(), u_l.contiguous(), t_flat)
+    disc = c0[:, None] + lterm + u_m @ t_flat.T.to(torch.float32)
+    return torch.where(mask.reshape(-1)[None, :], disc, _BIG)
+
+
+def _block_disc_scan(prep: PreparedBatch, teps, mask, k: int, post=None):
+    """Loop over TEP blocks -> per-block ``post(disc)``, or the stacked
+    masked discrepancies (P, B, Nmax) when ``post`` is None."""
+    c0, u_l, u_m, _ = _discrepancy_terms(prep, k)
+    m_f = prep.m_matrix.to(torch.float32)
+    outs = []
+    for tep, valid in zip(teps, mask):
+        tep_f = tep.to(torch.float32)
+        prods = torch.einsum("bmk,nk->bmn", m_f, tep_f)
+        a = prods - 2.0 * torch.floor(prods * 0.5)
+        disc = c0[:, None] + torch.einsum("bm,bmn->bn", u_l, a) + u_m @ tep_f.T
+        disc = torch.where(valid[None, :], disc, _BIG)
+        outs.append(disc if post is None else post(disc))
+    if post is None:
+        return torch.stack(outs, 0)
+    return tuple(torch.stack(parts, 0) for parts in zip(*outs))
+
+
+def block_discrepancy_minima(prep: PreparedBatch, teps: torch.Tensor,
+                             mask: torch.Tensor, k: int,
+                             bounds: tuple | None = None):
+    """Per-block minima (B, P) of the weighted discrepancy and the index of
+    the minimizing TEP inside each block (B, P).
+
+    ``teps``/``mask`` are (P, Nmax, k)/(P, Nmax) padded blocks, or — with
+    ``bounds`` from ``segments.pack_tep_chunks`` — (C, chunk, k)/(C, chunk)
+    dense chunks, the main path's layout (the kernel route)."""
+    if bounds is None:
+        minima, argmins = _block_disc_scan(
+            prep, teps, mask, k, lambda d: (d.amin(1), first_argmin(d, 1)))
+        return minima.T, argmins.T
+    flat = _disc_flat_chunked(prep, teps, mask, k)
+    b = flat.shape[0]
+    big = torch.full((b,), _BIG, dtype=flat.dtype, device=flat.device)
+    zero = torch.zeros((b,), dtype=torch.int64, device=flat.device)
+    # empty blocks mirror the padded path's all-masked result: _BIG, 0
+    minima = torch.stack(
+        [big if e == s else flat[:, s:e].amin(1) for s, e in bounds], 1)
+    argmins = torch.stack(
+        [zero if e == s else first_argmin(flat[:, s:e], 1) for s, e in bounds],
+        1)
+    return minima, argmins
+
+
+def stopper_apply(fcn_params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Sliding-window stopper FCN: Dense(w+1, linear) -> Dense(2, softmax),
+    no biases, full f32 (``nn_net.py:136-148``)."""
+    hidden = x @ fcn_params["w1"]
+    return torch.softmax(hidden @ fcn_params["w2"], dim=-1)
+
+
+def _check_walk_shape(num_blocks: int, window: int) -> int:
+    steps = num_blocks - window + 1
+    if steps < 1:
+        raise ValueError(
+            f"decoding path has {num_blocks} blocks < window {window}; "
+            "shorten the window or lengthen the path"
+        )
+    return steps
+
+
+def sliding_walk(block_minima: torch.Tensor, fcn_params: dict,
+                 window: int = 5, soft_margin: float = 0.9) -> dict:
+    """Replay the serial sliding-window walk (``sliding_osd``'s loop,
+    ``:191-219``) for every frame at once.
+
+    The window at step kk is ``blocks[kk:kk+window]`` and the running global
+    minimum is a prefix minimum, so: one batched FCN over all windows, a
+    cummin for the skip rule (kk > 0 and the new block's minimum exceeds the
+    global minimum), and first-true reductions.  Equal to the step-by-step
+    replay :func:`_sliding_walk_scan`.  Returns per frame ``stop_k``,
+    ``deep_limit`` (blocks expanded), ``global_min``, ``windows_evaluated``
+    and ``window_num``."""
+    batch, num_blocks = block_minima.shape
+    steps = _check_walk_shape(num_blocks, window)
+    dev = block_minima.device
+    idx = (torch.arange(steps, device=dev)[:, None]
+           + torch.arange(window, device=dev)[None, :])
+    sorted_wins = torch.sort(block_minima[:, idx], dim=2).values
+    kks = torch.arange(steps, dtype=torch.float32, device=dev)
+    feats = torch.cat(
+        [sorted_wins, kks[None, :, None].expand(batch, steps, 1)], 2)
+    probs = stopper_apply(fcn_params, feats.reshape(batch * steps, window + 1))
+    fire = probs[:, 1].reshape(batch, steps) > soft_margin
+
+    cmin = torch.cummin(block_minima, 1).values  # prefix minima
+    # skip(kk>0) = blocks[window-1+kk] > cmin[window+kk-2]
+    skip_tail = block_minima[:, window:] > cmin[:, window - 1:-1]
+    skip = torch.cat(
+        [torch.zeros((batch, 1), dtype=torch.bool, device=dev), skip_tail], 1)
+    cand = ~skip & fire
+    stop_k = torch.where(cand.any(1), first_index(cand, 1), steps - 1)
+    deep_limit = stop_k + window
+    evals = torch.gather(torch.cumsum((~skip).to(torch.int64), 1), 1,
+                         stop_k[:, None])[:, 0]
+    gmin = torch.gather(cmin, 1, (deep_limit - 1)[:, None])[:, 0]
+    return {
+        "stop_k": stop_k,
+        "deep_limit": deep_limit,
+        "global_min": gmin,
+        "windows_evaluated": evals,
+        "window_num": stop_k + 1,
+    }
+
+
+def _sliding_walk_scan(block_minima: torch.Tensor, fcn_params: dict,
+                       window: int = 5, soft_margin: float = 0.9) -> dict:
+    """Step-by-step replay of the serial walk (the test oracle for
+    :func:`sliding_walk`)."""
+    batch, num_blocks = block_minima.shape
+    steps = _check_walk_shape(num_blocks, window)
+    dev = block_minima.device
+    win = block_minima[:, :window]
+    gmin = win.amin(1)
+    stopped = torch.zeros(batch, dtype=torch.bool, device=dev)
+    stop_k = torch.full((batch,), -1, dtype=torch.int64, device=dev)
+    evals = torch.zeros(batch, dtype=torch.int64, device=dev)
+    advanced = torch.zeros(batch, dtype=torch.int64, device=dev)
+    for kk in range(steps):
+        new_block = block_minima[:, window - 1 + kk]
+        win_cur = win if kk == 0 else torch.cat(
+            [win[:, 1:], new_block[:, None]], 1)
+        skip = (new_block > gmin) if kk > 0 else torch.zeros_like(stopped)
+        feats = torch.cat(
+            [torch.sort(win_cur, 1).values,
+             torch.full((batch, 1), float(kk), device=dev)], 1)
+        fire = stopper_apply(fcn_params, feats)[:, 1] > soft_margin
+        evaluate = ~stopped & ~skip
+        gmin = torch.where(evaluate, torch.minimum(gmin, win_cur.amin(1)), gmin)
+        newly = evaluate & fire
+        stop_k = torch.where(newly & (stop_k < 0), kk, stop_k)
+        advance = ~stopped  # the serial deep_limit advances on skipped steps
+        evals = evals + evaluate.to(torch.int64)
+        advanced = advanced + advance.to(torch.int64)
+        stopped = stopped | newly
+        win = torch.where(advance[:, None], win_cur, win)
+    stop_k = torch.where(stop_k >= 0, stop_k, advanced - 1)
+    return {
+        "stop_k": stop_k,
+        "deep_limit": stop_k + window,
+        "global_min": gmin,
+        "windows_evaluated": evals,
+        "window_num": stop_k + 1,
+    }
+
+
+def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
+                acc_block_sizes, fcn_params: dict, k: int, window: int = 5,
+                soft_margin: float = 0.9, rel_tol: float = 1e-3,
+                bounds: tuple | None = None) -> dict:
+    """Batched DL-OSD evaluation of one failure batch.
+
+    ``success`` is the reference's oracle proxy ``global_min ==
+    truth_discrepancy`` with a relative tolerance (the two sums are
+    different but mathematically equal reductions); ``strict_success``
+    checks that the argmin candidate within the expanded blocks equals the
+    transmitted codeword.  Also returns the TEP complexity, window counts,
+    the walk's global minimum and expanded depth, and the block minima."""
+    minima, argmins = block_discrepancy_minima(prep, teps, mask, k, bounds)
+    walk = sliding_walk(minima, fcn_params, window=window,
+                        soft_margin=soft_margin)
+    dev = minima.device
+    acc = torch.as_tensor(acc_block_sizes, device=dev).to(torch.int64)
+    complexity = acc[walk["deep_limit"]]
+    scale = torch.clamp(prep.truth_discrepancy, min=1.0)
+    success = (walk["global_min"] - prep.truth_discrepancy).abs() <= rel_tol * scale
+
+    num_blocks = minima.shape[1]
+    in_walk = (torch.arange(num_blocks, device=dev)[None, :]
+               < walk["deep_limit"][:, None])
+    best_block = first_argmin(torch.where(in_walk, minima, _BIG), 1)
+    best_inner = torch.gather(argmins, 1, best_block[:, None])[:, 0]
+    if bounds is None:
+        tep_sel = teps[best_block, best_inner]
+    else:
+        starts = torch.as_tensor([s for s, _ in bounds], device=dev)
+        tep_sel = teps.reshape(-1, teps.shape[-1])[starts[best_block] + best_inner]
+    base_mrb = prep.hard_updated[:, -k:].to(torch.float32)
+    mrb_c = (base_mrb - tep_sel.to(torch.float32)).abs()
+    prods = torch.einsum("bmk,bk->bm", prep.m_matrix.to(torch.float32), mrb_c)
+    lrb_c = prods - 2.0 * torch.floor(prods * 0.5)
+    cand = torch.cat([lrb_c, mrb_c], 1)
+    strict = (cand == prep.order_labels.to(torch.float32)).all(1)
+    return {
+        "success": success,
+        "strict_success": strict,
+        "complexity": complexity,
+        "window_num": walk["window_num"],
+        "windows_evaluated": walk["windows_evaluated"],
+        "global_min": walk["global_min"],
+        "deep_limit": walk["deep_limit"],
+        "block_minima": minima,
+    }
+
+
+def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
+                              window: int = 5, soft_margin: float = 0.9,
+                              bounds: tuple | None = None):
+    """Phase-2 step consuming RAW failure LLRs: the (T+1)-slot trajectory
+    re-decode, DIA refinement (``model.refine_fast``), OSD preparation and
+    the sliding walk.
+
+    Returns ``step(nms_params, llr, labels, teps, mask, acc, fcn_params) ->
+    (outputs, refined, detected)``; ``detected`` is the re-decode's
+    detected-failure flag (``nms.frame_stats``), so rows the capture flagged
+    but the re-decode does not confirm can be excluded by the caller.
+    ``model`` carries its own weights (an ``nn.Module``).
+
+    The re-decode is ``nms_edge.decode_traj_edge`` (kernel K2 on CUDA),
+    except for NMS-r, whose neural check update only the dense
+    ``nms.decode`` has.  The JAX step's ``with_iteration_stats``
+    diagnostics are not ported."""
+    decode_h = code.extended().h if variant == "ENMS" else code.h
+    edge_cols = nms.edge_columns(decode_h) if variant == "NMS-r" else None
+    k = code.k
+    h_osd = code.h_osd
+
+    def step(nms_params, llr, labels, teps, mask, acc, fcn_params):
+        if edge_cols is None:
+            outs = nms_edge.decode_traj_edge(
+                nms_params, decode_h, llr, num_iterations, variant)
+        else:
+            outs = nms.decode(nms_params, decode_h, llr, num_iterations,
+                              variant, edge_cols)
+        traj = outs.permute(1, 0, 2)  # (B, T+1, n)
+        st = nms.frame_stats(traj[:, -1], labels, decode_h)
+        refined = model.refine_fast(traj)
+        prep = prepare(refined, llr, labels, h_osd, k)
+        out = sliding_osd(prep, teps, mask, acc, fcn_params, k, window=window,
+                          soft_margin=soft_margin, bounds=bounds)
+        return out, refined, st["detected_failure"]
+
+    return step

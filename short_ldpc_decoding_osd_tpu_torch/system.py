@@ -1,0 +1,190 @@
+"""The two-phase system on the port: the main path end to end.
+
+Port of ``bench.py:199-419`` (``system_two_phase_throughput``).  One round:
+
+1. capture step (``mc.harness.build_nms_mc_step``): AWGN sample -> kernel
+   K1 (``decode_final_edge``) -> ``frame_stats`` -> stable failures-first
+   compaction into a ``cap``-row buffer;
+2. phase 2 (``osd.engine.make_dl_osd_step_from_llr``): kernel K2
+   (``decode_traj_edge``) -> ``frame_stats`` on the last slot (detected
+   flags) -> ``ConvBitwise.refine_fast`` -> ``engine.prepare`` ->
+   ``engine.sliding_osd``, whose discrepancy parity term is kernel K5.
+
+:func:`run_two_phase` returns the fields of ``bench.py``'s ``system_*``
+keys, plus the NMS frame-error count, strict OSD successes and a per-stage
+time split from one extra round with a synchronisation between stages.
+:class:`TwoPhase` holds one loaded system and runs single rounds.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+
+from ._device import resolve_device, synchronize
+from .channel.awgn import ChannelSpec
+from .convert import load_run
+from .mc.harness import build_nms_mc_step
+from .ops import nms, nms_edge
+from .osd import engine, segments
+
+DEFAULT_RUN = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "runs", "r4_pipeline")
+
+
+class TwoPhase:
+    """A run directory's two-phase system, loaded on ``device``."""
+
+    def __init__(self, run_dir: str | None = None, cap_b: int = 262_144,
+                 cap: int = 32_768, snr_db: float = 3.0,
+                 device: str | torch.device = "cuda", seed: int = 77):
+        self.device = dev = resolve_device(device)
+        self.run_dir = run_dir or DEFAULT_RUN
+        self.cap_b, self.cap, self.snr_db, self.seed = cap_b, cap, snr_db, seed
+        run = load_run(self.run_dir, dev)
+        self.code, self.variant = run["code"], run["variant"]
+        self.iters = run["num_iterations"]
+        self.dia, self.fcn = run["dia"], run["fcn"]
+        cfg = run["config"]
+        # scalar weights are read on the host by the kernel wrappers: keeping
+        # them there avoids a device round trip per call
+        self.nms_params = {k: v.cpu() for k, v in run["nms_params"].items()}
+        blocks, acc = segments.build_tep_blocks(
+            run["path"], self.code.k, int(cfg.get("num_segments", 6)))
+        teps, mask, self.bounds = segments.pack_tep_chunks(blocks)
+        self.teps = torch.as_tensor(teps, device=dev)
+        self.mask = torch.as_tensor(mask, device=dev)
+        self.acc = torch.as_tensor(acc, dtype=torch.int64, device=dev)
+        self.window = int(cfg.get("window", 5))
+        self.soft_margin = float(cfg.get("soft_margin", 0.9))
+        self.capture_step = build_nms_mc_step(
+            self.code, self.variant, self.iters,
+            ChannelSpec.awgn(snr_db, self.code.rate), cap_b,
+            capture_capacity=cap, device=dev)
+        self.phase2 = engine.make_dl_osd_step_from_llr(
+            self.dia, self.code, self.variant, self.iters, window=self.window,
+            soft_margin=self.soft_margin, bounds=self.bounds)
+        self.generator = torch.Generator(device=dev)
+
+    def capture_round(self, i: int):
+        """Phase 1 of round ``i``: (counters, capture buffer)."""
+        self.generator.manual_seed(self.seed * 1_000_003 + i)
+        return self.capture_step(self.nms_params, self.generator)
+
+    def full_round(self, i: int):
+        """Both phases of round ``i``: (counters, captured count, success,
+        strict success, detected), the last three per buffer row."""
+        counters, buf = self.capture_round(i)
+        out, _, detected = self.phase2(self.nms_params, buf["llr"], buf["labels"],
+                                       self.teps, self.mask, self.acc, self.fcn)
+        return (counters, buf["count"], out["success"], out["strict_success"],
+                detected)
+
+    def stage_times(self, i: int) -> dict:
+        """Seconds per stage of round ``i``, each stage closed by a
+        synchronisation (the chain of ``make_dl_osd_step_from_llr``, spelled
+        out so each stage can be timed)."""
+        code, dev = self.code, self.device
+        decode_h = code.extended().h if self.variant == "ENMS" else code.h
+        walk = dict(window=self.window, soft_margin=self.soft_margin)
+        times = {}
+
+        def timed(name, fn):
+            synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn()
+            synchronize(dev)
+            times[name] = time.perf_counter() - t0
+            return out
+
+        _, buf = timed("capture_step_k1", lambda: self.capture_round(i))
+        traj = timed("traj_redecode_k2", lambda: nms_edge.decode_traj_edge(
+            self.nms_params, decode_h, buf["llr"], self.iters,
+            self.variant).permute(1, 0, 2))
+        timed("frame_stats", lambda: nms.frame_stats(traj[:, -1], buf["labels"],
+                                                     decode_h))
+        refined = timed("dia_refine_fast", lambda: self.dia.refine_fast(traj))
+        prep = timed("prepare_sort_ge", lambda: engine.prepare(
+            refined, buf["llr"], buf["labels"], code.h_osd, code.k))
+        minima, _ = timed("disc_minima_k5", lambda: engine.block_discrepancy_minima(
+            prep, self.teps, self.mask, code.k, self.bounds))
+        timed("stopper_walk", lambda: engine.sliding_walk(minima, self.fcn, **walk))
+        timed("sliding_osd_total", lambda: engine.sliding_osd(
+            prep, self.teps, self.mask, self.acc, self.fcn, code.k,
+            bounds=self.bounds, **walk))
+        return times
+
+    def measure(self, rounds: int) -> dict:
+        """``rounds`` rounds of phase 1 alone, then ``rounds`` full rounds,
+        each loop timed on the host clock and closed by a device
+        synchronisation; returns ``bench.py``'s ``system_*`` fields.  Call
+        it after a warm-up round: the loops launch K1 ``2 * rounds`` times
+        and K2 and K5 ``rounds`` times each."""
+        dev, cap = self.device, self.cap
+        t0 = time.perf_counter()
+        for i in range(rounds):
+            last = self.capture_round(i)[0]
+        synchronize(dev)
+        del last
+        t_phase1 = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        results = [self.full_round(i) for i in range(rounds)]
+        synchronize(dev)
+        t_total = time.perf_counter() - t0
+
+        frames_done = frame_errors = failures = 0
+        succ = strict = unconfirmed = overflow = 0
+        for counters, count, s, s_strict, d in results:
+            c = counters.cpu().numpy()
+            valid = min(int(count), cap)  # failure rows sort first in the buffer
+            sv, ssv, dv = (x[:valid].cpu().numpy() for x in (s, s_strict, d))
+            frames_done += int(c[0])
+            frame_errors += int(c[1])
+            failures += int(c[3])
+            overflow += max(0, int(c[3]) - cap)
+            succ += int((sv & dv).sum())
+            strict += int((ssv & dv).sum())
+            unconfirmed += int((~dv).sum())
+
+        return {
+            "system_codewords_per_s": frames_done / t_total,
+            "system_frames": frames_done,
+            "system_snr_db": self.snr_db,
+            "system_frame_errors": frame_errors,
+            "system_fer_nms": frame_errors / max(frames_done, 1),
+            "system_failures": failures,
+            "system_osd_rows_walked": rounds * cap,
+            "system_osd_failures_per_s": failures / max(t_total - t_phase1, 1e-9),
+            "system_osd_success": succ,
+            "system_osd_strict_success": strict,
+            "system_osd_unconfirmed": unconfirmed,
+            "system_capture_overflow": overflow,
+            "system_split_s": {
+                "phase1_nms_capture_only": t_phase1,
+                "two_phase_total": t_total,
+                "phase2_implied": t_total - t_phase1,
+            },
+            "system_run_dir": self.run_dir,
+            "device": str(dev),
+        }
+
+
+def run_two_phase(run_dir: str | None = None, frames: int = 2_097_152,
+                  cap_b: int = 262_144, cap: int = 32_768,
+                  snr_db: float = 3.0, device: str | torch.device = "cuda",
+                  seed: int = 77) -> dict:
+    """Run ``frames // cap_b`` rounds (at least one) of the two-phase system
+    and return its counters and times (seconds on the host clock, each
+    closed by a device synchronisation), with a per-stage split from one
+    more round."""
+    system = TwoPhase(run_dir, cap_b, cap, snr_db, device, seed)
+    system.full_round(10**6)  # warm-up: kernel build, allocator, library handles
+    synchronize(system.device)
+    rounds = max(1, frames // cap_b)
+    out = system.measure(rounds)
+    out["system_stage_s"] = system.stage_times(rounds)
+    return out

@@ -1,0 +1,160 @@
+"""Port OSD stack (gf2ops, segments, osd_disc, engine) vs the JAX package.
+
+GE, the MRB and ``prepare`` are 0/1 and permutation arithmetic plus exact
+gathers, so they must be bit-exact against both JAX GE routes (dense and
+bit-packed).  ``lterm`` sums in another order: 1e-5 relative, the bound of
+``tests/test_osd_disc_pallas.py``."""
+
+import json
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from short_ldpc_decoding_osd_tpu.codes import get_code as jax_get_code
+from short_ldpc_decoding_osd_tpu.ops import gf2ops as jgf2
+from short_ldpc_decoding_osd_tpu.ops import osd_disc_pallas as jodp
+from short_ldpc_decoding_osd_tpu.osd import engine as jengine
+from short_ldpc_decoding_osd_tpu.osd import segments as jseg
+from short_ldpc_decoding_osd_tpu_torch.ops import gf2ops, osd_disc
+from short_ldpc_decoding_osd_tpu_torch.osd import engine, segments
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _frames(code, b, seed):
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 2, (b, code.k))
+    words = (msgs @ code.g % 2).astype(np.int32)
+    noise = rng.normal(1.0, 0.9, (b, code.n))
+    original = np.where(words == 0, noise, -noise).astype(np.float32)
+    refined = (original * rng.uniform(0.8, 1.2, (b, code.n))).astype(np.float32)
+    # exact ties in |refined|: the stable co-sort must keep their order
+    refined[:, 5] = refined[:, 9]
+    return refined, original, words
+
+
+@pytest.mark.parametrize("code_name", ["ccsds_128_64", "array_121_60"])
+def test_batched_row_reduce_bit_exact(code_name):
+    code = jax_get_code(code_name)
+    h = code.h_osd if code_name == "ccsds_128_64" else code.h  # rank-deficient
+    rng = np.random.default_rng(0)
+    perm = np.stack([rng.permutation(code.n) for _ in range(12)])
+    h_p = h[:, perm].transpose(1, 0, 2)
+    ref_mat, ref_order = jgf2.batched_row_reduce(jnp.asarray(h_p))
+    mat, order = gf2ops.batched_row_reduce(torch.as_tensor(h_p))
+    np.testing.assert_array_equal(mat.numpy(), np.asarray(ref_mat))
+    np.testing.assert_array_equal(order.numpy(), np.asarray(ref_order))
+
+
+@pytest.mark.parametrize("use_packed", [False, True])
+def test_identify_mrb_from_perm_bit_exact(use_packed):
+    code = jax_get_code("ccsds_128_64")
+    refined, _, _ = _frames(code, 16, seed=1)
+    perm = np.argsort(np.abs(refined), axis=1, kind="stable")
+    ref = jgf2.identify_mrb_from_perm(jnp.asarray(perm, jnp.int32),
+                                      jnp.asarray(code.h_osd), code.k,
+                                      use_packed=use_packed)
+    got = gf2ops.identify_mrb_from_perm(torch.as_tensor(perm), code.h_osd, code.k)
+    for key in ("m_matrix", "index_order", "swap_len", "lrb_ranks"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]))
+
+
+def test_prepare_bit_exact():
+    code = jax_get_code("ccsds_128_64")
+    refined, original, words = _frames(code, 24, seed=2)
+    ref = jengine.prepare(jnp.asarray(refined), jnp.asarray(original),
+                          jnp.asarray(words), jnp.asarray(code.h_osd), code.k)
+    got = engine.prepare(torch.as_tensor(refined), torch.as_tensor(original),
+                         torch.as_tensor(words), code.h_osd, code.k)
+    for field in ("order_updated", "order_original", "order_labels",
+                  "m_matrix", "swap_len", "lrb_ranks", "hard_original",
+                  "hard_updated", "mag_original"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(ref, field)), field)
+    # a 128-term f32 sum: XLA and torch may associate it differently
+    np.testing.assert_allclose(got.truth_discrepancy.numpy(),
+                               np.asarray(ref.truth_discrepancy), rtol=1e-6)
+
+
+def test_tep_chunks_equal_for_r4_path():
+    with open(os.path.join(_ROOT, "runs", "r4_pipeline", "decoding_path.json")) as fh:
+        path = json.load(fh)["path"]
+    blocks, acc = segments.build_tep_blocks(path, 64, 6)
+    ref_blocks, ref_acc = jseg.build_tep_blocks(path, 64, 6)
+    np.testing.assert_array_equal(acc, ref_acc)
+    for a, b in zip(blocks, ref_blocks):
+        np.testing.assert_array_equal(a, b)
+    teps, mask, bounds = segments.pack_tep_chunks(blocks)
+    ref_teps, ref_mask, ref_bounds = jseg.pack_tep_chunks(ref_blocks)
+    assert teps.shape == (6, 256, 64) and int(mask.sum()) == 1439
+    np.testing.assert_array_equal(teps, ref_teps)
+    np.testing.assert_array_equal(mask, ref_mask)
+    assert bounds == ref_bounds
+    np.testing.assert_array_equal(segments.segment_sizes(64),
+                                  jseg.segment_sizes(64))
+    assert segments.conventional_path(3) == jseg.conventional_path(3)
+
+
+@pytest.mark.parametrize("b,m,k,ntot,seed", [
+    (16, 64, 64, 700, 0),    # CCSDS shapes, unaligned Ntot
+    (5, 61, 60, 130, 1),     # rank-deficient 121_60-like, odd B
+    (8, 128, 128, 512, 2),   # 256_128 shapes
+])
+def test_lterm_reference_matches_jax_kernel(b, m, k, ntot, seed):
+    rng = np.random.default_rng(seed)
+    m_mat = rng.integers(0, 2, (b, m, k)).astype(np.int8)
+    u_l = rng.normal(0, 1.5, (b, m)).astype(np.float32)
+    teps = rng.integers(0, 2, (ntot, k)).astype(np.int8)
+    want = np.asarray(jodp.lterm_pallas(jnp.asarray(m_mat), jnp.asarray(u_l),
+                                        jnp.asarray(teps), interpret=True))
+    got = osd_disc.lterm(torch.as_tensor(m_mat), torch.as_tensor(u_l),
+                         torch.as_tensor(teps)).numpy()
+    scale = np.maximum(np.abs(want), 1.0)
+    assert (np.abs(got - want) / scale).max() < 1e-5
+
+
+def _fcn(seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 0.8, (6, 6)).astype(np.float32),
+            rng.normal(0, 0.8, (6, 2)).astype(np.float32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sliding_walk_equals_scan_and_jax(seed):
+    rng = np.random.default_rng(seed)
+    minima = rng.gamma(2.0, 1.5, (64, 30)).astype(np.float32)
+    minima[:, 3] = minima[:, 2]  # ties in the window sort and the skip rule
+    w1, w2 = _fcn(seed)
+    fcn_t = {"w1": torch.as_tensor(w1), "w2": torch.as_tensor(w2)}
+    fast = engine.sliding_walk(torch.as_tensor(minima), fcn_t, soft_margin=0.6)
+    scan = engine._sliding_walk_scan(torch.as_tensor(minima), fcn_t,
+                                     soft_margin=0.6)
+    ref = jengine.sliding_walk(jnp.asarray(minima),
+                               {"w1": jnp.asarray(w1), "w2": jnp.asarray(w2)},
+                               soft_margin=0.6)
+    for key in ("stop_k", "deep_limit", "global_min", "windows_evaluated",
+                "window_num"):
+        np.testing.assert_array_equal(fast[key].numpy(), scan[key].numpy(), key)
+        np.testing.assert_array_equal(fast[key].numpy(), np.asarray(ref[key]), key)
+
+
+def test_block_minima_padded_equals_chunked():
+    code = jax_get_code("ccsds_128_64")
+    refined, original, words = _frames(code, 12, seed=3)
+    prep = engine.prepare(torch.as_tensor(refined), torch.as_tensor(original),
+                          torch.as_tensor(words), code.h_osd, code.k)
+    path = [[0] * 6, [1, 0, 0, 0, 0, 0], [0, 1, 0, 0, 0, 0],
+            [2, 0, 0, 0, 0, 0], [0, 0, 1, 0, 0, 0]]
+    blocks, _ = segments.build_tep_blocks(path, code.k, 6)
+    teps, mask, bounds = segments.pack_tep_chunks(blocks, chunk=64)
+    padded, pmask = segments.stack_padded_blocks(blocks)
+    minima, argmins = engine.block_discrepancy_minima(
+        prep, torch.as_tensor(teps), torch.as_tensor(mask), code.k, bounds)
+    ref_min, ref_arg = engine.block_discrepancy_minima(
+        prep, torch.as_tensor(padded), torch.as_tensor(pmask), code.k)
+    np.testing.assert_allclose(minima.numpy(), ref_min.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(argmins.numpy(), ref_arg.numpy())
