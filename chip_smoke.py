@@ -9,15 +9,26 @@ Phases (each raises on failure, so the script never exits 0 after one):
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (and a small irregular / odd shape), with
    CUDA-event times of kernel, plain version and, where one PyTorch call
-   computes the same function, that call;
-3. the main path at full width: 8 rounds of the 262,144-frame capture step
-   plus phase 2 (capture 32,768) at 3.0 dB with the ``runs/r4_pipeline``
-   artifacts, with every launch count reset just before and read just
-   after; its NMS FER and OSD success share must agree statistically with
-   the JAX package's record (``BENCH_r05.json``), and the card's results
-   must equal the port's CPU results on the committed failure set;
-4. one main-path round under ``torch.profiler``: the device's busy share
-   and the kernels that take the most device time.
+   computes the same function, that call; the fused Monte-Carlo kernels
+   K3, K4, K8a and K8b are compared at 262,144 frames (K3 also with a
+   capacity that overflows, and with two stages) and timed at 2,097,152;
+3. the two-phase main path at full width: 8 rounds of the 262,144-frame
+   capture step plus phase 2 (capture 32,768) at 3.0 dB with the
+   ``runs/r4_pipeline`` artifacts, with every launch count reset just
+   before and read just after; its NMS FER and OSD success share must agree
+   statistically with the JAX package's record (``BENCH_r05.json``), and
+   the card's results must equal the port's CPU results on the committed
+   failure set;
+4. the phase-1 path as ``bench.py`` drives it (``system.Phase1``): 8 steps
+   of 2,097,152 frames with K3 (schedule ((4, 0.375),), groups of 1024),
+   then 8 with K4, counts reset after the warm-up step and required to be
+   exactly 8 launches of the path's kernel; the FER of each must agree with
+   the JAX record's ``sample_fer``;
+5. a ``run_nms_mc`` sweep at 3.0 dB (error budget 40,000, 262,144 frames a
+   step) through K3, with the same FER check;
+6. one ``cascade_counters`` call (K8a + K8b) at 2,097,152 frames;
+7. one two-phase round and one phase-1 step under ``torch.profiler``: the
+   device's busy share and the kernels that take the most device time.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -43,8 +54,9 @@ from short_ldpc_decoding_osd_tpu_torch._device import synchronize
 from short_ldpc_decoding_osd_tpu_torch.channel import ChannelSpec, sample_batch
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.convert import load_run
+from short_ldpc_decoding_osd_tpu_torch.mc import harness
 from short_ldpc_decoding_osd_tpu_torch.mc.harness import count_and_capture
-from short_ldpc_decoding_osd_tpu_torch.ops import nms_edge, osd_disc
+from short_ldpc_decoding_osd_tpu_torch.ops import mc_cascade, nms, nms_edge, osd_disc
 from short_ldpc_decoding_osd_tpu_torch.osd import engine, segments
 from short_ldpc_decoding_osd_tpu_torch.utils.metrics import wilson_interval
 
@@ -62,6 +74,17 @@ Z999 = 3.2905  # two-sided 99.9% normal quantile
 REF_FER, REF_FRAMES = 0.104169, 2_097_152
 REF_OSD_SUCC, REF_FAILURES = 215_746, 218_456
 CAP_B, CAP, ROUNDS, ITERS = 262_144, 32_768, 8, 12
+# the JAX package's phase-1 record (BENCH_r05.json: sample_fer 0.0958996 of
+# 2,097,152 frames = 201,116 frame errors), taken in bf16 mode with 24
+# overflow frames; bf16 was validated statistically identical to f32
+# (bench.py:34-37).  NMS-1 at its initial factor, 12 iterations, 3.0 dB.
+REF_PH1_ERRORS, REF_PH1_FRAMES = 201_116, 2_097_152
+PH1_BATCH, PH1_STEPS, MC_B = 2_097_152, 8, 262_144
+# kernel row -> its count in _kernels.LAUNCHES
+LAUNCH_KEY = {"K1 nms_edge_final": "nms_edge_final", "K2 nms_edge_traj": "nms_edge_traj",
+              "K3 mc_compact": "mc_compact", "K4 mc_oneshot": "mc_oneshot",
+              "K5 lterm": "lterm", "K8a cascade_p1": "cascade_p1",
+              "K8b cascade_p2": "cascade_p2"}
 
 
 def log(*args):
@@ -95,16 +118,21 @@ def bound_ms(nbytes: float, *unit_times_s: float):
     return t_bytes * 1e3, "bytes"
 
 
-def nms_edge_ops(h, batch: int, iters: int) -> float:
+def edge_ops(h, frame_iters: float, closings: float) -> float:
     """f32 instructions the edge decode needs, whatever the design: per
-    iteration 8 per real edge (column add, vc = total - cv, |vc|, the
+    frame-iteration 8 per real edge (column add, vc = total - cv, |vc|, the
     min/submin update (2), the sign parity, the outgoing magnitude select,
     the sign apply), 2 per check (the weight on min and submin) and 1 per
-    variable (total = w * llr + colsum); the closing column sums add 1 per
-    edge and 1 per variable."""
+    variable (total = w * llr + colsum); each closing column sum (one per
+    decision taken) adds 1 per edge and 1 per variable."""
     m, n = h.shape
     edges = int(h.sum())
-    return batch * (iters * (8 * edges + 2 * m + n) + edges + n)
+    return frame_iters * (8 * edges + 2 * m + n) + closings * (edges + n)
+
+
+def nms_edge_ops(h, batch: int, iters: int) -> float:
+    """f32 instructions of ``iters`` iterations on ``batch`` frames."""
+    return edge_ops(h, batch * iters, batch)
 
 
 def compare(name, got, want, rel: bool = False):
@@ -116,6 +144,31 @@ def compare(name, got, want, rel: bool = False):
     if not math.isfinite(worst) or worst > 1e-5:
         raise AssertionError(f"{name}: kernel vs plain error {worst:.3g} > 1e-5")
     return err
+
+
+def counters_err(name, got, want) -> int:
+    """Largest lane difference of two counter vectors; raises past 2
+    frames (or at any difference in the frames lane)."""
+    got, want = got.cpu().to(torch.int64), want.cpu().to(torch.int64)
+    diff = int((got - want).abs().max())
+    if int(got[0]) != int(want[0]) or diff > 2:
+        raise AssertionError(f"{name}: kernel {got.tolist()} vs plain "
+                             f"{want.tolist()}")
+    if diff:
+        log(f"{name}: counters differ by {diff} (<= 2 frames): the card's "
+            "logf/cosf and torch's log/cos may differ by an ulp on a "
+            "razor-edge frame")
+    return diff
+
+
+def wilson_overlap(name, errors: int, frames: int):
+    """Raise unless the 99.9% Wilson interval of errors/frames overlaps
+    that of the JAX phase-1 record; return the interval."""
+    ci = wilson_interval(errors, frames, Z999)
+    ref = wilson_interval(REF_PH1_ERRORS, REF_PH1_FRAMES, Z999)
+    if not (ci[0] <= ref[1] and ref[0] <= ci[1]):
+        raise AssertionError(f"{name}: FER 99.9% CI {ci} misses the record {ref}")
+    return ci
 
 
 def phase_environment():
@@ -167,8 +220,8 @@ def phase_kernels(dev):
         got = fn(params, code.h, x, ITERS)
         want = nms_edge._decode_edge_plain(x, code.h, ITERS, weights, traj)
         err = compare(name, got, want)
-        if not torch.equal(got < 0, want < 0):
-            raise AssertionError(f"{name}: hard decisions differ")
+        if not torch.equal(got, want):  # the shared body keeps it bit-exact
+            raise AssertionError(f"{name}: kernel differs from its plain twin")
         # the irregular qc_96_48 code (check degrees {6, 7}, dummy edges)
         qc = get_code("qc_96_48")
         xq = torch.randn((4096, qc.n), generator=torch.Generator(device=dev)
@@ -267,6 +320,196 @@ def phase_kernels(dev):
     return rows
 
 
+def set_launches(rows, launches, keys):
+    for row in rows:
+        if LAUNCH_KEY[row["name"]] in keys:
+            row["launches"] = launches[LAUNCH_KEY[row["name"]]]
+
+
+def mc_row(name, fn, plain, err, ops, nbytes, shape):
+    """A fused Monte-Carlo kernel's row: ``fn``/``plain`` run the kernel and
+    its plain twin at 2,097,152 frames; ``ops`` f32 instructions and
+    ``nbytes`` compulsory bytes give the bound."""
+    bms, bound_by = bound_ms(nbytes, ops / F32_INSTR)
+    row = {
+        "name": name, "route": "cuda",
+        "source": "short_ldpc_decoding_osd_tpu_torch/csrc/mc_fused.cu",
+        "replaces": {
+            "K3": "short_ldpc_decoding_osd_tpu/ops/nms_edge_pallas.py:691",
+            "K4": "short_ldpc_decoding_osd_tpu/ops/nms_edge_pallas.py:497",
+            "K8a": "short_ldpc_decoding_osd_tpu/ops/mc_cascade.py:125",
+            "K8b": "short_ldpc_decoding_osd_tpu/ops/mc_cascade.py:158",
+        }[name.split()[0]],
+        "launches": None, "max_abs_err": err,
+        "ms": cuda_ms(fn, 10),
+        "plain_ms": cuda_ms(plain, 2, warmup=1),
+        "bound_ms": bms, "bound_by": bound_by,
+        # no single PyTorch call computes a fused Monte-Carlo step
+        "library_ms": None,
+        "shape": shape,
+    }
+    log(f"{name}: max_abs_err {err}, kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {bms:.4f} ms ({bound_by})")
+    return row
+
+
+def phase_mc_kernels(dev):
+    """K4, K3, K8a and K8b against their plain twins at 262,144 frames
+    (counters equal, or within 2 frames with the reason printed), then
+    timed at 2,097,152 frames: NMS-1 at its initial factor, 12 iterations,
+    3.0 dB, as the phase-1 path runs them."""
+    code = get_code("ccsds_128_64")
+    params = nms.init_params("NMS-1")
+    h, t1, seed = code.h, 4, 11
+    mc = nms_edge.mc_setup(code, params, "NMS-1", 3.0, seed, dev)
+    big = PH1_BATCH
+    rows = []
+
+    # K4
+    err = counters_err("K4", nms_edge.fused_counters_edge(
+        code, params, "NMS-1", ITERS, 3.0, MC_B, seed, device=dev),
+        nms_edge._mc_frames_plain(mc, ITERS, MC_B)[0][:5])
+    rows.append(mc_row(
+        "K4 mc_oneshot",
+        lambda: nms_edge.fused_counters_edge(code, params, "NMS-1", ITERS, 3.0,
+                                             big, seed, device=dev),
+        lambda: nms_edge._mc_frames_plain(mc, ITERS, big),
+        err, nms_edge_ops(h, big, ITERS), 8 * 5,
+        f"{big} hash frames, T={ITERS} -> (5,) int64"))
+
+    # K8a: the unconverged share at t1 of the 2M frames sizes K3's and K8's
+    # bounds (work that depends on the data is counted as this data needs)
+    c1_big, flags_big = mc_cascade.phase1(mc, t1, big)
+    unconv_big = big - int(c1_big[0])
+    log(f"unconverged at t1={t1}: {unconv_big} of {big} frames "
+        f"({unconv_big / big:.5f})")
+    c1k, fk = mc_cascade.phase1(mc, t1, MC_B)
+    c1p, fp = nms_edge._mc_frames_plain(mc, t1, MC_B, stage=True)
+    flag_diff = int((fk != fp).sum())
+    err = max(counters_err("K8a", c1k, c1p[:5]), flag_diff)
+    if flag_diff > 2:
+        raise AssertionError(f"K8a: {flag_diff} per-frame flags differ")
+    rows.append(mc_row(
+        "K8a cascade_p1", lambda: mc_cascade.phase1(mc, t1, big),
+        lambda: nms_edge._mc_frames_plain(mc, t1, big, stage=True),
+        err, edge_ops(h, big * t1, big), 4 * big,
+        f"{big} hash frames, t1={t1} -> (5,) int64 + flags ({big},) int32"))
+
+    # K8b on the ids the cascade would hand it
+    frac = unconv_big / big
+    ids_small = mc_cascade.fixed_capacity_ids(
+        fk, mc_cascade.capacity(1 - int(c1k[0]) / MC_B, MC_B, 512))
+    err = counters_err("K8b", mc_cascade.phase2(mc, ITERS, ids_small),
+                       nms_edge._mc_frames_plain(mc, ITERS, len(ids_small),
+                                                 ids_small)[0][:5])
+    ids_big = mc_cascade.fixed_capacity_ids(
+        flags_big, mc_cascade.capacity(frac, big, 512))
+    rows.append(mc_row(
+        "K8b cascade_p2", lambda: mc_cascade.phase2(mc, ITERS, ids_big),
+        lambda: nms_edge._mc_frames_plain(mc, ITERS, len(ids_big), ids_big),
+        err, edge_ops(h, unconv_big * ITERS, unconv_big), 4 * len(ids_big),
+        f"ids ({len(ids_big)},) int32 ({unconv_big} flagged, -1 padded), "
+        f"T={ITERS} -> (5,) int64"))
+    del flags_big, ids_big
+
+    # K3: bench's schedule, the harness's default, one that overflows and a
+    # two-stage one, each against the literal rule
+    err = 0
+    for schedule, block in ((((t1, 0.375),), 1024),
+                            (nms_edge.DEFAULT_COMPACT_SCHEDULE, 512),
+                            (((t1, 0.25),), 1024),
+                            (((t1, 0.5), (2, 0.25)), 512)):
+        rows_s, final = nms_edge.build_rows_schedule(schedule, block, ITERS)
+        got = nms_edge.fused_counters_edge_compact(
+            code, params, "NMS-1", ITERS, 3.0, MC_B, seed, block_frames=block,
+            schedule=schedule, device=dev)
+        want = nms_edge._compact_plain(mc, MC_B, block, rows_s, final)
+        err = max(err, counters_err(f"K3 {schedule} / {block}", got, want))
+        log(f"K3 {schedule} in groups of {block}: {got.tolist()} "
+            f"(overflow {int(got[5])})")
+        if schedule == ((t1, 0.25),) and not int(got[5]) > 0:
+            raise AssertionError("K3: the small capacity did not overflow")
+    rows_s, final = nms_edge.build_rows_schedule(((t1, 0.375),), 1024, ITERS)
+    rows.append(mc_row(
+        "K3 mc_compact",
+        lambda: nms_edge.fused_counters_edge_compact(
+            code, params, "NMS-1", ITERS, 3.0, big, seed, block_frames=1024,
+            schedule=((t1, 0.375),), device=dev),
+        lambda: nms_edge._compact_plain(mc, big, 1024, rows_s, final),
+        err, edge_ops(h, big * t1 + unconv_big * (ITERS - t1), big + unconv_big),
+        8 * 6, f"{big} hash frames, groups of 1024, schedule ((4, 384),), "
+               f"T={ITERS} -> (6,) int64"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_phase1(dev, rows):
+    """``bench.py``'s phase-1 headline on the card (``system.Phase1``):
+    compact, then one-shot; each with counts reset after the warm-up step
+    and required to be exactly ``PH1_STEPS`` launches of its kernel, and
+    its FER held against the JAX record."""
+    seconds = {}
+    for kernel, key in (("compact", "mc_compact"), ("oneshot", "mc_oneshot")):
+        phase1 = system.Phase1(batch=PH1_BATCH, kernel=kernel, device=dev)
+        phase1.step(0)  # warm-up
+        synchronize(dev)
+        _kernels.reset_launches()
+        out = phase1.measure(PH1_STEPS)
+        launches = dict(_kernels.LAUNCHES)
+        want = dict.fromkeys(launches, 0) | {key: PH1_STEPS}
+        log(f"phase-1 {kernel} launches over {PH1_STEPS} timed steps: "
+            f"{launches}")
+        if launches != want:
+            raise AssertionError(f"phase-1 {kernel} launches {launches} != {want}")
+        set_launches(rows, launches, (key,))
+        ci = wilson_overlap(f"phase-1 {kernel}", out["timed_frame_errors"],
+                            out["timed_frames"])
+        out["fer_999_ci"] = ci
+        seconds[kernel] = out["seconds"]
+        log("phase1: " + json.dumps(out))
+    log(f"phase-1 K3/K4 time ratio: {seconds['compact'] / seconds['oneshot']:.4f}; "
+        "FERs agree with BENCH_r05.json's sample_fer (99.9% Wilson overlap)")
+
+
+def phase_sweep(dev):
+    """``run_nms_mc`` at 3.0 dB to an error budget of 40,000 on the card."""
+    code = get_code("ccsds_128_64")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats, _ = harness.run_nms_mc(code, nms.init_params("NMS-1"), "NMS-1", ITERS,
+                                  3.0, batch=262_144, error_budget=40_000,
+                                  device=dev)
+    seconds = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    ci = wilson_overlap("run_nms_mc", stats.frame_errors, stats.frames)
+    log("sweep: " + json.dumps(stats.to_dict() | {
+        "fer_999_ci": ci, "seconds": seconds, "launches": launches}))
+    if not launches["mc_compact"] > 0:
+        raise AssertionError(f"run_nms_mc did not run K3: {launches}")
+
+
+def phase_cascade(dev, rows):
+    """One ``cascade_counters`` call at 2,097,152 frames after a warm-up
+    call (which calibrates the capacity), counts reset between."""
+    code = get_code("ccsds_128_64")
+    params = nms.init_params("NMS-1")
+    mc_cascade.cascade_counters(code, params, "NMS-1", ITERS, 3.0, PH1_BATCH, 5,
+                                device=dev)
+    synchronize(dev)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    c = mc_cascade.cascade_counters(code, params, "NMS-1", ITERS, 3.0, PH1_BATCH,
+                                    5, device=dev).tolist()
+    seconds = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    set_launches(rows, launches, ("cascade_p1", "cascade_p2"))
+    log("cascade: " + json.dumps({"counters": c, "fer": c[1] / c[0],
+                                  "seconds": seconds, "launches": launches}))
+    if c[0] != PH1_BATCH or not (launches["cascade_p1"] and launches["cascade_p2"]):
+        raise AssertionError(f"cascade: counters {c}, launches {launches}")
+
+
 def phase_main_path(dev, rows):
     """The entry point ``run_two_phase`` spelled out, so that the launch
     counts bracket exactly the timed rounds: reset after the warm-up, read
@@ -278,11 +521,11 @@ def phase_main_path(dev, rows):
     out = two_phase.measure(ROUNDS)
     launches = dict(_kernels.LAUNCHES)
     out["system_stage_s"] = two_phase.stage_times(ROUNDS)
-    want = {"nms_edge_final": 2 * ROUNDS, "nms_edge_traj": ROUNDS, "lterm": ROUNDS}
+    want = dict.fromkeys(launches, 0) | {
+        "nms_edge_final": 2 * ROUNDS, "nms_edge_traj": ROUNDS, "lterm": ROUNDS}
     log(f"main path launches over {ROUNDS} timed rounds: {launches} "
         f"(expected {want})")
-    for row, key in zip(rows, ("nms_edge_final", "nms_edge_traj", "lterm")):
-        row["launches"] = launches[key]
+    set_launches(rows, launches, ("nms_edge_final", "nms_edge_traj", "lterm"))
     if launches != want:
         raise AssertionError(f"main-path launches {launches} != {want}")
 
@@ -314,34 +557,42 @@ def phase_main_path(dev, rows):
     log("statistics agree with BENCH_r05.json (99.9% Wilson intervals overlap)")
 
 
-def phase_profile(dev, cap_b: int = CAP_B, cap: int = CAP):
-    """One main-path round under ``torch.profiler``: the device's busy share
-    (device time over the same round's unprofiled wall time) and the
-    kernels that take the most device time."""
-    two_phase = system.TwoPhase(cap_b=cap_b, cap=cap, device=dev)
-    two_phase.full_round(1)  # warm-up
+def profile(dev, label: str, fn):
+    """``fn`` once under ``torch.profiler`` after a warm-up call: the
+    device's busy share (device time over the same call's unprofiled wall
+    time) and the kernels that take the most device time."""
+    fn()  # warm-up
     synchronize(dev)
     t0 = time.perf_counter()
-    two_phase.full_round(1)
+    fn()
     synchronize(dev)
     wall_ms = (time.perf_counter() - t0) * 1e3
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
-        two_phase.full_round(1)
+        fn()
         synchronize(dev)
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms <= 0:
-        log(f"profile: one round {wall_ms:.2f} ms wall; the profiler saw no "
+        log(f"profile of {label}: {wall_ms:.2f} ms wall; the profiler saw no "
             "device time, so the device busy share is not measured")
         return
-    log(f"profile of one round: {wall_ms:.2f} ms wall (unprofiled), device busy "
+    log(f"profile of {label}: {wall_ms:.2f} ms wall (unprofiled), device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), "
         f"{sum(e.count for e in kernels)} device operations")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+
+
+def phase_profile(dev, cap_b: int = CAP_B, cap: int = CAP):
+    """One two-phase round and one phase-1 K3 step under the profiler."""
+    two_phase = system.TwoPhase(cap_b=cap_b, cap=cap, device=dev)
+    profile(dev, "one round", lambda: two_phase.full_round(1))
+    del two_phase
+    phase1 = system.Phase1(batch=PH1_BATCH, device=dev)
+    profile(dev, "one phase-1 K3 step", lambda: phase1.step(1))
 
 
 def phase_card_vs_cpu(dev):
@@ -377,10 +628,16 @@ def main():
         return 1
     dev = torch.device("cuda")
     smi = phase_environment()
-    rows = phase_kernels(dev)
+    rows = phase_kernels(dev) + phase_mc_kernels(dev)
     phase_card_vs_cpu(dev)
     phase_main_path(dev, rows)
+    phase_phase1(dev, rows)
+    phase_sweep(dev)
+    phase_cascade(dev, rows)
     phase_profile(dev)
+    rows.sort(key=lambda row: row["name"])
+    if any(row["launches"] is None or row["launches"] < 1 for row in rows):
+        raise AssertionError("a kernel row has no launch on its path")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/kernels/`` (next to
 the package, git-ignored), then loaded with ``ctypes``.  All sources build
 at the first CUDA use, one ``nvcc`` process per source, all started
-together.  The library file name carries a digest of its source, so an
-edited kernel is never served by a stale build.
+together.  The library file name carries a digest of its source and of the
+shared headers (``csrc/*.cuh``), so an edited kernel is never served by a
+stale build.
 
 ``LAUNCHES`` counts the launches of each kernel: a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
@@ -27,7 +28,7 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("nms_edge", "osd_disc")
+SOURCES = ("nms_edge", "osd_disc", "mc_fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no fused multiply-add: the kernels then round exactly like their plain
@@ -36,7 +37,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"nms_edge_final": 0, "nms_edge_traj": 0, "lterm": 0}
+LAUNCHES = {"nms_edge_final": 0, "nms_edge_traj": 0, "lterm": 0,
+            "mc_oneshot": 0, "mc_compact": 0, "cascade_p1": 0, "cascade_p2": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -44,7 +46,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 BUILD_SECONDS: dict[str, float] = {}
 BUILD_LOG: dict[str, str] = {}
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "nms_edge": {
         # llr, out, edge_col, var_edges, batch, n, m, dc, dv, iters,
@@ -55,6 +57,17 @@ _SIGNATURES = {
     "osd_disc": {
         # m_matrix, u_l, teps, out, batch, m, k, ntot, stream
         "lterm_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    },
+    "mc_fused": {
+        # n, m, dc, dv, k
+        "mc_frames_per_block": [_I, _I, _I, _I, _I],
+        # ids, stat, partials, edge_col, var_edges, gcols, count, n, m, dc,
+        # dv, k, iters, seed, sigma, mean, w_vc, w_chk, w_marg, stream
+        "mc_frames": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                      _I, _U, _F, _F, _F, _F, _F, _VP],
+        # stat, ids_in, ids_out, partials, groups, group_size, rows_next,
+        # stream
+        "mc_group_rank": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     },
 }
 
@@ -75,8 +88,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

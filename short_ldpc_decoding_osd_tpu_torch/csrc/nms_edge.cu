@@ -24,19 +24,15 @@
 // Design: a block holds a few frames; each frame keeps its check-to-variable
 // messages cv (m*dc f32, 2 KB for CCSDS) and its column totals (n f32) in
 // shared memory for all T iterations, so nothing but llr and the outputs
-// touches device memory.  Per iteration:
-//   phase A: one thread per variable sums its edges' cv in ascending check
-//            order (deterministic, the order of the dense row sum) and forms
-//            total = colsum + w_vc * llr;
-//   phase B: one thread per check runs the tournament over its real edges and
-//            writes the outgoing cv.
-// Edges are numbered slab-major, e = j*m + c (slot j of check c), so the
-// phase-B threads of one warp read consecutive shared words.
+// touches device memory.  The iteration body (phase A column sums, phase B
+// tournament) lives in nms_edge_body.cuh, shared with the fused Monte-Carlo
+// kernels of mc_fused.cu.
 // Built with -fmad=false, so each step rounds exactly like the plain PyTorch
 // twin in ops/nms_edge.py.
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "nms_edge_body.cuh"
 
 namespace {
 
@@ -79,55 +75,15 @@ __global__ void nms_edge_kernel(const float* __restrict__ llr,
   }
   __syncthreads();
 
-  for (int it = 0; it <= iters; ++it) {
-    // phase A: column sums in ascending check order -> totals (and outputs)
-    if (in_block) {
-      for (int v = lt; v < n; v += threads_per_frame) {
-        float s = 0.f;
-        for (int d = 0; d < dv; ++d) {
-          const int e = s_var_edges[d * n + v];
-          if (e < 0) break;
-          s += cv[e];
-        }
+  nms_edge::iterate(
+      cv, total, x, s_edge_col, s_var_edges, n, m, dc, dv, iters, lt,
+      threads_per_frame, in_block, w_vc, w_chk,
+      [&](int it, int v, float s) {
         if (active && it > 0 && (TRAJ || it == iters)) {
           const size_t slot = TRAJ ? static_cast<size_t>(it) * batch : 0;
           out[(slot + frame) * n + v] = s + w_marg * x[v];
         }
-        total[v] = s + w_vc * x[v];
-      }
-    }
-    if (it == iters) break;
-    __syncthreads();
-    // phase B: per-check min/submin tournament and outgoing messages
-    if (in_block) {
-      for (int c = lt; c < m; c += threads_per_frame) {
-        float min1 = INFINITY, min2 = INFINITY, sign_prod = 1.f;
-        for (int j = 0; j < dc; ++j) {
-          const int e = j * m + c;
-          const int col = s_edge_col[e];
-          if (col < 0) continue;
-          const float vc = total[col] - cv[e];
-          const float mag = fabsf(vc);
-          const float sg = vc > 0.f ? 1.f : (vc < 0.f ? -1.f : 0.f);
-          min2 = fminf(min2, fmaxf(min1, mag));
-          min1 = fminf(min1, mag);
-          sign_prod = sign_prod * sg;
-        }
-        const float wmin1 = w_chk * min1;
-        const float wmin2 = w_chk * min2;
-        for (int j = 0; j < dc; ++j) {
-          const int e = j * m + c;
-          const int col = s_edge_col[e];
-          if (col < 0) continue;
-          const float vc = total[col] - cv[e];
-          const float mag = fabsf(vc);
-          const float sg = vc > 0.f ? 1.f : (vc < 0.f ? -1.f : 0.f);
-          cv[e] = (mag > min1 ? wmin1 : wmin2) * (sign_prod * sg);
-        }
-      }
-    }
-    __syncthreads();
-  }
+      });
 }
 
 }  // namespace
@@ -137,16 +93,12 @@ extern "C" int nms_edge_decode(const void* llr, void* out, const void* edge_col,
                                int dc, int dv, int iters, float w_vc,
                                float w_chk, float w_marg, int traj,
                                void* stream) {
-  int threads_per_frame = ((n > m ? n : m) + 31) / 32 * 32;
-  if (threads_per_frame > 1024) threads_per_frame = 1024;
-  int frames_per_block = 512 / threads_per_frame;
-  if (frames_per_block < 1) frames_per_block = 1;
-  const size_t table = static_cast<size_t>(dc * m + dv * n) * sizeof(int);
-  const size_t per_frame = static_cast<size_t>(dc * m + 2 * n) * sizeof(float);
-  while (frames_per_block > 1 && table + frames_per_block * per_frame > 48 * 1024)
-    --frames_per_block;
-  const size_t smem = table + frames_per_block * per_frame;
-  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  int threads_per_frame, frames_per_block;
+  size_t smem;
+  if (!nms_edge::launch_shape(n, m, static_cast<size_t>(dc) * m + dv * n,
+                              static_cast<size_t>(dc) * m + 2 * n,
+                              &threads_per_frame, &frames_per_block, &smem))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int threads = frames_per_block * threads_per_frame;
   const int blocks = (batch + frames_per_block - 1) / frames_per_block;
   if (blocks == 0) return 0;

@@ -1,9 +1,12 @@
-"""Monte-Carlo capture step: sample, decode, count, capture failures.
+"""Single-host Monte-Carlo FER harness: the capture step and the sweep.
 
-Port of ``build_nms_mc_step`` (``short_ldpc_decoding_osd_tpu/mc/harness.py:144-292``).
-The step is factored into :func:`sample_batch` (channel) and
-:func:`count_and_capture` (counters + the failures-first compaction), so the
-second half can be held against JAX on identical arrays.
+Port of ``short_ldpc_decoding_osd_tpu/mc/harness.py``: ``build_nms_mc_step``
+(:144-292), ``FailureBatch`` (:95-116), ``trajectories_for_llrs``
+(:298-341), ``detected_failure_mask`` (:344-357), ``run_nms_mc`` (:360-592,
+without ``mesh``) and ``_write_resume`` (:595-608).  The step is factored
+into :func:`sample_batch` (channel) and :func:`count_and_capture` (counters
++ the failures-first compaction), so the second half can be held against
+JAX on identical arrays.
 
 Capture keeps detected failures (nonzero syndrome) first, IN FRAME ORDER:
 the stable ``argsort(~flag)[:capacity]`` of ``harness.py:275-276``.  Rows
@@ -11,19 +14,27 @@ past ``count`` are padding (non-failures); failures beyond the capacity are
 overflow, which the caller counts (``bench.py:389-397``).
 
 The JAX harness triages fused-kernel errors and demotes to a slower rung
-(``_attempt_fused``/``_kernel_error_kind``, ``harness.py:42-92``).  The port
-does not: a kernel that fails to build or launch fails the run.
-``run_nms_mc`` and the demotion ladder are not ported.
+(``_attempt_fused``/``_kernel_error_kind``, ``harness.py:42-92``, and the
+ladder's block halving and dense/XLA rungs, ``mc/ladder.py:127-151``).  The
+port does not: a kernel that fails to build or launch fails the run.  What
+the ladder holds as semantics is kept: a compact step that overflowed is
+redone one-shot, and the sweep stays one-shot.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
+
+import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..channel.awgn import ChannelSpec, sample_batch
 from ..codes import Code
 from ..ops import nms, nms_edge
+from ..utils.metrics import DecodeStats
 
 
 def count_and_capture(llr: torch.Tensor, words: torch.Tensor,
@@ -78,3 +89,203 @@ def build_nms_mc_step(code: Code, variant: str, num_iterations: int,
                                  capture_capacity)
 
     return step
+
+
+@dataclasses.dataclass
+class FailureBatch:
+    """Host-side copy of captured decoder failures (detected, syndrome != 0)."""
+
+    trajectories: np.ndarray  # (count, T+1, n) per-iteration soft outputs
+    labels: np.ndarray  # (count, n) transmitted codewords
+    overflow: int  # failures that did not fit the capture buffer
+    # flagged frames that the trajectory re-decode (the dense decoder) does
+    # not confirm as detected failures: dropped from the batch, counted here
+    mismatches: int = 0
+    # False in raw-capture mode (run_nms_mc(capture_trajectories=False)):
+    # trajectories then hold only the (count, 1, n) channel LLR rows and the
+    # confirming re-decode was skipped
+    confirmed: bool = True
+
+
+def trajectories_for_llrs(code: Code, params: dict, variant: str,
+                          num_iterations: int, llrs: np.ndarray,
+                          chunk: int = 4096,
+                          device: str | torch.device = "cuda") -> np.ndarray:
+    """Re-decode captured failure LLRs with the dense decoder
+    (``ops/nms.decode``), returning (N, T+1, n) per-iteration soft outputs;
+    ``chunk`` rows at a time, the last chunk zero-padded as in JAX."""
+    dev = resolve_device(device)
+    decode_h = code.extended().h if variant == "ENMS" else code.h
+    n_total = len(llrs)
+    if n_total == 0:
+        return np.zeros((0, num_iterations + 1, code.n), np.float32)
+    edge_cols = nms.edge_columns(decode_h) if variant == "NMS-r" else None
+    params = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
+    pad = (-n_total) % chunk
+    padded = np.concatenate([np.asarray(llrs, np.float32),
+                             np.zeros((pad, code.n), np.float32)])
+    parts = []
+    for i in range(0, len(padded), chunk):
+        x = torch.as_tensor(padded[i:i + chunk], device=dev)
+        outs = nms.decode(params, decode_h, x, num_iterations, variant, edge_cols)
+        parts.append(outs.permute(1, 0, 2).cpu().numpy())
+    return np.concatenate(parts)[:n_total]
+
+
+def detected_failure_mask(code: Code, variant: str,
+                          trajectories: np.ndarray) -> np.ndarray:
+    """Detected-failure flags from re-decoded trajectories: a nonzero
+    syndrome of the final iteration's hard decision against the decoding H
+    (extended for ENMS), ``nms.frame_stats``'s rule."""
+    decode_h = np.asarray(code.extended().h if variant == "ENMS" else code.h,
+                          np.int64)
+    hard = (trajectories[:, -1] < 0).astype(np.int64)
+    return (hard @ decode_h.T % 2).any(axis=1)
+
+
+def _compact_block(batch: int) -> int:
+    """The compaction group of the fused branch: 512 frames (what the JAX
+    ladder derives for CCSDS, ``mc/ladder.ladder_blocks``), halved until it
+    divides ``batch``; below 128 compaction is off (0)."""
+    block = 512
+    while block >= 8 and batch % block:
+        block //= 2
+    return block if block >= 128 else 0
+
+
+def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
+               snr_db: float, batch: int = 1024, error_budget: int = 40_000,
+               max_frames: int = 10**8, seed: int = 0,
+               capture_failures: bool = False, capture_limit: int = 100_000,
+               capture_trajectories: bool = True,
+               spec: ChannelSpec | None = None, progress: bool = False,
+               resume_path: str | None = None,
+               device: str | torch.device = "cuda"
+               ) -> tuple[DecodeStats, FailureBatch | None]:
+    """Monte-Carlo FER sweep at one SNR point with error-budget early stop:
+    steps of ``batch`` frames until the frame errors exceed
+    ``error_budget`` or ``max_frames`` frames were decoded.
+
+    * Fused branch (no capture, a scalar variant other than ENMS, the plain
+      AWGN spec of ``snr_db``, ``batch % 32 == 0``): each step is kernel K3
+      (``fused_counters_edge_compact``, ``DEFAULT_COMPACT_SCHEDULE``,
+      t1 = 4, groups of :func:`_compact_block` frames) with the step seed
+      ``(seed * 100003 + step) & 0x7FFFFFFF``.  A step whose compaction
+      overflowed is redone with K4 (``fused_counters_edge``, the same
+      frames one-shot) and the sweep stays on K4.  On the CPU the same
+      branch runs the kernels' plain twins.
+    * Otherwise each step is ``build_nms_mc_step`` with its generator seeded
+      ``seed * 1_000_003 + step``.
+    * ``resume_path``: a json file persisting (step, counters); both
+      branches derive their frames from the step index, so a resumed sweep
+      decodes exactly the frames that would have followed.
+    * ``capture_failures``: the detected failures' LLRs (at most
+      ``capture_limit``), re-decoded by the dense decoder into a
+      :class:`FailureBatch` of confirmed failures (or raw LLR rows when
+      ``capture_trajectories`` is False)."""
+    dev = resolve_device(device)
+    spec = spec or ChannelSpec.awgn(snr_db, code.rate)
+    capacity = min(batch, capture_limit) if capture_failures else 0
+    # the scalar weights are read on the host by the kernel wrappers; only
+    # the dense NMS-r decode needs its parameters on the device
+    params = {k: torch.as_tensor(v).cpu() for k, v in params.items()}
+    use_fused = (
+        not capture_failures
+        and variant not in ("NMS-r", "ENMS")
+        and spec == ChannelSpec.awgn(snr_db, code.rate)
+        and batch % 32 == 0
+    )
+    if use_fused:
+        t1 = 4
+        cblock = _compact_block(batch)
+        state = {"compact": num_iterations > t1 + 1 and cblock > 0}
+
+        def _kseed(idx):
+            return (seed * 100003 + idx) & 0x7FFFFFFF
+
+        def step(idx):
+            if state["compact"]:
+                c = nms_edge.fused_counters_edge_compact(
+                    code, params, variant, num_iterations, snr_db, batch,
+                    seed=_kseed(idx), t1=t1, block_frames=cblock,
+                    schedule=nms_edge.DEFAULT_COMPACT_SCHEDULE,
+                    device=dev).cpu().numpy()
+                if c[5] == 0:
+                    return c[:5], None
+                state["compact"] = False  # overflow: redo one-shot, stay
+            return nms_edge.fused_counters_edge(
+                code, params, variant, num_iterations, snr_db, batch,
+                seed=_kseed(idx), device=dev).cpu().numpy(), None
+    else:
+        built = build_nms_mc_step(code, variant, num_iterations, spec, batch,
+                                  capture_capacity=capacity, device=dev)
+        generator = torch.Generator(device=dev)
+        step_params = ({k: v.to(dev) for k, v in params.items()}
+                       if variant == "NMS-r" else params)
+
+        def step(idx):
+            generator.manual_seed(seed * 1_000_003 + idx)
+            counters, capture = built(step_params, generator)
+            return counters.cpu().numpy(), capture
+
+    stats = DecodeStats(bits_per_frame=code.n)
+    llr_list: list[np.ndarray] = []
+    label_list: list[np.ndarray] = []
+    overflow = captured_total = step_idx = 0
+    if resume_path is not None and os.path.exists(resume_path):
+        with open(resume_path) as fh:
+            saved = json.load(fh)
+        if saved.get("seed") == seed and saved.get("snr_db") == snr_db:
+            step_idx = saved["step_idx"]
+            stats = DecodeStats(**saved["stats"])
+    while stats.frames < max_frames and stats.frame_errors <= error_budget:
+        c, capture = step(step_idx)
+        step_idx += 1
+        stats = stats.merge(DecodeStats(
+            frames=int(c[0]), frame_errors=int(c[1]), bit_errors=int(c[2]),
+            bits_per_frame=code.n, detected_failures=int(c[3]),
+            undetected_errors=int(c[4])))
+        if capture is not None:
+            count = int(capture["count"])
+            keep = min(count, capacity, max(0, capture_limit - captured_total))
+            overflow += count - keep
+            if keep:
+                llr_list.append(capture["llr"][:keep].cpu().numpy())
+                label_list.append(capture["labels"][:keep].cpu().numpy())
+                captured_total += keep
+        if progress:
+            print(f"  snr={snr_db:.2f} frames={stats.frames} "
+                  f"FER={stats.fer:.3e} failures={stats.detected_failures}",
+                  flush=True)
+        if resume_path is not None and step_idx % 50 == 0:
+            _write_resume(resume_path, seed, snr_db, step_idx, stats)
+    if resume_path is not None:
+        _write_resume(resume_path, seed, snr_db, step_idx, stats)
+    if not capture_failures:
+        return stats, None
+    if not llr_list:
+        rows = num_iterations + 1 if capture_trajectories else 1
+        return stats, FailureBatch(
+            trajectories=np.zeros((0, rows, code.n), np.float32),
+            labels=np.zeros((0, code.n), np.int32), overflow=overflow,
+            confirmed=capture_trajectories)
+    llrs, labels = np.concatenate(llr_list), np.concatenate(label_list)
+    if not capture_trajectories:
+        return stats, FailureBatch(trajectories=llrs[:, None, :], labels=labels,
+                                   overflow=overflow, confirmed=False)
+    traj = trajectories_for_llrs(code, params, variant, num_iterations, llrs,
+                                 device=dev)
+    # keep exactly the frames the dense re-decode confirms
+    keep = detected_failure_mask(code, variant, traj)
+    mismatches = int((~keep).sum())
+    if mismatches:
+        traj, labels = traj[keep], labels[keep]
+    return stats, FailureBatch(trajectories=traj, labels=labels,
+                               overflow=overflow, mismatches=mismatches)
+
+
+def _write_resume(path: str, seed: int, snr_db: float, step_idx: int,
+                  stats: DecodeStats) -> None:
+    with open(path, "wt") as fh:
+        json.dump({"seed": seed, "snr_db": snr_db, "step_idx": step_idx,
+                   "stats": dataclasses.asdict(stats)}, fh)

@@ -1,9 +1,13 @@
-"""Edge-layout NMS decode: wrappers over the CUDA kernels K1 and K2.
+"""Edge-layout NMS decode and fused Monte-Carlo counters: wrappers over
+the CUDA kernels K1, K2, K3 and K4.
 
 Port of ``short_ldpc_decoding_osd_tpu/ops/nms_edge_pallas.py``
-(``decode_final_edge`` :339 over ``_decode_kernel`` :330, and
-``decode_traj_edge`` :421 over ``_decode_traj_kernel`` :406).  The kernels
-live in ``csrc/nms_edge.cu``; the plain PyTorch twins here repeat their
+(``decode_final_edge`` :339 over ``_decode_kernel`` :330,
+``decode_traj_edge`` :421 over ``_decode_traj_kernel`` :406,
+``fused_counters_edge`` :628 over ``_mc_kernel`` :497 and
+``fused_counters_edge_compact`` :894 over ``_mc_schedule_kernel`` :691,
+with ``build_rows_schedule`` :869).  K1/K2 live in ``csrc/nms_edge.cu``,
+K3/K4 in ``csrc/mc_fused.cu``; the plain PyTorch twins here repeat their
 arithmetic step for step (same edge order, same tournament, same summation
 order), so on the card kernel and twin agree to the last bit or close to it.
 
@@ -20,13 +24,17 @@ have no counterpart here.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
 from .. import _kernels
-from .nms import _weights
+from .._device import resolve_device
+from ..channel.awgn import sigma_for_snr
+from . import mc_hash
+from .nms import _weights, frame_stats
 
 
 @functools.lru_cache(maxsize=16)
@@ -179,3 +187,334 @@ def decode_traj_edge(params: dict, h, llr: torch.Tensor, num_iterations: int,
     updates + w_marg * llr (kernel K2 on CUDA).  Full f32 throughout, the
     JAX kernel's ``mode="highest"``."""
     return _decode(params, h, llr, num_iterations, variant, traj=True)
+
+
+# ---------------------------------------------------------------------------
+# Fused Monte-Carlo counters: K4 (one-shot) and K3 (convergence compaction)
+#
+# The frames come from the counter-based hash of ``ops/mc_hash.py``: frame i
+# of a call with seed s is the same in K4, K3 and K8 (``ops/mc_cascade.py``),
+# whatever the block sizes.  (The TPU kernels drew from the TPU's on-core
+# PRNG, which has no counterpart here.)  Counter lanes:
+# [frames, frame_err, bit_err, detected, undetected(, overflow)], int64.
+
+# Default schedule (fraction of block_frames): 4 iterations on the full
+# group, then the unconverged frames (~1/3 at the 3.0 dB flagship point) get
+# a capacity of 208 of 512 rows, ~3.7 sigma above the mean; an overflowed
+# step is redone one-shot by the Monte-Carlo harness.
+DEFAULT_COMPACT_SCHEDULE = ((4, 0.40625),)
+_LANES = 6
+# frames per plain-twin chunk: bounds the twin's memory on the card
+_PLAIN_CHUNK = 262_144
+
+
+def build_rows_schedule(schedule, block_frames: int, num_iterations: int):
+    """((iters, frac), ...) -> ((iters, rows), ...) truncated to the stages
+    that leave at least one iteration after them.  Row capacities are
+    ``int(block_frames * frac)`` rounded DOWN to a multiple of 8, floored at
+    64 and capped at the previous stage's rows minus 8, so any (frac, block)
+    pair yields a valid schedule or drops the stage.  Returns
+    ``(rows_schedule, final_iters)``."""
+    rows_schedule = []
+    spent = 0
+    rows_prev = block_frames
+    for iters_i, frac in schedule:
+        if spent + iters_i >= num_iterations:
+            break  # not enough iterations left to be worth a stage
+        rows = max(64, int(block_frames * frac)) // 8 * 8
+        rows = min(rows, rows_prev - 8)
+        if rows < 64:
+            break  # capacity floor can't fit under the previous stage
+        rows_schedule.append((iters_i, rows))
+        rows_prev = rows
+        spent += iters_i
+    return tuple(rows_schedule), num_iterations - spent
+
+
+@functools.lru_cache(maxsize=16)
+def _gen_columns_cached(g_bytes: bytes, k: int, n: int) -> np.ndarray:
+    g = np.frombuffer(g_bytes, dtype=np.uint8).reshape(k, n)
+    kw = (k + 31) // 32
+    padded = np.zeros((kw * 32, n), np.uint64)
+    padded[:k] = g
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    words = (padded.reshape(kw, 32, n) * weights[None, :, None]).sum(axis=1)
+    cols = np.ascontiguousarray(words.T.astype(np.uint32).view(np.int32))
+    cols.setflags(write=False)
+    return cols
+
+
+def gen_columns(g) -> np.ndarray:
+    """(n, ceil(k/32)) int32 bit masks of G's columns: bit b of word w of
+    column v is ``G[32 w + b, v]`` (the kernels' encode operand)."""
+    g = np.ascontiguousarray(np.asarray(g, dtype=np.uint8))
+    return _gen_columns_cached(g.tobytes(), *g.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class MCSetup:
+    """What every fused Monte-Carlo launch of one call shares: the code's
+    tables on ``device``, the decoder weights, the channel (AWGN around a
+    mean of 1) and the seed."""
+
+    h: np.ndarray  # (m, n) 0/1 parity matrix (host)
+    k: int
+    weights: tuple  # (w_vc, w_chk, w_marg) as f32 values
+    sigma: float  # f32 value
+    seed: int
+    edge_col: torch.Tensor
+    var_edges: torch.Tensor
+    g32: torch.Tensor  # (k, n) float32, the plain twins' encode operand
+    gcols: torch.Tensor  # (n, ceil(k/32)) int32, the kernels'
+
+    @property
+    def device(self) -> torch.device:
+        return self.edge_col.device
+
+
+def mc_setup(code, params: dict, variant: str, snr_db: float, seed: int,
+             device: str | torch.device = "cuda") -> MCSetup:
+    """The shared state of a fused Monte-Carlo call on ``device`` (plain
+    AWGN at ``snr_db``)."""
+    dev = resolve_device(device)
+    h = np.ascontiguousarray(np.asarray(code.h, np.uint8))
+    g = np.asarray(code.g, np.uint8)
+    edge_col, var_edges = _tables_on(h, dev)
+    return MCSetup(
+        h=h, k=g.shape[0], weights=_scalar_weights(params, variant),
+        sigma=float(np.float32(sigma_for_snr(snr_db, code.rate))),
+        seed=int(seed) & 0xFFFFFFFF, edge_col=edge_col, var_edges=var_edges,
+        g32=torch.as_tensor(g, dtype=torch.float32, device=dev),
+        gcols=torch.tensor(gen_columns(g), device=dev))
+
+
+def _frame_errors(mc: MCSetup, soft: torch.Tensor, codeword: torch.Tensor):
+    """Per frame: bit errors (int64) and a nonzero syndrome (bool) of the
+    hard decision ``soft < 0`` (``nms.frame_stats``'s rule)."""
+    st = frame_stats(soft, codeword, mc.h)
+    return st["bit_errors"].to(torch.int64), st["detected_failure"]
+
+
+def _count(bit_err, unconv, judged) -> torch.Tensor:
+    """Counter lanes over the ``judged`` frames (overflow lane 0)."""
+    fe = (bit_err > 0) & judged
+    return torch.stack([
+        judged.sum(), fe.sum(), torch.where(judged, bit_err, 0).sum(),
+        (unconv & judged).sum(), (fe & ~unconv).sum(),
+        torch.zeros((), dtype=torch.int64, device=bit_err.device)])
+
+
+def _mc_frames_plain(mc: MCSetup, iters: int, count: int, ids=None,
+                     stage: bool = False):
+    """Plain twin of ``mc_frames_kernel`` (csrc/mc_fused.cu): slots
+    ``0..count-1`` hold frames ``0..count-1``, or ``ids`` (int32, -1 =
+    padding).  Returns the (6,) counters and, for a stage launch, the
+    per-slot stat: 0 (converged or padding) or ``1 | bit_errors << 1``."""
+    total = torch.zeros(_LANES, dtype=torch.int64, device=mc.device)
+    stats = []
+    for start in range(0, count, _PLAIN_CHUNK):
+        stop = min(count, start + _PLAIN_CHUNK)
+        if ids is None:
+            fid = torch.arange(start, stop, dtype=torch.int64, device=mc.device)
+        else:
+            fid = ids[start:stop].to(torch.int64)
+        valid = fid >= 0
+        codeword, llr = mc_hash.sample(fid.clamp(min=0), mc.seed, mc.g32,
+                                       mc.sigma)
+        soft = _decode_edge_plain(llr, mc.h, iters, mc.weights, traj=False)
+        bit_err, unconv = _frame_errors(mc, soft, codeword)
+        if stage:
+            total += _count(bit_err, unconv, valid & ~unconv)
+            stats.append(torch.where(valid & unconv, 1 | (bit_err << 1), 0)
+                         .to(torch.int32))
+        else:
+            total += _count(bit_err, unconv, valid)
+    if not stage:
+        return total, None
+    if not stats:
+        return total, torch.zeros(0, dtype=torch.int32, device=mc.device)
+    return total, torch.cat(stats)
+
+
+def _mc_frames_kernel(mc: MCSetup, iters: int, count: int, ids=None,
+                      stage: bool = False):
+    """Launch ``mc_frames`` (csrc/mc_fused.cu); same contract as
+    :func:`_mc_frames_plain`."""
+    if ids is not None and (ids.dtype != torch.int32 or ids.dim() != 1
+                            or not ids.is_contiguous() or len(ids) != count
+                            or ids.device != mc.device):
+        raise ValueError("ids must be a contiguous (count,) int32 tensor on "
+                         "the tables' device")
+    if count >= 2**31:
+        raise ValueError(f"count {count} exceeds the kernel's int32 frame ids")
+    lib = _kernels.library("mc_fused")
+    dc, m = mc.edge_col.shape
+    dv, n = mc.var_edges.shape
+    fpb = lib.mc_frames_per_block(n, m, dc, dv, mc.k)
+    if fpb < 1:
+        raise ValueError(f"one ({m}, {n}) frame does not fit a block's "
+                         "shared memory")
+    partials = torch.empty(((count + fpb - 1) // fpb, _LANES),
+                           dtype=torch.int32, device=mc.device)
+    stat = (torch.empty(count, dtype=torch.int32, device=mc.device)
+            if stage else None)
+    status = lib.mc_frames(
+        None if ids is None else ids.data_ptr(),
+        None if stat is None else stat.data_ptr(), partials.data_ptr(),
+        mc.edge_col.data_ptr(), mc.var_edges.data_ptr(), mc.gcols.data_ptr(),
+        count, n, m, dc, dv, mc.k, iters, mc.seed, mc.sigma, 1.0,
+        *mc.weights, _kernels.stream_handle(mc.device))
+    _kernels.check(status, "mc_frames")
+    return partials.sum(0, dtype=torch.int64), stat
+
+
+def _group_rank_plain(stat, ids_in, groups: int, group_size: int,
+                      rows_next: int):
+    """Plain twin of ``group_rank_kernel``: per group, the unconverged slots
+    ranked in frame order; the first ``rows_next`` go to the next id list
+    (-1 padded), the rest count as overflow judged at this stage."""
+    s = stat.view(groups, group_size)
+    u = s != 0
+    rank = torch.cumsum(u, 1) - u.to(torch.int64)
+    covered = u & (rank < rows_next)
+    over = u & ~covered
+    be = (s >> 1).to(torch.int64)
+    n_over = over.sum()
+    zero = torch.zeros((), dtype=torch.int64, device=stat.device)
+    counters = torch.stack([n_over, (over & (be > 0)).sum(),
+                            torch.where(over, be, 0).sum(), n_over, zero, n_over])
+    if ids_in is None:
+        fid = torch.arange(groups * group_size, dtype=torch.int32,
+                           device=stat.device).view(groups, group_size)
+    else:
+        fid = ids_in.view(groups, group_size)
+    ids_out = torch.full((groups, rows_next), -1, dtype=torch.int32,
+                         device=stat.device)
+    g_idx, pos = covered.nonzero(as_tuple=True)
+    ids_out[g_idx, rank[g_idx, pos]] = fid[g_idx, pos]
+    return counters, ids_out.view(-1)
+
+
+def _group_rank_kernel(stat, ids_in, groups: int, group_size: int,
+                       rows_next: int):
+    """Launch ``mc_group_rank`` (csrc/mc_fused.cu); same contract as
+    :func:`_group_rank_plain`."""
+    lib = _kernels.library("mc_fused")
+    ids_out = torch.empty(groups * rows_next, dtype=torch.int32,
+                          device=stat.device)
+    partials = torch.empty((groups, _LANES), dtype=torch.int32,
+                           device=stat.device)
+    status = lib.mc_group_rank(
+        stat.data_ptr(), None if ids_in is None else ids_in.data_ptr(),
+        ids_out.data_ptr(), partials.data_ptr(), groups, group_size, rows_next,
+        _kernels.stream_handle(stat.device))
+    _kernels.check(status, "mc_group_rank")
+    return partials.sum(0, dtype=torch.int64), ids_out
+
+
+def _compact_chain(mc: MCSetup, batch: int, block_frames: int, rows_schedule,
+                   final_iters: int, frames_fn=_mc_frames_kernel,
+                   rank_fn=_group_rank_kernel) -> torch.Tensor:
+    """K3 as a chain of launches: per stage, the alive frames decode from
+    scratch to the stage's cumulative iteration count (STAGE launch, which
+    banks the converged ones), then each group's unconverged frames are
+    ranked and the first ``rows`` go on; the last list decodes all T
+    iterations (COUNT launch).  ``frames_fn``/``rank_fn`` are the kernel
+    launchers on the card; the tests hand in the plain twins."""
+    total = torch.zeros(_LANES, dtype=torch.int64, device=mc.device)
+    groups = batch // block_frames
+    ids, group, count, spent = None, block_frames, batch, 0
+    for iters_i, rows_i in rows_schedule:
+        spent += iters_i
+        counters, stat = frames_fn(mc, spent, count, ids, stage=True)
+        total += counters
+        counters, ids = rank_fn(stat, ids, groups, group, rows_i)
+        total += counters
+        group, count = rows_i, groups * rows_i
+    counters, _ = frames_fn(mc, spent + final_iters, count, ids, stage=False)
+    return total + counters
+
+
+def _compact_plain(mc: MCSetup, batch: int, block_frames: int, rows_schedule,
+                   final_iters: int) -> torch.Tensor:
+    """The compaction rule computed literally (plain twin of K3): a frame
+    is judged at the first stage boundary where its syndrome is zero or
+    its rank among its group's still-alive unconverged frames reaches the
+    stage's capacity (overflow, lane 5); every other frame at T."""
+    num_iterations = sum(it for it, _ in rows_schedule) + final_iters
+    total = torch.zeros(_LANES, dtype=torch.int64, device=mc.device)
+    chunk = max(block_frames, _PLAIN_CHUNK // block_frames * block_frames)
+    for start in range(0, batch, chunk):
+        fid = torch.arange(start, min(batch, start + chunk), dtype=torch.int64,
+                           device=mc.device)
+        codeword, llr = mc_hash.sample(fid, mc.seed, mc.g32, mc.sigma)
+        traj = _decode_edge_plain(llr, mc.h, num_iterations, mc.weights,
+                                  traj=True)
+        decision = traj[num_iterations]
+        alive = torch.ones(len(fid), dtype=torch.bool, device=mc.device)
+        overflow = torch.zeros((), dtype=torch.int64, device=mc.device)
+        spent = 0
+        for iters_i, rows_i in rows_schedule:
+            spent += iters_i
+            _, unconv = _frame_errors(mc, traj[spent], codeword)
+            u = (alive & unconv).view(-1, block_frames)
+            rank = torch.cumsum(u, 1) - u.to(torch.int64)
+            covered = (u & (rank < rows_i)).view(-1)
+            decision = torch.where((alive & ~covered)[:, None], traj[spent],
+                                   decision)
+            overflow += (alive & unconv & ~covered).sum()
+            alive = covered
+        del traj
+        bit_err, unconv = _frame_errors(mc, decision, codeword)
+        counters = _count(bit_err, unconv, torch.ones_like(alive))
+        counters[5] = overflow
+        total += counters
+    return total
+
+
+def fused_counters_edge(code, params: dict, variant: str, num_iterations: int,
+                        snr_db: float, batch: int, seed: int,
+                        device: str | torch.device = "cuda") -> torch.Tensor:
+    """One-shot fused Monte-Carlo step (kernel K4 on CUDA): ``batch`` hash
+    frames of ``seed`` at ``snr_db`` through ``num_iterations`` iterations;
+    returns (5,) int64 [frames, frame_err, bit_err, detected, undetected]
+    on ``device``."""
+    mc = mc_setup(code, params, variant, snr_db, seed, device)
+    if mc.device.type == "cpu":
+        return _mc_frames_plain(mc, num_iterations, batch)[0][:5]
+    counters, _ = _mc_frames_kernel(mc, num_iterations, batch)
+    _kernels.LAUNCHES["mc_oneshot"] += 1
+    return counters[:5]
+
+
+def fused_counters_edge_compact(code, params: dict, variant: str,
+                                num_iterations: int, snr_db: float, batch: int,
+                                seed: int, t1: int = 4, block_frames: int = 512,
+                                compact_frac: float = 0.5, schedule=None,
+                                device: str | torch.device = "cuda"
+                                ) -> torch.Tensor:
+    """Early-termination counters via convergence compaction (kernel K3 on
+    CUDA): (6,) int64 [frames, frame_err, bit_err, detected, undetected,
+    overflow] on ``device``.
+
+    ``schedule`` is a tuple of ``(iters, frac)`` stages (fractions of
+    ``block_frames``, see :func:`build_rows_schedule`); when None, one
+    ``(t1, compact_frac)`` stage.  At each stage boundary a frame with a
+    zero syndrome keeps that decision; of each ``block_frames`` group's
+    unconverged frames the first ``rows`` (in frame order) go on, the rest
+    keep the stage's decision and count in lane 5.  Frames covered through
+    every stage are judged after all ``num_iterations``."""
+    if batch % block_frames:
+        raise ValueError(f"batch {batch} not a multiple of {block_frames}")
+    if schedule is None:
+        schedule = ((t1, compact_frac),)
+    rows_schedule, final_iters = build_rows_schedule(
+        schedule, block_frames, num_iterations)
+    mc = mc_setup(code, params, variant, snr_db, seed, device)
+    if mc.device.type == "cpu":
+        return _compact_plain(mc, batch, block_frames, rows_schedule,
+                              final_iters)
+    counters = _compact_chain(mc, batch, block_frames, rows_schedule,
+                              final_iters)
+    _kernels.LAUNCHES["mc_compact"] += 1
+    return counters

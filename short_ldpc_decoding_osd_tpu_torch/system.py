@@ -14,6 +14,12 @@ Port of ``bench.py:199-419`` (``system_two_phase_throughput``).  One round:
 keys, plus the NMS frame-error count, strict OSD successes and a per-stage
 time split from one extra round with a synchronisation between stages.
 :class:`TwoPhase` holds one loaded system and runs single rounds.
+
+:func:`phase1_throughput` is the port of ``bench.py:104-196``
+(``tpu_nms_throughput``), the phase-1 headline: the fused Monte-Carlo
+counters, kernel K3 (``"compact"``) or K4 (``"oneshot"``), at 2,097,152
+frames a step with NMS-1 at its initial factor; :class:`Phase1` holds the
+step and its timed loop.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 
 from ._device import resolve_device, synchronize
 from .channel.awgn import ChannelSpec
+from .codes import get_code
 from .convert import load_run
 from .mc.harness import build_nms_mc_step
 from .ops import nms, nms_edge
@@ -188,3 +195,86 @@ def run_two_phase(run_dir: str | None = None, frames: int = 2_097_152,
     out = system.measure(rounds)
     out["system_stage_s"] = system.stage_times(rounds)
     return out
+
+
+class Phase1:
+    """The phase-1 fused Monte-Carlo step of ``bench.py``'s headline on
+    ``device`` (its ``BENCH_*`` knobs are the parameters): CCSDS (128,64),
+    NMS-1 at its initial factor, ``batch`` hash frames a step,
+    kernel K3 with ``schedule=((t1, frac),)`` in groups of ``block_frames``
+    (``"compact"``) or kernel K4 (``"oneshot"``)."""
+
+    def __init__(self, batch: int = 2_097_152, kernel: str = "compact",
+                 t1: int = 4, frac: float = 0.375, block_frames: int = 1024,
+                 iters: int = 12, snr_db: float = 3.0,
+                 device: str | torch.device = "cuda"):
+        if kernel not in ("compact", "oneshot"):
+            raise ValueError(f"kernel must be 'compact' or 'oneshot', got {kernel!r}")
+        self.device = resolve_device(device)
+        self.batch, self.kernel, self.t1, self.frac = batch, kernel, t1, frac
+        self.block_frames, self.iters, self.snr_db = block_frames, iters, snr_db
+        self.code = get_code("ccsds_128_64")
+        self.params = nms.init_params("NMS-1")
+
+    def step(self, seed: int) -> torch.Tensor:
+        """Counters of one step on the device: (6,) int64 for "compact"
+        (lane 5 = overflow), (5,) for "oneshot"."""
+        if self.kernel == "compact":
+            return nms_edge.fused_counters_edge_compact(
+                self.code, self.params, "NMS-1", self.iters, self.snr_db,
+                self.batch, seed=seed, block_frames=self.block_frames,
+                schedule=((self.t1, self.frac),), device=self.device)
+        return nms_edge.fused_counters_edge(
+            self.code, self.params, "NMS-1", self.iters, self.snr_db,
+            self.batch, seed=seed, device=self.device)
+
+    def measure(self, steps: int) -> dict:
+        """``steps`` steps (seeds 1..steps) on the host clock, closed by a
+        device synchronisation; ``bench.py``'s fields (``sample_fer`` and
+        ``compact_overflow`` from the last step, as there) plus the summed
+        counters of all timed steps.  Call it after a warm-up step."""
+        total = torch.zeros(6, dtype=torch.int64, device=self.device)
+        t0 = time.perf_counter()
+        for i in range(steps):
+            last = self.step(1 + i)
+            total[: len(last)] += last
+        synchronize(self.device)
+        seconds = time.perf_counter() - t0
+        c, tot = last.cpu().tolist(), total.cpu().tolist()
+        out = {
+            "metric": "nms_decoded_codewords_per_s_1chip",
+            "value": steps * self.batch / seconds,
+            "unit": "codewords/s",
+            "device": (torch.cuda.get_device_name(self.device)
+                       if self.device.type == "cuda" else str(self.device)),
+            "batch": self.batch,
+            "iters": self.iters,
+            "kernel": self.kernel,
+            "snr_db": self.snr_db,
+            "sample_fer": c[1] / self.batch,
+            "steps": steps,
+            "seconds": seconds,
+            "timed_frames": tot[0],
+            "timed_frame_errors": tot[1],
+            "timed_bit_errors": tot[2],
+            "timed_detected": tot[3],
+            "timed_undetected": tot[4],
+        }
+        if self.kernel == "compact":
+            out |= {"t1": self.t1, "compact_overflow": c[5],
+                    "timed_compact_overflow": tot[5],
+                    "block_frames": self.block_frames, "frac": self.frac}
+        return out
+
+
+def phase1_throughput(batch: int = 2_097_152, steps: int = 8,
+                      kernel: str = "compact", t1: int = 4, frac: float = 0.375,
+                      block_frames: int = 1024, iters: int = 12,
+                      snr_db: float = 3.0,
+                      device: str | torch.device = "cuda") -> dict:
+    """One warm-up step, then ``steps`` timed steps of :class:`Phase1`;
+    returns decoded codewords/s (``value``) with ``bench.py``'s fields."""
+    phase1 = Phase1(batch, kernel, t1, frac, block_frames, iters, snr_db, device)
+    phase1.step(0)  # warm-up: kernel build, allocator
+    synchronize(phase1.device)
+    return phase1.measure(steps)
