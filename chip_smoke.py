@@ -28,7 +28,22 @@ Phases (each raises on failure, so the script never exits 0 after one):
    step) through K3, with the same FER check;
 6. one ``cascade_counters`` call (K8a + K8b) at 2,097,152 frames;
 7. one two-phase round and one phase-1 step under ``torch.profiler``: the
-   device's busy share and the kernels that take the most device time.
+   device's busy share and the kernels that take the most device time;
+8. the dense rung: K6 against its plain twin bit for bit at 262,144 frames
+   (and on ``array_121_60``), K7 against its twin at 262,144 frames
+   (counters equal) and against K4 on the same seed at 2,097,152 frames
+   (within 4 frame errors), both timed; the capture step pinned to K6
+   against the default K1 step (counters, capture count and buffers
+   identical; K6's launches counted here); ``run_nms_mc(rung="dense")`` to
+   40,000 errors (only K7 launches; FER against the JAX record);
+9. the padded edge layout against the plain dense step on the same
+   generator (within 4 frame errors, equal frame counts), both timed:
+   ``wimax_1056_880`` at 3.75 dB (4,096 frames) and NMS-r on CCSDS at
+   3.0 dB (1,024, 2,048, 4,096 and 262,144 frames), NMS-r's default decoder
+   by batch held to the rule;
+10. ``train_nms`` with ``NMSTrainConfig()`` (1,200 steps): the loss must
+    fall (the trained factor's loss on the first block's frames below the
+    first block's loss); the factor and its 3.0 dB FER are reported.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -52,12 +67,16 @@ from torch.autograd import DeviceType
 from short_ldpc_decoding_osd_tpu_torch import _kernels, system
 from short_ldpc_decoding_osd_tpu_torch._device import synchronize
 from short_ldpc_decoding_osd_tpu_torch.channel import ChannelSpec, sample_batch
+from short_ldpc_decoding_osd_tpu_torch.channel.awgn import sigma_for_snr
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.convert import load_run
 from short_ldpc_decoding_osd_tpu_torch.mc import harness
 from short_ldpc_decoding_osd_tpu_torch.mc.harness import count_and_capture
-from short_ldpc_decoding_osd_tpu_torch.ops import mc_cascade, nms, nms_edge, osd_disc
+from short_ldpc_decoding_osd_tpu_torch.ops import (mc_cascade, mc_dense, nms,
+                                                   nms_dense, nms_edge,
+                                                   nms_edge_padded, osd_disc)
 from short_ldpc_decoding_osd_tpu_torch.osd import engine, segments
+from short_ldpc_decoding_osd_tpu_torch.train import NMSTrainConfig, nms_train
 from short_ldpc_decoding_osd_tpu_torch.utils.metrics import wilson_interval
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -80,11 +99,16 @@ CAP_B, CAP, ROUNDS, ITERS = 262_144, 32_768, 8, 12
 # (bench.py:34-37).  NMS-1 at its initial factor, 12 iterations, 3.0 dB.
 REF_PH1_ERRORS, REF_PH1_FRAMES = 201_116, 2_097_152
 PH1_BATCH, PH1_STEPS, MC_B = 2_097_152, 8, 262_144
+# frames a step of the run_nms_mc sweeps; of the padded edge layout's steps
+SWEEP_B, PADDED_B = 262_144, 4096
 # kernel row -> its count in _kernels.LAUNCHES
 LAUNCH_KEY = {"K1 nms_edge_final": "nms_edge_final", "K2 nms_edge_traj": "nms_edge_traj",
               "K3 mc_compact": "mc_compact", "K4 mc_oneshot": "mc_oneshot",
-              "K5 lterm": "lterm", "K8a cascade_p1": "cascade_p1",
+              "K5 lterm": "lterm", "K6 dense_final": "dense_final",
+              "K7 mc_dense": "mc_dense", "K8a cascade_p1": "cascade_p1",
               "K8b cascade_p2": "cascade_p2"}
+# the JAX run's learned NMS-1 factor (runs/r4_pipeline/nms_train_summary.json)
+REF_TRAINED_CHECK = 0.16855433583259583
 
 
 def log(*args):
@@ -212,7 +236,7 @@ def main_path_inputs(dev):
 def phase_kernels(dev):
     run, params, llr, cap, refined, prep, u_l, t_flat = main_path_inputs(dev)
     code = run["code"]
-    weights = nms_edge._scalar_weights(params, "NMS-1")
+    weights = nms.scalar_weights(params, "NMS-1")
     rows = []
 
     def edge_row(name, traj, source_line, x, h_batch_note):
@@ -444,6 +468,255 @@ def phase_mc_kernels(dev):
     return rows
 
 
+def phase_dense_kernels(dev):
+    """K6 and K7 against their plain twins (bit for bit, counters equal),
+    K7 against K4 on the same seed, and both timed: K6 at the main path's
+    262,144 frames with the trained factor (as K1), K7 at 2,097,152 frames
+    with NMS-1 at its initial factor (as K4)."""
+    run = load_run(os.path.join(ROOT, "runs", "r4_pipeline"), dev)
+    code = run["code"]
+    params = {k: v.cpu() for k, v in run["nms_params"].items()}
+    llr, _ = sample_batch(torch.Generator(device=dev).manual_seed(2024),
+                          ChannelSpec.awgn(3.0, code.rate),
+                          torch.as_tensor(code.g, device=dev), CAP_B)
+    h = torch.as_tensor(code.h, dtype=torch.float32, device=dev)
+    weights = nms.scalar_weights(params, "NMS-1")
+    rows = []
+
+    got = nms_dense.decode_final_dense(params, h, llr, ITERS)
+    want = nms_dense._decode_dense_plain(h, llr, ITERS, weights)
+    err = compare("K6", got, want)
+    if not torch.equal(got, want):
+        raise AssertionError("K6 differs from its plain twin")
+    same_as_k1 = torch.equal(got, nms_edge.decode_final_edge(params, code.h, llr,
+                                                             ITERS))
+    arr = get_code("array_121_60")
+    ha = torch.as_tensor(arr.h, dtype=torch.float32, device=dev)
+    xa = torch.randn((65_536, arr.n), generator=torch.Generator(device=dev)
+                     .manual_seed(3), device=dev) * 0.8 + 1.0
+    got_a = nms_dense.decode_final_dense(params, ha, xa, ITERS)
+    if not torch.equal(got_a, nms_dense._decode_dense_plain(ha, xa, ITERS, weights)):
+        raise AssertionError("K6 array_121_60: kernel differs from its plain twin")
+    del want, got_a
+    log(f"K6: bit for bit with its plain twin at {CAP_B} frames and on "
+        f"array_121_60 (65,536 frames); equal to K1 bit for bit: {same_as_k1}")
+    ms, bound_by = bound_ms(4 * CAP_B * code.n * 2,
+                            nms_edge_ops(code.h, CAP_B, ITERS) / F32_INSTR)
+    row = {
+        "name": "K6 dense_final", "route": "cuda",
+        "source": "short_ldpc_decoding_osd_tpu_torch/csrc/nms_dense.cu",
+        "replaces": "short_ldpc_decoding_osd_tpu/ops/nms_pallas.py:46",
+        "launches": None, "max_abs_err": err,
+        "ms": cuda_ms(lambda: nms_dense.decode_final_dense(params, h, llr, ITERS),
+                      20),
+        "plain_ms": cuda_ms(lambda: nms_dense._decode_dense_plain(
+            h, llr, ITERS, weights), 2, warmup=1),
+        "bound_ms": ms, "bound_by": bound_by,
+        # no single PyTorch call computes a min-sum decode
+        "library_ms": None,
+        "shape": f"h (64, 128) f32, llr ({CAP_B}, 128) f32 -> ({CAP_B}, 128), T=12",
+    }
+    log(f"K6 dense_final: max_abs_err {err:.3g}, kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, bound {ms:.4f} ms ({bound_by})")
+    rows.append(row)
+
+    ccsds = get_code("ccsds_128_64")
+    p0 = nms.init_params("NMS-1")
+    w0 = nms.scalar_weights(p0, "NMS-1")
+    sigma = float(np.float32(sigma_for_snr(3.0, ccsds.rate)))
+    hc = torch.as_tensor(ccsds.h, dtype=torch.float32, device=dev)
+    gc = torch.as_tensor(ccsds.g, dtype=torch.float32, device=dev)
+    seed, big = 11, PH1_BATCH
+    got = mc_dense.fused_counters(ccsds, p0, "NMS-1", ITERS, 3.0, MC_B, seed,
+                                  device=dev)
+    want = mc_dense._mc_dense_plain(w0, seed, hc, gc, ITERS, MC_B, sigma, 1.0)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K7: kernel {got.tolist()} vs plain {want.tolist()}")
+    k7 = mc_dense.fused_counters(ccsds, p0, "NMS-1", ITERS, 3.0, big, seed,
+                                 device=dev).tolist()
+    k4 = nms_edge.fused_counters_edge(ccsds, p0, "NMS-1", ITERS, 3.0, big, seed,
+                                      device=dev).tolist()
+    log(f"K7 vs K4, seed {seed}, {big} frames: K7 {k7}, K4 {k4}, "
+        f"|frame errors K7 - K4| = {abs(k7[1] - k4[1])}")
+    if k7[0] != k4[0] or abs(k7[1] - k4[1]) > 4:
+        raise AssertionError(f"K7 {k7} and K4 {k4} differ by more than 4 frame "
+                             "errors")
+    bms, bound_by = bound_ms(8 * 5, nms_edge_ops(ccsds.h, big, ITERS) / F32_INSTR)
+    row = {
+        "name": "K7 mc_dense", "route": "cuda",
+        "source": "short_ldpc_decoding_osd_tpu_torch/csrc/nms_dense.cu",
+        "replaces": "short_ldpc_decoding_osd_tpu/ops/mc_pallas.py:131",
+        "launches": None, "max_abs_err": 0,
+        "ms": cuda_ms(lambda: mc_dense.fused_counters(
+            ccsds, p0, "NMS-1", ITERS, 3.0, big, seed, device=dev), 10),
+        "plain_ms": cuda_ms(lambda: mc_dense._mc_dense_plain(
+            w0, seed, hc, gc, ITERS, big, sigma, 1.0), 1, warmup=0),
+        "bound_ms": bms, "bound_by": bound_by,
+        # no single PyTorch call computes a fused Monte-Carlo step
+        "library_ms": None,
+        "shape": f"{big} hash frames, h (64, 128) + G (64, 128) f32, T={ITERS} "
+                 "-> (5,) int64",
+    }
+    log(f"K7 mc_dense: counters equal to the plain twin at {MC_B} frames, kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound {bms:.4f} ms "
+        f"({bound_by})")
+    rows.append(row)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dense_capture(dev, rows):
+    """The capture step pinned to K6 against the default (K1) step on the
+    same generator: 8 rounds of 262,144 frames, capture 32,768, trained
+    factor, 3.0 dB.  Counters, capture count and buffers must be identical;
+    K6's launches are counted over the pinned step's rounds."""
+    run = load_run(os.path.join(ROOT, "runs", "r4_pipeline"), dev)
+    code = run["code"]
+    params = {k: v.cpu() for k, v in run["nms_params"].items()}
+    spec = ChannelSpec.awgn(3.0, code.rate)
+    default = harness.build_nms_mc_step(code, "NMS-1", ITERS, spec, CAP_B,
+                                        capture_capacity=CAP, device=dev)
+    pinned = harness.build_nms_mc_step(code, "NMS-1", ITERS, spec, CAP_B,
+                                       capture_capacity=CAP, decoder="dense",
+                                       device=dev)
+    if default.decoder != "edge":
+        raise AssertionError(f"default decoder {default.decoder} is not K1")
+    gen = torch.Generator(device=dev)
+    ref = []
+    for i in range(ROUNDS):
+        gen.manual_seed(77 * 1_000_003 + i)
+        ref.append(default(params, gen))
+    synchronize(dev)
+    _kernels.reset_launches()
+    outs = []
+    for i in range(ROUNDS):
+        gen.manual_seed(77 * 1_000_003 + i)
+        outs.append(pinned(params, gen))
+    synchronize(dev)
+    launches = dict(_kernels.LAUNCHES)
+    want = dict.fromkeys(launches, 0) | {"dense_final": ROUNDS}
+    if launches != want:
+        raise AssertionError(f"K6 capture step launches {launches} != {want}")
+    set_launches(rows, launches, ("dense_final",))
+    total = torch.zeros(5, dtype=torch.int64)
+    for (c1, cap1), (c6, cap6) in zip(ref, outs):
+        if not torch.equal(c1, c6):
+            raise AssertionError(f"capture step: K6 {c6.tolist()} vs K1 {c1.tolist()}")
+        for key in ("count", "llr", "labels"):
+            if not torch.equal(cap1[key], cap6[key]):
+                raise AssertionError(f"capture step: K6 and K1 {key} differ")
+        total += c6.cpu()
+    log(f"capture step pinned to K6 == default K1 step over {ROUNDS} rounds: "
+        f"counters {total.tolist()}, capture count and buffers identical; "
+        f"launches {launches}")
+
+
+def phase_sweep_dense(dev, rows):
+    """``run_nms_mc(rung="dense")`` at 3.0 dB to 40,000 errors: only K7."""
+    code = get_code("ccsds_128_64")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats, _ = harness.run_nms_mc(code, nms.init_params("NMS-1"), "NMS-1", ITERS,
+                                  3.0, batch=SWEEP_B, error_budget=40_000,
+                                  rung="dense", device=dev)
+    seconds = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    set_launches(rows, launches, ("mc_dense",))
+    ci = wilson_overlap("run_nms_mc(rung='dense')", stats.frame_errors,
+                        stats.frames)
+    log("sweep dense: " + json.dumps(stats.to_dict() | {
+        "fer_999_ci": ci, "seconds": seconds, "launches": launches}))
+    if launches["mc_dense"] < 1 or sum(launches.values()) != launches["mc_dense"]:
+        raise AssertionError(f"run_nms_mc(rung='dense') launches {launches}")
+
+
+def phase_padded(dev):
+    """The padded edge layout against the plain dense step on the same
+    generator: wimax_1056_880 (NMS-1, 3.75 dB, 4,096 frames) and NMS-r on
+    CCSDS (3.0 dB, untrained NN weights) at 1,024 frames (``run_nms_mc``'s
+    default batch), 2,048, 4,096 and 262,144 (the capture step's), each side
+    timed by CUDA events: the measurement behind NMS-r's default decoder on
+    CUDA, the plain dense step below ``NMS_R_MIN_BATCH`` frames and the
+    padded layout from there up.  Gate: within 4 frame errors, equal frame
+    counts, and the default decoder of each measured batch is the rule's."""
+    faster, default = {}, {}
+    for name, variant, snr, frames in (("wimax_1056_880", "NMS-1", 3.75, PADDED_B),
+                                       ("ccsds_128_64", "NMS-r", 3.0, 1024),
+                                       ("ccsds_128_64", "NMS-r", 3.0, 2048),
+                                       ("ccsds_128_64", "NMS-r", 3.0, PADDED_B),
+                                       ("ccsds_128_64", "NMS-r", 3.0, CAP_B)):
+        code = get_code(name)
+        params = {k: v.to(dev) for k, v in
+                  nms.init_params(variant, code.h, seed=0).items()}
+        spec = ChannelSpec.awgn(snr, code.rate)
+        out = {}
+        for decoder in ("edge_padded", "plain"):
+            step = harness.build_nms_mc_step(code, variant, ITERS, spec, frames,
+                                             decoder=decoder, device=dev)
+            ms = cuda_ms(lambda: step(params, torch.Generator(device=dev)
+                                      .manual_seed(4)),
+                         2 if frames > PADDED_B else 10, warmup=2)
+            c, _ = step(params, torch.Generator(device=dev).manual_seed(5))
+            out[decoder] = (c.cpu().tolist(), ms)
+            del step, c
+            torch.cuda.empty_cache()
+        (cp, tp), (cd, td) = out["edge_padded"], out["plain"]
+        log(f"padded edge layout, {name} {variant} {snr} dB, {frames} frames: "
+            f"padded {cp} in {tp:.4f} ms, plain dense {cd} in {td:.4f} ms "
+            f"(plain / padded {td / tp:.3f}), |frame errors| diff "
+            f"{abs(cp[1] - cd[1])}")
+        if cp[0] != cd[0] or abs(cp[1] - cd[1]) > 4:
+            raise AssertionError(f"{name} {variant}: padded {cp} vs plain {cd}")
+        if variant == "NMS-r":
+            faster[frames] = "edge_padded" if tp < td else "plain"
+            default[frames] = harness.select_decoder(code.h, variant, frames,
+                                                     device=dev)
+    log(f"NMS-r on CUDA: default decoder by batch {default}; faster by batch "
+        f"{faster}")
+    rule = {b: "edge_padded" if b >= nms_edge_padded.NMS_R_MIN_BATCH else "plain"
+            for b in default}
+    if default != rule:
+        raise AssertionError(f"NMS-r default decoders {default} != the rule {rule}")
+
+
+def phase_train(dev):
+    """``train_nms`` with ``NMSTrainConfig()`` on the card.  Gate: the loss
+    falls, measured on identical frames: the trained factor's mean loss over
+    the first block's ring batches is below the first block's loss (the
+    blocks' own losses come from different ring batches and vary by a few
+    percent between blocks)."""
+    code = get_code("ccsds_128_64")
+    cfg = NMSTrainConfig()
+    records = []
+    t0 = time.perf_counter()
+    params, _ = nms_train.train_nms(code, cfg, log_fn=records.append, device=dev)
+    synchronize(dev)
+    seconds = time.perf_counter() - t0
+    first_block = range(cfg.print_interval)
+    trained = {k: v.detach() for k, v in params.items()}
+    trained_loss = nms_train.ring_loss(code, cfg, trained, first_block, device=dev)
+    init_loss = nms_train.ring_loss(code, cfg, nms.init_params("NMS-1"),
+                                    first_block, device=dev)
+    stats, _ = harness.run_nms_mc(code, {k: v.cpu() for k, v in trained.items()},
+                                  "NMS-1", ITERS, 3.0, batch=SWEEP_B,
+                                  error_budget=40_000, device=dev)
+    check = float(trained["check"][0])
+    log("train: " + json.dumps({
+        "steps": cfg.termination_step, "seconds": seconds,
+        "first_block": records[0], "last_block": records[-1],
+        "block_loss_means": [round(r["loss_mean"], 3) for r in records],
+        "first_block_frames_loss_init": init_loss,
+        "first_block_frames_loss_trained": trained_loss,
+        "check": check, "check_jax_run": REF_TRAINED_CHECK,
+        "w_chk": float(torch.nn.functional.softplus(torch.tensor(check))),
+        "fer_3db": stats.fer, "fer_3db_frames": stats.frames,
+        "fer_3db_errors": stats.frame_errors}))
+    if not trained_loss < records[0]["loss_mean"]:
+        raise AssertionError(f"training loss did not fall: {trained_loss} on the "
+                             f"first block's frames vs {records[0]['loss_mean']}")
+
+
 def phase_phase1(dev, rows):
     """``bench.py``'s phase-1 headline on the card (``system.Phase1``):
     compact, then one-shot; each with counts reset after the warm-up step
@@ -478,7 +751,7 @@ def phase_sweep(dev):
     _kernels.reset_launches()
     t0 = time.perf_counter()
     stats, _ = harness.run_nms_mc(code, nms.init_params("NMS-1"), "NMS-1", ITERS,
-                                  3.0, batch=262_144, error_budget=40_000,
+                                  3.0, batch=SWEEP_B, error_budget=40_000,
                                   device=dev)
     seconds = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
@@ -628,16 +901,22 @@ def main():
         return 1
     dev = torch.device("cuda")
     smi = phase_environment()
-    rows = phase_kernels(dev) + phase_mc_kernels(dev)
+    rows = phase_kernels(dev) + phase_mc_kernels(dev) + phase_dense_kernels(dev)
     phase_card_vs_cpu(dev)
     phase_main_path(dev, rows)
     phase_phase1(dev, rows)
     phase_sweep(dev)
     phase_cascade(dev, rows)
     phase_profile(dev)
+    phase_dense_capture(dev, rows)
+    phase_sweep_dense(dev, rows)
+    phase_padded(dev)
+    phase_train(dev)
     rows.sort(key=lambda row: row["name"])
     if any(row["launches"] is None or row["launches"] < 1 for row in rows):
         raise AssertionError("a kernel row has no launch on its path")
+    if len(rows) != len(LAUNCH_KEY):
+        raise AssertionError(f"{len(rows)} kernel rows, expected {len(LAUNCH_KEY)}")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -28,7 +28,7 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("nms_edge", "osd_disc", "mc_fused")
+SOURCES = ("nms_edge", "osd_disc", "mc_fused", "nms_dense")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no fused multiply-add: the kernels then round exactly like their plain
@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES = {"nms_edge_final": 0, "nms_edge_traj": 0, "lterm": 0,
-            "mc_oneshot": 0, "mc_compact": 0, "cascade_p1": 0, "cascade_p2": 0}
+            "mc_oneshot": 0, "mc_compact": 0, "cascade_p1": 0, "cascade_p2": 0,
+            "dense_final": 0, "mc_dense": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -68,6 +69,17 @@ _SIGNATURES = {
         # stat, ids_in, ids_out, partials, groups, group_size, rows_next,
         # stream
         "mc_group_rank": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    },
+    "nms_dense": {
+        # smem, mc
+        "dense_max_blocks": [_I, _I],
+        # h, llr, out, batch, m, n, iters, smem, blocks, w_vc, w_chk, w_marg,
+        # stream
+        "dense_decode": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _F, _F, _VP],
+        # h, g, partials, count, m, n, k, iters, smem, blocks, seed, sigma,
+        # mean, w_vc, w_chk, w_marg, stream
+        "dense_mc": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _U, _F, _F,
+                     _F, _F, _F, _VP],
     },
 }
 

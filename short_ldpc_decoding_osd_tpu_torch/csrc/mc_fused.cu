@@ -17,13 +17,10 @@
 //
 // Two kernels serve the four launches:
 //   mc_frames_kernel<STAGE> takes `count` slots; slot i holds frame i, or
-//     ids[i] when an id list is given (-1 = padding, counts nothing).  Per
-//     frame: hash words -> message bits (one warp ballot per 32 bits) ->
-//     codeword bit v = popcount(msg & column v of G) & 1 (exact) -> Box-Muller
-//     normal (one per pair, cos only: streams k+1..k+n and k+1+n..k+2n) ->
-//     llr = (1-2c)(mean + sigma z) -> `iters` iterations of the shared edge
-//     body (nms_edge_body.cuh) -> hard decision soft < 0 -> bit errors and
-//     syndrome.
+//     ids[i] when an id list is given (-1 = padding, counts nothing).  Each
+//     frame runs the frame body of mc_frame_body.cuh (sample, encode, the
+//     shared edge body of nms_edge_body.cuh, bit errors and syndrome), which
+//     K7 (nms_dense.cu) shares.
 //     COUNT (STAGE=false: K4, K8b, K3's last launch) adds every frame to
 //     the counters [frames, frame_err, bit_err, detected, undetected].
 //     STAGE (K8a, K3's stage launches) adds only the converged frames
@@ -63,32 +60,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "nms_edge_body.cuh"
+#include "mc_frame_body.cuh"
 
 namespace {
 
-constexpr unsigned kGold1 = 0x9E3779B9u;  // golden-ratio increment
-constexpr unsigned kGold2 = 0xB4014E05u;  // odd stream constant (int32 -1274982907)
 // counter lanes: frames, frame_err, bit_err, detected, undetected, overflow
 constexpr int kLanes = 6;
-
-__device__ __forceinline__ unsigned mix32(unsigned x) {  // murmur3 fmix32
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ unsigned stream_word(unsigned base, int stream) {
-  return mix32(base ^ (static_cast<unsigned>(stream) * kGold2));
-}
-
-__device__ __forceinline__ float uniform01(unsigned w) {  // top 24 bits
-  return static_cast<float>(w >> 8) * (1.0f / 16777216.0f) +
-         (0.5f / 16777216.0f);
-}
 
 template <bool STAGE>
 __global__ void mc_frames_kernel(const int* __restrict__ ids,
@@ -103,7 +80,6 @@ __global__ void mc_frames_kernel(const int* __restrict__ ids,
                                  float w_vc, float w_chk, float w_marg) {
   extern __shared__ float smem[];
   const int num_edges = dc * m;
-  const int kw = (k + 31) / 32;
   int* s_edge_col = reinterpret_cast<int*>(smem);  // (dc, m)
   int* s_var_edges = s_edge_col + num_edges;       // (dv, n)
   int* s_count = s_var_edges + dv * n;             // kLanes block counters
@@ -122,73 +98,11 @@ __global__ void mc_frames_kernel(const int* __restrict__ ids,
   int fid = -1;
   if (in_block && slot < count) fid = ids ? ids[slot] : static_cast<int>(slot);
   const bool active = fid >= 0;
-  const size_t stride = static_cast<size_t>(num_edges) + 3 * n + kw + 2;
-  float* cv = s_frames + static_cast<size_t>(in_block ? f : 0) * stride;
-  float* total = cv + num_edges;
-  float* x = total + n;                            // channel llr
-  int* bits = reinterpret_cast<int*>(x + n);       // bit 0 codeword, bit 1 hard
-  unsigned* msg = reinterpret_cast<unsigned*>(bits + n);
-  int* flags = reinterpret_cast<int*>(msg + kw);   // bit errors, unconverged
-  const unsigned base = mix32(static_cast<unsigned>(fid) * kGold1 + seed);
-
-  if (in_block) {
-    for (int e = lt; e < num_edges; e += threads_per_frame) cv[e] = 0.f;
-    if (lt < 2) flags[lt] = 0;
-    // message bit j is bit 0 of stream j + 1; a warp's ballot packs 32
-    // (threads_per_frame is a multiple of 32, so the loop is warp-uniform)
-    for (int j0 = 0; j0 < kw * 32; j0 += threads_per_frame) {
-      const int j = j0 + lt;
-      const bool bit = j < k && (stream_word(base, j + 1) & 1u);
-      const unsigned word = __ballot_sync(0xffffffffu, bit);
-      if ((lt & 31) == 0 && j < kw * 32) msg[j >> 5] = word;
-    }
-  }
-  __syncthreads();
-
-  if (in_block) {
-    for (int v = lt; v < n; v += threads_per_frame) {
-      unsigned par = 0;
-      for (int w = 0; w < kw; ++w) par ^= __popc(msg[w] & gcols[v * kw + w]);
-      const int c = static_cast<int>(par & 1u);
-      const float u1 = uniform01(stream_word(base, k + 1 + v));
-      const float u2 = uniform01(stream_word(base, k + 1 + n + v));
-      const float z = sqrtf(-2.0f * logf(u1)) * cosf(6.283185307179586f * u2);
-      const float received = mean + sigma * z;
-      x[v] = active ? (1.0f - 2.0f * static_cast<float>(c)) * received : 0.f;
-      bits[v] = c;
-    }
-  }
-  __syncthreads();
-
-  nms_edge::iterate(cv, total, x, s_edge_col, s_var_edges, n, m, dc, dv, iters,
-                    lt, threads_per_frame, in_block, w_vc, w_chk,
-                    [&](int it, int v, float s) {
-                      if (it == iters && s + w_marg * x[v] < 0.f) bits[v] |= 2;
-                    });
-  __syncthreads();
-
-  if (in_block) {
-    int errs = 0, odd = 0;
-    for (int v = lt; v < n; v += threads_per_frame) {
-      const int b = bits[v];
-      errs += (b ^ (b >> 1)) & 1;
-    }
-    for (int c = lt; c < m; c += threads_per_frame) {
-      int par = 0;
-      for (int j = 0; j < dc; ++j) {
-        const int col = s_edge_col[j * m + c];
-        if (col >= 0) par ^= bits[col] >> 1;
-      }
-      odd |= par & 1;
-    }
-    errs = __reduce_add_sync(0xffffffffu, errs);
-    odd = __any_sync(0xffffffffu, odd);
-    if ((lt & 31) == 0) {
-      if (errs) atomicAdd(&flags[0], errs);
-      if (odd) atomicOr(&flags[1], 1);
-    }
-  }
-  __syncthreads();
+  const size_t stride = mc_frame::frame_words(n, m, dc, k);
+  const int* flags = mc_frame::run<false>(
+      s_frames + static_cast<size_t>(in_block ? f : 0) * stride, s_edge_col,
+      s_var_edges, gcols, fid, in_block, lt, threads_per_frame, n, m, dc, dv, k,
+      iters, seed, sigma, mean, w_vc, w_chk, w_marg);
 
   if (in_block && lt == 0 && slot < count) {
     const int be = flags[0];
@@ -285,11 +199,9 @@ __global__ void group_rank_kernel(const int* __restrict__ stat,
 
 bool frames_shape(int n, int m, int dc, int dv, int k, int* tpf, int* fpb,
                   size_t* smem) {
-  const size_t edges = static_cast<size_t>(dc) * m;
-  return nms_edge::launch_shape(n, m, edges + static_cast<size_t>(dv) * n + 8,
-                                edges + 3 * static_cast<size_t>(n) +
-                                    (k + 31) / 32 + 2,
-                                tpf, fpb, smem);
+  return nms_edge::launch_shape(
+      n, m, static_cast<size_t>(dc) * m + static_cast<size_t>(dv) * n + 8,
+      mc_frame::frame_words(n, m, dc, k), tpf, fpb, smem);
 }
 
 }  // namespace

@@ -1,9 +1,12 @@
 // The edge-layout normalized min-sum iteration body shared by the port's
-// CUDA kernels: K1/K2 (nms_edge.cu) and the fused Monte-Carlo kernels
-// K3/K4/K8 (mc_fused.cu).  It is the CUDA form of the TPU's
-// nms_edge_pallas._decode_edge; see nms_edge.cu for the semantics it holds
-// (duplicate-at-minimum tournament, zero-aware sign product, dummy edges
-// skipped).
+// CUDA kernels: K1/K2 (nms_edge.cu), the fused Monte-Carlo kernels
+// K3/K4/K8 (mc_fused.cu) and the dense-rung kernels K6/K7 (nms_dense.cu).
+// It is the CUDA form of the TPU's nms_edge_pallas._decode_edge; see
+// nms_edge.cu for the semantics it holds (duplicate-at-minimum tournament,
+// zero-aware sign product, dummy edges skipped).  With kClampBig (K6/K7) it
+// also holds the dense-rung TPU kernel's clamp (nms_pallas.py): magnitudes
+// are clamped to kBig and min/submin start at kBig, so a row of degree 1
+// sends w_chk * kBig where the other kernels send +inf.
 //
 // A block holds `frames_per_block` frames of `threads_per_frame` threads
 // each (a multiple of 32, so a warp never straddles two frames).  Each frame
@@ -27,7 +30,9 @@
 
 namespace nms_edge {
 
-template <typename Emit>
+constexpr float kBig = 3.4e38f;
+
+template <bool kClampBig = false, typename Emit>
 __device__ __forceinline__ void iterate(float* cv, float* total, const float* x,
                                         const int* s_edge_col,
                                         const int* s_var_edges, int n, int m,
@@ -53,13 +58,13 @@ __device__ __forceinline__ void iterate(float* cv, float* total, const float* x,
     // phase B: per-check min/submin tournament and outgoing messages
     if (in_block) {
       for (int c = lt; c < m; c += threads_per_frame) {
-        float min1 = INFINITY, min2 = INFINITY, sign_prod = 1.f;
+        float min1 = kClampBig ? kBig : INFINITY, min2 = min1, sign_prod = 1.f;
         for (int j = 0; j < dc; ++j) {
           const int e = j * m + c;
           const int col = s_edge_col[e];
           if (col < 0) continue;
           const float vc = total[col] - cv[e];
-          const float mag = fabsf(vc);
+          const float mag = kClampBig ? fminf(fabsf(vc), kBig) : fabsf(vc);
           const float sg = vc > 0.f ? 1.f : (vc < 0.f ? -1.f : 0.f);
           min2 = fminf(min2, fmaxf(min1, mag));
           min1 = fminf(min1, mag);
@@ -72,7 +77,7 @@ __device__ __forceinline__ void iterate(float* cv, float* total, const float* x,
           const int col = s_edge_col[e];
           if (col < 0) continue;
           const float vc = total[col] - cv[e];
-          const float mag = fabsf(vc);
+          const float mag = kClampBig ? fminf(fabsf(vc), kBig) : fabsf(vc);
           const float sg = vc > 0.f ? 1.f : (vc < 0.f ? -1.f : 0.f);
           cv[e] = (mag > min1 ? wmin1 : wmin2) * (sign_prod * sg);
         }

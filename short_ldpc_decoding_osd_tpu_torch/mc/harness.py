@@ -16,9 +16,12 @@ overflow, which the caller counts (``bench.py:389-397``).
 The JAX harness triages fused-kernel errors and demotes to a slower rung
 (``_attempt_fused``/``_kernel_error_kind``, ``harness.py:42-92``, and the
 ladder's block halving and dense/XLA rungs, ``mc/ladder.py:127-151``).  The
-port does not: a kernel that fails to build or launch fails the run.  What
-the ladder holds as semantics is kept: a compact step that overflowed is
-redone one-shot, and the sweep stays one-shot.
+port does not: a kernel that fails to build or launch fails the run, and a
+caller reaches another rung or decoder by naming it (``run_nms_mc(rung=)``,
+``build_nms_mc_step(decoder=)``); a pinned rung or decoder that cannot take
+the code or variant raises.  What the ladder holds as semantics is kept: a
+compact step that overflowed is redone one-shot, and the sweep stays
+one-shot.
 """
 
 from __future__ import annotations
@@ -33,8 +36,14 @@ import torch
 from .._device import resolve_device
 from ..channel.awgn import ChannelSpec, sample_batch
 from ..codes import Code
-from ..ops import nms, nms_edge
+from ..ops import mc_dense, nms, nms_dense, nms_edge, nms_edge_padded
 from ..utils.metrics import DecodeStats
+from . import ladder
+
+# the decoders of the capture step, JAX's four branches
+# (``harness.py:232-256``): edge kernel K1, dense kernel K6, the padded
+# edge layout (JAX's edge-layout XLA rung), the plain dense decoder
+DECODERS = ("edge", "dense", "edge_padded", "plain")
 
 
 def count_and_capture(llr: torch.Tensor, words: torch.Tensor,
@@ -62,32 +71,79 @@ def count_and_capture(llr: torch.Tensor, words: torch.Tensor,
     return counters, capture
 
 
+def select_decoder(decode_h, variant: str, batch: int,
+                   decoder: str | None = None,
+                   device: str | torch.device = "cuda") -> str:
+    """The capture step's decoder (one of :data:`DECODERS`) for steps of
+    ``batch`` frames.
+
+    ``decoder`` pins one and raises when it cannot take the code or the
+    variant.  Otherwise a scalar variant takes K1 when it holds the code,
+    else K6; then the padded edge layout where
+    ``nms_edge_padded.auto_select`` says so; else the plain dense decoder."""
+    edge_ok = variant != "NMS-r" and nms_edge.kernel_holds(decode_h)
+    dense_ok = variant != "NMS-r" and nms_dense.holds(*np.shape(decode_h))
+    if decoder is not None:
+        ok = {"edge": edge_ok, "dense": dense_ok,
+              "edge_padded": nms_edge_padded.supports(decode_h, variant),
+              "plain": True}
+        if decoder not in ok:
+            raise ValueError(f"unknown decoder {decoder!r}; expected "
+                             + "|".join(DECODERS))
+        if not ok[decoder]:
+            raise ValueError(f"decoder {decoder!r} cannot take {variant} on an "
+                             f"{tuple(np.shape(decode_h))} parity matrix")
+        return decoder
+    if edge_ok:
+        return "edge"
+    if dense_ok:
+        return "dense"
+    if nms_edge_padded.auto_select(decode_h, variant, device, batch):
+        return "edge_padded"
+    return "plain"
+
+
 def build_nms_mc_step(code: Code, variant: str, num_iterations: int,
                       spec: ChannelSpec, batch: int,
                       capture_capacity: int = 0, all_zeros: bool = False,
+                      decoder: str | None = None,
                       device: str | torch.device = "cuda"):
     """Build ``step(params, generator) -> (counters, capture)``.
 
-    The decode is the edge kernel K1 (``nms_edge.decode_final_edge``) for
-    the scalar variants and the dense ``nms.decode_final`` for NMS-r.
-    ``generator`` is a ``torch.Generator`` on ``device``."""
+    The decode is :func:`select_decoder`'s: by default K1
+    (``nms_edge.decode_final_edge``) for the scalar variants; for NMS-r the
+    padded edge layout on CUDA from ``nms_edge_padded.NMS_R_MIN_BATCH``
+    frames up, else the dense ``nms.decode_final``; ``decoder`` pins one of
+    :data:`DECODERS`.
+    ``generator`` is a ``torch.Generator`` on ``device``; the step's
+    ``decoder`` attribute names the branch it runs."""
     dev = resolve_device(device)
     decode_h = code.extended().h if variant == "ENMS" else code.h
+    chosen = select_decoder(decode_h, variant, batch, decoder, dev)
     gen_matrix = torch.as_tensor(code.g, dtype=torch.float32, device=dev)
+    h_dev = torch.as_tensor(np.asarray(decode_h), dtype=torch.float32,
+                            device=dev)
     edge_cols = nms.edge_columns(decode_h) if variant == "NMS-r" else None
 
     def step(params: dict, generator: torch.Generator):
         llr, words = sample_batch(generator, spec, gen_matrix, batch,
                                   all_zeros=all_zeros)
-        if variant == "NMS-r":
-            soft_last = nms.decode_final(params, decode_h, llr, num_iterations,
-                                         variant, edge_cols)
-        else:
+        if chosen == "edge":
             soft_last = nms_edge.decode_final_edge(params, decode_h, llr,
                                                    num_iterations, variant)
+        elif chosen == "dense":
+            soft_last = nms_dense.decode_final_dense(params, h_dev, llr,
+                                                     num_iterations, variant)
+        elif chosen == "edge_padded":
+            soft_last = nms_edge_padded.decode_final_edge_padded(
+                params, decode_h, llr, num_iterations, variant)
+        else:
+            soft_last = nms.decode_final(params, decode_h, llr, num_iterations,
+                                         variant, edge_cols)
         return count_and_capture(llr, words, soft_last, decode_h,
                                  capture_capacity)
 
+    step.decoder = chosen
     return step
 
 
@@ -143,23 +199,13 @@ def detected_failure_mask(code: Code, variant: str,
     return (hard @ decode_h.T % 2).any(axis=1)
 
 
-def _compact_block(batch: int) -> int:
-    """The compaction group of the fused branch: 512 frames (what the JAX
-    ladder derives for CCSDS, ``mc/ladder.ladder_blocks``), halved until it
-    divides ``batch``; below 128 compaction is off (0)."""
-    block = 512
-    while block >= 8 and batch % block:
-        block //= 2
-    return block if block >= 128 else 0
-
-
 def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
                snr_db: float, batch: int = 1024, error_budget: int = 40_000,
                max_frames: int = 10**8, seed: int = 0,
                capture_failures: bool = False, capture_limit: int = 100_000,
                capture_trajectories: bool = True,
                spec: ChannelSpec | None = None, progress: bool = False,
-               resume_path: str | None = None,
+               resume_path: str | None = None, rung: str | None = None,
                device: str | torch.device = "cuda"
                ) -> tuple[DecodeStats, FailureBatch | None]:
     """Monte-Carlo FER sweep at one SNR point with error-budget early stop:
@@ -169,13 +215,21 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
     * Fused branch (no capture, a scalar variant other than ENMS, the plain
       AWGN spec of ``snr_db``, ``batch % 32 == 0``): each step is kernel K3
       (``fused_counters_edge_compact``, ``DEFAULT_COMPACT_SCHEDULE``,
-      t1 = 4, groups of :func:`_compact_block` frames) with the step seed
+      t1 = 4, groups of ``ladder.ladder_blocks`` frames) with the step seed
       ``(seed * 100003 + step) & 0x7FFFFFFF``.  A step whose compaction
       overflowed is redone with K4 (``fused_counters_edge``, the same
       frames one-shot) and the sweep stays on K4.  On the CPU the same
       branch runs the kernels' plain twins.
     * Otherwise each step is ``build_nms_mc_step`` with its generator seeded
       ``seed * 1_000_003 + step``.
+    * ``rung`` pins one rung of ``ladder.RUNGS`` where JAX would demote:
+      ``"compact"`` as the default but raising when compaction does not
+      apply; ``"oneshot"`` K4 every step; ``"dense"`` K7
+      (``mc_dense.fused_counters``) every step, with the same step seeds;
+      ``"xla"`` the plain step (``build_nms_mc_step(decoder="plain")``).  A
+      fused rung raises outside the fused branch's conditions, and
+      ``"dense"`` for a code K7 does not hold: a pinned rung never falls
+      back to another.
     * ``resume_path``: a json file persisting (step, counters); both
       branches derive their frames from the step index, so a resumed sweep
       decodes exactly the frames that would have followed.
@@ -184,27 +238,42 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
       :class:`FailureBatch` of confirmed failures (or raw LLR rows when
       ``capture_trajectories`` is False)."""
     dev = resolve_device(device)
+    rung = ladder.apply_pinned_rung(rung)
     spec = spec or ChannelSpec.awgn(snr_db, code.rate)
     capacity = min(batch, capture_limit) if capture_failures else 0
     # the scalar weights are read on the host by the kernel wrappers; only
-    # the dense NMS-r decode needs its parameters on the device
+    # the NMS-r decoders need the parameters on the device
     params = {k: torch.as_tensor(v).cpu() for k, v in params.items()}
-    use_fused = (
+    fused_ok = (
         not capture_failures
         and variant not in ("NMS-r", "ENMS")
         and spec == ChannelSpec.awgn(snr_db, code.rate)
         and batch % 32 == 0
     )
-    if use_fused:
-        t1 = 4
-        cblock = _compact_block(batch)
-        state = {"compact": num_iterations > t1 + 1 and cblock > 0}
+    t1 = 4
+    cblock, compact_enabled = ladder.ladder_blocks(batch, num_iterations, t1)
+    if rung in ("compact", "oneshot", "dense") and not fused_ok:
+        raise ValueError(
+            f"rung {rung!r} needs the fused branch (no capture, a scalar "
+            "variant other than ENMS, plain AWGN, batch % 32 == 0)")
+    if rung == "compact" and not compact_enabled:
+        raise ValueError(f"rung 'compact' does not apply to batch {batch} "
+                         f"with {num_iterations} iterations")
+    if rung == "dense" and not nms_dense.holds(code.m, code.n, code.k):
+        raise ValueError(f"rung 'dense': kernel K7 does not hold the "
+                         f"({code.m}, {code.n}) code {code.name}")
+    if fused_ok and rung != "xla":
+        state = {"rung": rung or ("compact" if compact_enabled else "oneshot")}
 
         def _kseed(idx):
             return (seed * 100003 + idx) & 0x7FFFFFFF
 
         def step(idx):
-            if state["compact"]:
+            if state["rung"] == "dense":
+                return mc_dense.fused_counters(
+                    code, params, variant, num_iterations, snr_db, batch,
+                    seed=_kseed(idx), device=dev).cpu().numpy(), None
+            if state["rung"] == "compact":
                 c = nms_edge.fused_counters_edge_compact(
                     code, params, variant, num_iterations, snr_db, batch,
                     seed=_kseed(idx), t1=t1, block_frames=cblock,
@@ -212,13 +281,15 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
                     device=dev).cpu().numpy()
                 if c[5] == 0:
                     return c[:5], None
-                state["compact"] = False  # overflow: redo one-shot, stay
+                state["rung"] = "oneshot"  # overflow: redo one-shot, stay
             return nms_edge.fused_counters_edge(
                 code, params, variant, num_iterations, snr_db, batch,
                 seed=_kseed(idx), device=dev).cpu().numpy(), None
     else:
         built = build_nms_mc_step(code, variant, num_iterations, spec, batch,
-                                  capture_capacity=capacity, device=dev)
+                                  capture_capacity=capacity,
+                                  decoder="plain" if rung == "xla" else None,
+                                  device=dev)
         generator = torch.Generator(device=dev)
         step_params = ({k: v.to(dev) for k, v in params.items()}
                        if variant == "NMS-r" else params)

@@ -104,6 +104,15 @@ def _weights(params: dict, variant: str):
     raise ValueError(variant)
 
 
+def scalar_weights(params: dict, variant: str) -> tuple:
+    """(w_vc, w_chk, w_marg) as host floats, the operands of the decode
+    kernels; NMS-r (neural check update) has none and raises."""
+    if variant == "NMS-r":
+        raise ValueError("NMS-r has no decode kernel (neural check update): "
+                         "use nms.decode or the padded edge layout")
+    return tuple(float(w) for w in _weights(params, variant))
+
+
 def _sign(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, 0.0)).to(x.dtype)
 

@@ -34,7 +34,7 @@ from .. import _kernels
 from .._device import resolve_device
 from ..channel.awgn import sigma_for_snr
 from . import mc_hash
-from .nms import _weights, frame_stats
+from .nms import frame_stats, scalar_weights
 
 
 @functools.lru_cache(maxsize=16)
@@ -71,6 +71,19 @@ def edge_layout(h):
     return _edge_layout_cached(h.tobytes(), *h.shape)
 
 
+def kernel_holds(h) -> bool:
+    """True when K1 takes ``h``: every check has degree >= 2 and the tables
+    plus one frame fit a block's 227 KB of shared memory (the rule of
+    ``launch_shape`` in ``csrc/nms_edge_body.cuh``)."""
+    h = np.asarray(h, dtype=np.int64)
+    degrees = h.sum(axis=1)
+    if degrees.min() < 2:
+        return False
+    m, n = h.shape
+    dc, dv = int(degrees.max()), int(h.sum(axis=0).max())
+    return 4 * (2 * dc * m + dv * n + 2 * n) <= 227 * 1024
+
+
 _DEVICE_TABLES: dict = {}
 
 
@@ -85,12 +98,6 @@ def _tables_on(h, device: torch.device):
             torch.tensor(var_edges, device=device),
         )
     return _DEVICE_TABLES[key]
-
-
-def _scalar_weights(params: dict, variant: str):
-    if variant == "NMS-r":
-        raise ValueError("NMS-r uses the dense decoder (neural check update)")
-    return tuple(float(w) for w in _weights(params, variant))
 
 
 def _decode_edge_plain(llr, h, num_iterations, weights, traj):
@@ -165,7 +172,7 @@ def _decode_edge_kernel(llr, h, num_iterations, weights, traj):
 
 
 def _decode(params, h, llr, num_iterations, variant, traj):
-    weights = _scalar_weights(params, variant)
+    weights = scalar_weights(params, variant)
     if llr.device.type == "cpu":
         return _decode_edge_plain(llr, h, num_iterations, weights, traj)
     if llr.device.type != "cuda":
@@ -281,7 +288,7 @@ def mc_setup(code, params: dict, variant: str, snr_db: float, seed: int,
     g = np.asarray(code.g, np.uint8)
     edge_col, var_edges = _tables_on(h, dev)
     return MCSetup(
-        h=h, k=g.shape[0], weights=_scalar_weights(params, variant),
+        h=h, k=g.shape[0], weights=scalar_weights(params, variant),
         sigma=float(np.float32(sigma_for_snr(snr_db, code.rate))),
         seed=int(seed) & 0xFFFFFFFF, edge_col=edge_col, var_edges=var_edges,
         g32=torch.as_tensor(g, dtype=torch.float32, device=dev),
