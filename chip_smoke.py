@@ -11,7 +11,12 @@ Phases (each raises on failure, so the script never exits 0 after one):
    CUDA-event times of kernel, plain version and, where one PyTorch call
    computes the same function, that call; the fused Monte-Carlo kernels
    K3, K4, K8a and K8b are compared at 262,144 frames (K3 also with a
-   capacity that overflows, and with two stages) and timed at 2,097,152;
+   capacity that overflows, and with two stages; the messages its first
+   stage saves for resuming against the twin's) and timed at 2,097,152,
+   K4 also at T = 0 (sampling and counting alone); one line per launch
+   shape of the MC kernel (registers, spills, shared bytes, frames a block,
+   resident blocks per SM); K4 and K3 against their twins on qc_96_48 and
+   wimax_1056_880, so that every degree bucket of the iteration body runs;
 3. the two-phase main path at full width: 8 rounds of the 262,144-frame
    capture step plus phase 2 (capture 32,768) at 3.0 dB with the
    ``runs/r4_pipeline`` artifacts, with every launch count reset just
@@ -390,6 +395,8 @@ def phase_mc_kernels(dev):
     rows = []
 
     # K4
+    for stage in (False, True):
+        log_launch_shape("ccsds_128_64", mc, stage)
     err = counters_err("K4", nms_edge.fused_counters_edge(
         code, params, "NMS-1", ITERS, 3.0, MC_B, seed, device=dev),
         nms_edge._mc_frames_plain(mc, ITERS, MC_B)[0][:5])
@@ -400,6 +407,13 @@ def phase_mc_kernels(dev):
         lambda: nms_edge._mc_frames_plain(mc, ITERS, big),
         err, nms_edge_ops(h, big, ITERS), 8 * 5,
         f"{big} hash frames, T={ITERS} -> (5,) int64"))
+    # T = 0 (sample, encode, one column sum, count) splits the iterations off
+    t0_ms = cuda_ms(lambda: nms_edge.fused_counters_edge(
+        code, params, "NMS-1", 0, 3.0, big, seed, device=dev), 10)
+    k4_ms = rows[-1]["ms"]
+    log(f"K4 split at {big} frames: T=0 {t0_ms:.4f} ms, T={ITERS} {k4_ms:.4f} ms: "
+        f"sampling and counting {100 * t0_ms / k4_ms:.1f}%, "
+        f"{(k4_ms - t0_ms) / ITERS:.4f} ms an iteration")
 
     # K8a: the unconverged share at t1 of the 2M frames sizes K3's and K8's
     # bounds (work that depends on the data is counted as this data needs)
@@ -408,11 +422,22 @@ def phase_mc_kernels(dev):
     log(f"unconverged at t1={t1}: {unconv_big} of {big} frames "
         f"({unconv_big / big:.5f})")
     c1k, fk = mc_cascade.phase1(mc, t1, MC_B)
-    c1p, fp = nms_edge._mc_frames_plain(mc, t1, MC_B, stage=True)
+    c1p, fp, _ = nms_edge._mc_frames_plain(mc, t1, MC_B, stage=True)
     flag_diff = int((fk != fp).sum())
     err = max(counters_err("K8a", c1k, c1p[:5]), flag_diff)
     if flag_diff > 2:
         raise AssertionError(f"K8a: {flag_diff} per-frame flags differ")
+    # the messages K3's first stage saves for its unconverged frames, which
+    # its next launch resumes from: the twin's, row for row
+    _, sk, mk = nms_edge._mc_frames_kernel(mc, t1, MC_B, stage=True, keep=True)
+    _, sp, mp = nms_edge._mc_frames_plain(mc, t1, MC_B, stage=True, keep=True)
+    saved = (sk != 0) & (sp != 0)
+    row_diff = int((sk != sp).sum()) + int((mk[saved] != mp[saved]).any(1).sum())
+    log(f"K3 saved messages: {int(saved.sum())} unconverged frames at t1={t1} of "
+        f"{MC_B}, {row_diff} rows differ from the twin's")
+    if row_diff > 2:
+        raise AssertionError(f"K3 saved messages: {row_diff} rows differ")
+    del sk, mk, sp, mp, saved
     rows.append(mc_row(
         "K8a cascade_p1", lambda: mc_cascade.phase1(mc, t1, big),
         lambda: nms_edge._mc_frames_plain(mc, t1, big, stage=True),
@@ -466,6 +491,68 @@ def phase_mc_kernels(dev):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return rows
+
+
+def log_launch_shape(name, mc, stage):
+    """One line per launch shape of ``mc_frames``: the plan and what the
+    card makes of it (registers, spills, shared bytes, resident blocks)."""
+    plan = mc.plan
+    occ = nms_edge.mc_occupancy(plan, mc.k, stage, mc.device.index or 0)
+    dc, dv = nms_edge.BUCKETS[plan.bucket][:2]
+    log(f"mc_frames launch shape, {name} {'STAGE' if stage else 'COUNT'}: "
+        f"bucket {plan.bucket} (dc <= {dc}, dv <= {dv}), {plan.warps} warp(s) a "
+        f"frame, {plan.frames} frames a block ({occ['threads']} threads), "
+        f"{occ['registers']} registers and {occ['local_bytes']} local bytes a "
+        f"thread, {occ['smem_bytes']} shared bytes a block, "
+        f"{occ['blocks_per_sm']} resident blocks per SM "
+        f"({occ['blocks_per_sm'] * plan.frames} frames) on {occ['sms']} SMs")
+
+
+def phase_mc_other_codes(dev):
+    """K4 and K3 (default schedule, groups of 512) against their plain twins
+    on the irregular qc_96_48 (check degrees {6, 7}: dummy edges) and on
+    wimax_1056_880 (dc 20, n 1,056: a frame on a group of warps), so that
+    every degree bucket of the packaged codes launches in an MC kernel; K1
+    and K2 bit for bit against their twin on the extended matrices ENMS
+    decodes on (buckets 3 and 4)."""
+    params = nms.init_params("NMS-1")
+    weights = nms.scalar_weights(params, "NMS-1")
+    for name in ("qc_96_48", "wimaxlike_384_192", "wimax_1056_880"):
+        h_ext = get_code(name).extended().h
+        x = torch.randn((1024, h_ext.shape[1]), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3)) + 1.0
+        plan = nms_edge.launch_plan(*h_ext.shape, *nms_edge._degrees(h_ext))
+        for traj, fn in ((False, nms_edge.decode_final_edge),
+                         (True, nms_edge.decode_traj_edge)):
+            if not torch.equal(fn(params, h_ext, x, ITERS),
+                               nms_edge._decode_edge_plain(x, h_ext, ITERS,
+                                                           weights, traj)):
+                raise AssertionError(f"K{2 if traj else 1} on the extended "
+                                     f"{name} differs from its plain twin")
+        log(f"K1, K2 on the extended {name} {h_ext.shape} (bucket "
+            f"{plan.bucket}, {plan.warps} warps a frame): bit for bit with "
+            "their twin")
+    for name, snr, batch in (("qc_96_48", 3.0, 65_536),
+                             ("wimax_1056_880", 3.75, 8192)):
+        code = get_code(name)
+        mc = nms_edge.mc_setup(code, params, "NMS-1", snr, 5, dev)
+        for stage in (False, True):
+            log_launch_shape(name, mc, stage)
+        k4 = nms_edge.fused_counters_edge(code, params, "NMS-1", ITERS, snr,
+                                          batch, 5, device=dev)
+        counters_err(f"K4 {name}", k4,
+                     nms_edge._mc_frames_plain(mc, ITERS, batch)[0][:5])
+        rows_s, final = nms_edge.build_rows_schedule(
+            nms_edge.DEFAULT_COMPACT_SCHEDULE, 512, ITERS)
+        k3 = nms_edge.fused_counters_edge_compact(
+            code, params, "NMS-1", ITERS, snr, batch, 5, block_frames=512,
+            schedule=nms_edge.DEFAULT_COMPACT_SCHEDULE, device=dev)
+        counters_err(f"K3 {name}", k3,
+                     nms_edge._compact_plain(mc, batch, 512, rows_s, final))
+        log(f"{name} {snr} dB, {batch} frames: K4 {k4.tolist()}, K3 "
+            f"{k3.tolist()} (overflow {int(k3[5])}), both equal to their twins")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def phase_dense_kernels(dev):
@@ -902,6 +989,7 @@ def main():
     dev = torch.device("cuda")
     smi = phase_environment()
     rows = phase_kernels(dev) + phase_mc_kernels(dev) + phase_dense_kernels(dev)
+    phase_mc_other_codes(dev)
     phase_card_vs_cpu(dev)
     phase_main_path(dev, rows)
     phase_phase1(dev, rows)

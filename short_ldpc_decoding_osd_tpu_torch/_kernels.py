@@ -51,35 +51,38 @@ _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "nms_edge": {
         # llr, out, edge_col, var_edges, batch, n, m, dc, dv, iters,
-        # w_vc, w_chk, w_marg, traj, stream
+        # w_vc, w_chk, w_marg, traj, bucket, warps, frames, stream
         "nms_edge_decode": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                            _F, _F, _F, _I, _VP],
+                            _F, _F, _F, _I, _I, _I, _I, _VP],
     },
     "osd_disc": {
         # m_matrix, u_l, teps, out, batch, m, k, ntot, stream
         "lterm_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     },
     "mc_fused": {
-        # n, m, dc, dv, k
-        "mc_frames_per_block": [_I, _I, _I, _I, _I],
-        # ids, stat, partials, edge_col, var_edges, gcols, count, n, m, dc,
-        # dv, k, iters, seed, sigma, mean, w_vc, w_chk, w_marg, stream
-        "mc_frames": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                      _I, _U, _F, _F, _F, _F, _F, _VP],
-        # stat, ids_in, ids_out, partials, groups, group_size, rows_next,
-        # stream
-        "mc_group_rank": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+        # bucket, warps, frames, k, stage, out (int32 [6])
+        "mc_frames_occupancy": [_I, _I, _I, _I, _I, _VP],
+        # ids, src, msgs_in, msgs_out, stat, counters, edge_col, var_edges,
+        # gcols, count, n, m, dc, dv, k, iters, bucket, warps, frames, grid,
+        # seed, sigma, mean, w_vc, w_chk, w_marg, stream
+        "mc_frames": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _F, _F, _F, _F,
+                      _VP],
+        # stat, ids_in, ids_out, src_out, partials, groups, group_size,
+        # rows_next, stream
+        "mc_group_rank": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     },
     "nms_dense": {
-        # smem, mc
-        "dense_max_blocks": [_I, _I],
-        # h, llr, out, batch, m, n, iters, smem, blocks, w_vc, w_chk, w_marg,
-        # stream
-        "dense_decode": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _F, _F, _F, _VP],
-        # h, g, partials, count, m, n, k, iters, smem, blocks, seed, sigma,
-        # mean, w_vc, w_chk, w_marg, stream
-        "dense_mc": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _U, _F, _F,
-                     _F, _F, _F, _VP],
+        # bucket, warps, frames, m, n, dc, dv, k
+        "dense_max_blocks": [_I, _I, _I, _I, _I, _I, _I, _I],
+        # h, llr, out, batch, m, n, dc, dv, iters, bucket, warps, frames,
+        # blocks, w_vc, w_chk, w_marg, stream
+        "dense_decode": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _F, _F, _F, _VP],
+        # h, g, partials, count, m, n, k, dc, dv, iters, bucket, warps,
+        # frames, blocks, seed, sigma, mean, w_vc, w_chk, w_marg, stream
+        "dense_mc": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _U, _F, _F, _F, _F, _F, _VP],
     },
 }
 

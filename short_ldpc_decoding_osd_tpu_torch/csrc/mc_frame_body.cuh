@@ -1,15 +1,28 @@
 // One Monte-Carlo frame, sample to counters, shared by the port's fused
 // Monte-Carlo kernels: mc_frames_kernel (mc_fused.cu: K3, K4, K8) and
-// dense_mc_kernel (nms_dense.cu: K7).  Per frame: hash words -> message bits
-// (one warp ballot per 32 bits) -> codeword bit v = popcount(msg & column v
-// of G) & 1 (exact) -> Box-Muller normal (one per pair, cos only: streams
-// k+1..k+n and k+1+n..k+2n) -> llr = (1-2c)(mean + sigma z) -> `iters`
-// iterations of the edge body (nms_edge_body.cuh) -> hard decision
-// soft < 0 -> bit errors and syndrome.
+// dense_mc_kernel (nms_dense.cu: K7).  It is the CUDA form of the per-frame
+// work of the TPU kernels nms_edge_pallas._mc_kernel /
+// _mc_schedule_kernel (K4 / K3), mc_cascade._phase1_kernel /
+// _phase2_kernel (K8) and mc_pallas._mc_kernel (K7), on K8's hash sampler.
 //
-// A frame's region of shared memory (frame_words 4-byte words): cv (dc*m,
-// slab-major), total (n), x (n), bits (n: bit 0 codeword, bit 1 hard
-// decision), msg (ceil(k/32)), flags (2: bit errors, unconverged).
+// Per frame, on the frame's group of lanes (the iteration body of
+// nms_edge_body.cuh, whose lane owns checks t + T q and variables t + T i):
+// hash words -> message bits, one warp ballot per 32 bits, into the frame's
+// message words -> codeword bit of each owned variable v =
+// popcount(msg & column v of G) & 1 (exact) -> Box-Muller normal (one per
+// pair, cos only: streams k+1..k+n and k+1+n..k+2n) -> x = (1-2c)(mean +
+// sigma z), in registers -> `iters` iterations from the lane's messages
+// (zero, or a resumed frame's saved ones) -> soft = colsum + w_marg x, hard
+// decision soft < 0 -> bit errors (owned variables) and syndrome (owned
+// checks, reading the hard decisions through their column offsets) -> warp
+// reductions (and, for a group of warps, two shared flags).
+//
+// What bounds it on the H100: the iterations (nms_edge_body.cuh), then the
+// sample: 3 n accurate logf/sqrtf/cosf and 2 n + k hash words a frame.
+// Since the body's redesign the sample is no longer small: K4 timed at
+// T = 0 in chip_smoke.py took 24% of K4 at T = 12 on CCSDS.  Beyond the
+// body's region a frame keeps in shared memory only what crosses lanes: its
+// ceil(k/32) message words and 2 flags (extra_words).
 
 #pragma once
 
@@ -21,97 +34,91 @@
 
 namespace mc_frame {
 
-__host__ __device__ inline size_t frame_words(int n, int m, int dc, int k) {
-  return static_cast<size_t>(dc) * m + 3 * static_cast<size_t>(n) +
-         (k + 31) / 32 + 2;
-}
+// Words a frame needs beyond the body's region: message words and flags.
+__host__ __device__ inline int extra_words(int k) { return (k + 31) / 32 + 2; }
 
-// Runs frame `fid` of `seed` (fid < 0: an idle slot, channel input 0) in
-// the region at `cv` with the threads lt = 0..threads_per_frame-1 of its
-// group (`in_block` false for the block's threads outside every group).
-// gcols: (n, ceil(k/32)), bit b of word w of column v = G[32w + b, v].
-// Every thread of the block must call it (it synchronises); it returns the
-// frame's flags, readable by any thread of the block: [bit errors,
-// unconverged].  A caller reusing the region synchronises first.
-template <bool kClampBig>
-__device__ __forceinline__ const int* run(
-    float* cv, const int* s_edge_col, const int* s_var_edges,
-    const unsigned* gcols, int fid, bool in_block, int lt,
-    int threads_per_frame, int n, int m, int dc, int dv, int k, int iters,
-    unsigned seed, float sigma, float mean, float w_vc, float w_chk,
-    float w_marg) {
-  const int num_edges = dc * m;
+// Frame `fid` of `seed` from the messages in L.cv (zero for a frame from
+// scratch) through `iters` iterations.  `words` is the byte offset of the
+// frame's extra words; gcols: (n, ceil(k/32)), bit b of word w of column v =
+// G[32w + b, v] (global or shared memory).  Every lane of the group must
+// call it; it returns, in every lane, {bit errors, unconverged}; L.cv then
+// holds the messages after `iters` iterations.
+template <class Bk, bool kClampBig>
+__device__ __forceinline__ int2 run(nms_edge::Lane<Bk>& L, unsigned words,
+                                    const unsigned* gcols, int fid, int n,
+                                    int k, int iters, unsigned seed,
+                                    float sigma, float mean, float w_vc,
+                                    float w_chk, float w_marg) {
+  using nms_edge::sh;
   const int kw = (k + 31) / 32;
-  float* total = cv + num_edges;
-  float* x = total + n;                            // channel llr
-  int* bits = reinterpret_cast<int*>(x + n);       // bit 0 codeword, bit 1 hard
-  unsigned* msg = reinterpret_cast<unsigned*>(bits + n);
-  int* flags = reinterpret_cast<int*>(msg + kw);   // bit errors, unconverged
-  const bool active = fid >= 0;
+  const int t = L.t, T = L.threads;
+  const unsigned flags = words + 4u * kw;  // bit errors, unconverged
   const unsigned base =
       mc_hash::mix32(static_cast<unsigned>(fid) * mc_hash::kGold1 + seed);
 
-  if (in_block) {
-    for (int e = lt; e < num_edges; e += threads_per_frame) cv[e] = 0.f;
-    if (lt < 2) flags[lt] = 0;
-    // message bit j is bit 0 of stream j + 1; a warp's ballot packs 32
-    // (threads_per_frame is a multiple of 32, so the loop is warp-uniform)
-    for (int j0 = 0; j0 < kw * 32; j0 += threads_per_frame) {
-      const int j = j0 + lt;
-      const bool bit = j < k && (mc_hash::stream_word(base, j + 1) & 1u);
-      const unsigned word = __ballot_sync(0xffffffffu, bit);
-      if ((lt & 31) == 0 && j < kw * 32) msg[j >> 5] = word;
-    }
+  // message bit j is bit 0 of stream j + 1; a warp's ballot packs 32
+  // (T is a multiple of 32, so the loop is warp-uniform)
+  for (int j0 = 0; j0 < kw * 32; j0 += T) {
+    const int j = j0 + t;
+    const bool bit = j < k && (mc_hash::stream_word(base, j + 1) & 1u);
+    const unsigned word = __ballot_sync(0xffffffffu, bit);
+    if ((t & 31) == 0 && j < kw * 32)
+      sh(words + 4u * (j >> 5)) = __uint_as_float(word);
   }
-  __syncthreads();
+  nms_edge::frame_sync(L.bar, T);
+  if (t < 2) sh(flags + 4u * t) = 0.f;  // read back after later barriers
 
-  if (in_block) {
-    for (int v = lt; v < n; v += threads_per_frame) {
-      unsigned par = 0;
-      for (int w = 0; w < kw; ++w) par ^= __popc(msg[w] & gcols[v * kw + w]);
-      const int c = static_cast<int>(par & 1u);
-      const float u1 =
-          mc_hash::uniform01(mc_hash::stream_word(base, k + 1 + v));
-      const float u2 =
-          mc_hash::uniform01(mc_hash::stream_word(base, k + 1 + n + v));
-      const float z = sqrtf(-2.0f * logf(u1)) * cosf(6.283185307179586f * u2);
-      const float received = mean + sigma * z;
-      x[v] = active ? (1.0f - 2.0f * static_cast<float>(c)) * received : 0.f;
-      bits[v] = c;
-    }
+  float x[Bk::VPL];
+  unsigned codeword = 0;  // bit i: the codeword bit of owned variable i
+  // branch-free over the owned variables, so that their independent
+  // logf/cosf chains interleave; a padding variable (v >= n) computes a
+  // value it then drops
+#pragma unroll
+  for (int i = 0; i < Bk::VPL; ++i) {
+    const int v = t + T * i;
+    const int col = v < n ? v : n - 1;
+    unsigned par = 0;
+    for (int w = 0; w < kw; ++w)
+      par ^= __popc(__float_as_uint(sh(words + 4u * w)) & gcols[col * kw + w]);
+    const int c = v < n ? static_cast<int>(par & 1u) : 0;
+    const float u1 = mc_hash::uniform01(mc_hash::stream_word(base, k + 1 + v));
+    const float u2 =
+        mc_hash::uniform01(mc_hash::stream_word(base, k + 1 + n + v));
+    const float z = sqrtf(-2.0f * logf(u1)) * cosf(6.283185307179586f * u2);
+    const float received = mean + sigma * z;
+    x[i] = v < n ? (1.0f - 2.0f * static_cast<float>(c)) * received : 0.f;
+    codeword |= static_cast<unsigned>(c) << i;
   }
-  __syncthreads();
 
-  nms_edge::iterate<kClampBig>(
-      cv, total, x, s_edge_col, s_var_edges, n, m, dc, dv, iters, lt,
-      threads_per_frame, in_block, w_vc, w_chk, [&](int it, int v, float s) {
-        if (it == iters && s + w_marg * x[v] < 0.f) bits[v] |= 2;
+  int errs = 0;
+  nms_edge::iterate<Bk, kClampBig>(
+      L, x, iters, w_vc, w_chk, [&](int it, int i, float s) {
+        if (it == iters) {
+          const float soft = s + w_marg * x[i];
+          L.total(i) = soft;  // the syndrome below reads it by column
+          errs += static_cast<int>(soft < 0.f) ^ ((codeword >> i) & 1);
+        }
       });
-  __syncthreads();
+  nms_edge::frame_sync(L.bar, T);
 
-  if (in_block) {
-    int errs = 0, odd = 0;
-    for (int v = lt; v < n; v += threads_per_frame) {
-      const int b = bits[v];
-      errs += (b ^ (b >> 1)) & 1;
-    }
-    for (int c = lt; c < m; c += threads_per_frame) {
-      int par = 0;
-      for (int j = 0; j < dc; ++j) {
-        const int col = s_edge_col[j * m + c];
-        if (col >= 0) par ^= bits[col] >> 1;
-      }
-      odd |= par & 1;
-    }
-    errs = __reduce_add_sync(0xffffffffu, errs);
-    odd = __any_sync(0xffffffffu, odd);
-    if ((lt & 31) == 0) {
-      if (errs) atomicAdd(&flags[0], errs);
-      if (odd) atomicOr(&flags[1], 1);
-    }
+  int odd = 0;
+#pragma unroll
+  for (int q = 0; q < Bk::CPL; ++q) {
+    int par = 0;
+#pragma unroll
+    for (int j = 0; j < Bk::DC; ++j) par ^= sh(L.col[q][j]) < 0.f;  // +inf: 0
+    odd |= par;
   }
-  __syncthreads();
-  return flags;
+  errs = __reduce_add_sync(0xffffffffu, errs);
+  odd = __any_sync(0xffffffffu, odd);
+  if (T == 32) return make_int2(errs, odd);
+  int* f = reinterpret_cast<int*>(&sh(flags));
+  if ((t & 31) == 0) {
+    if (errs) atomicAdd(&f[0], errs);
+    if (odd) atomicOr(&f[1], 1);
+  }
+  nms_edge::frame_sync(L.bar, T);
+  return make_int2(f[0], f[1]);
 }
 
 }  // namespace mc_frame

@@ -21,12 +21,14 @@
 // write for K2.  The TPU kernel's one-hot incidence matmuls, bf16 hi/lo
 // split and lane packing are MXU artifacts and are not carried over.
 //
-// Design: a block holds a few frames; each frame keeps its check-to-variable
-// messages cv (m*dc f32, 2 KB for CCSDS) and its column totals (n f32) in
-// shared memory for all T iterations, so nothing but llr and the outputs
-// touches device memory.  The iteration body (phase A column sums, phase B
-// tournament) lives in nms_edge_body.cuh, shared with the fused Monte-Carlo
-// kernels of mc_fused.cu.
+// Design: the iteration body of nms_edge_body.cuh (a frame on one warp, or
+// a group of warps for a large code; each check's messages and every table
+// in registers; the column totals and outgoing messages in shared memory;
+// frame-scoped barriers), shared with the fused Monte-Carlo kernels of
+// mc_fused.cu and the dense rung of nms_dense.cu.  The blocks are
+// persistent (one wave of as many as fit the SMs), so each group reads the
+// tables into registers once and then walks frames; only llr and the
+// outputs touch device memory.
 // Built with -fmad=false, so each step rounds exactly like the plain PyTorch
 // twin in ops/nms_edge.py.
 
@@ -36,93 +38,99 @@
 
 namespace {
 
-template <bool TRAJ>
-__global__ void nms_edge_kernel(const float* __restrict__ llr,
+template <class Bk, bool TRAJ>
+__global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
+    nms_edge_kernel(const float* __restrict__ llr,
                                 float* __restrict__ out,
                                 const int* __restrict__ edge_col,
-                                const int* __restrict__ var_edges,
-                                int batch, int n, int m, int dc, int dv,
-                                int iters, int frames_per_block,
-                                int threads_per_frame,
-                                float w_vc, float w_chk, float w_marg) {
-  extern __shared__ float smem[];
-  const int num_edges = dc * m;
-  int* s_edge_col = reinterpret_cast<int*>(smem);   // (dc, m)
-  int* s_var_edges = s_edge_col + num_edges;        // (dv, n)
-  float* s_frames = reinterpret_cast<float*>(s_var_edges + dv * n);
-
-  for (int i = threadIdx.x; i < num_edges; i += blockDim.x)
-    s_edge_col[i] = edge_col[i];
-  for (int i = threadIdx.x; i < dv * n; i += blockDim.x)
-    s_var_edges[i] = var_edges[i];
-
-  const int f = threadIdx.x / threads_per_frame;
-  const int lt = threadIdx.x - f * threads_per_frame;
-  const bool in_block = f < frames_per_block;
-  const long long frame = static_cast<long long>(blockIdx.x) * frames_per_block + f;
-  const bool active = in_block && frame < batch;
-  float* cv = s_frames + static_cast<size_t>(in_block ? f : 0) * (num_edges + 2 * n);
-  float* total = cv + num_edges;
-  float* x = total + n;  // this frame's channel llr
-
-  if (in_block) {
-    for (int e = lt; e < num_edges; e += threads_per_frame) cv[e] = 0.f;
-    for (int v = lt; v < n; v += threads_per_frame) {
-      const float xv = active ? llr[frame * n + v] : 0.f;
-      x[v] = xv;
-      if (TRAJ && active) out[frame * n + v] = xv;  // slot 0: channel input
+                                const int* __restrict__ var_edges, int batch,
+                                int n, int m, int dc, int dv, int iters,
+                                int warps, int frames, float w_vc, float w_chk,
+                                float w_marg) {
+  const int T = 32 * warps;
+  const int g = threadIdx.x / T;
+  const int t = threadIdx.x - g * T;
+  const size_t words = nms_edge::region_words<Bk>(T, 0);
+  nms_edge::Lane<Bk> L;
+  L.setup(4u * static_cast<unsigned>(g * words), edge_col, var_edges, m, n,
+          dc, dv, t, T, 1 + g);
+  for (long long frame = static_cast<long long>(blockIdx.x) * frames + g;
+       frame < batch; frame += static_cast<long long>(gridDim.x) * frames) {
+    float x[Bk::VPL];
+#pragma unroll
+    for (int i = 0; i < Bk::VPL; ++i) {
+      const int v = t + T * i;
+      x[i] = v < n ? llr[frame * n + v] : 0.f;
+      if (TRAJ && v < n) out[frame * n + v] = x[i];  // slot 0: channel input
     }
+    L.reset();
+    nms_edge::iterate<Bk, false>(
+        L, x, iters, w_vc, w_chk, [&](int it, int i, float s) {
+          const int v = t + T * i;
+          if (v < n && it > 0 && (TRAJ || it == iters)) {
+            const size_t slot = TRAJ ? static_cast<size_t>(it) * batch : 0;
+            out[(slot + frame) * n + v] = s + w_marg * x[i];
+          }
+        });
   }
-  __syncthreads();
+}
 
-  nms_edge::iterate(
-      cv, total, x, s_edge_col, s_var_edges, n, m, dc, dv, iters, lt,
-      threads_per_frame, in_block, w_vc, w_chk,
-      [&](int it, int v, float s) {
-        if (active && it > 0 && (TRAJ || it == iters)) {
-          const size_t slot = TRAJ ? static_cast<size_t>(it) * batch : 0;
-          out[(slot + frame) * n + v] = s + w_marg * x[v];
-        }
-      });
+template <class Bk, bool TRAJ>
+int launch(const float* llr, float* out, const int* edge_col,
+           const int* var_edges, int batch, int n, int m, int dc, int dv,
+           int iters, int warps, int frames, float w_vc, float w_chk,
+           float w_marg, cudaStream_t s) {
+  auto kernel = nms_edge_kernel<Bk, TRAJ>;
+  const int threads = 32 * warps * frames;
+  const size_t smem = 4 * frames * nms_edge::region_words<Bk>(32 * warps, 0);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0, per_sm = 0;
+  // the attribute belongs to the kernel: a launch of another shape may have
+  // set it lower
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long need = (static_cast<long long>(batch) + frames - 1) / frames;
+  const int grid = static_cast<int>(need < per_sm * sms ? need : per_sm * sms);
+  kernel<<<grid, threads, smem, s>>>(llr, out, edge_col, var_edges, batch, n,
+                                     m, dc, dv, iters, warps, frames, w_vc,
+                                     w_chk, w_marg);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// llr: f32 (batch, n); out: f32 (batch, n), or (iters + 1, batch, n) with
+// traj; edge_col int32 (dc, m), var_edges int32 (dv, n); bucket, warps,
+// frames: the launch plan (ops/nms_edge.py launch_plan).
 extern "C" int nms_edge_decode(const void* llr, void* out, const void* edge_col,
                                const void* var_edges, int batch, int n, int m,
                                int dc, int dv, int iters, float w_vc,
-                               float w_chk, float w_marg, int traj,
-                               void* stream) {
-  int threads_per_frame, frames_per_block;
-  size_t smem;
-  if (!nms_edge::launch_shape(n, m, static_cast<size_t>(dc) * m + dv * n,
-                              static_cast<size_t>(dc) * m + 2 * n,
-                              &threads_per_frame, &frames_per_block, &smem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = frames_per_block * threads_per_frame;
-  const int blocks = (batch + frames_per_block - 1) / frames_per_block;
-  if (blocks == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                               float w_chk, float w_marg, int traj, int bucket,
+                               int warps, int frames, void* stream) {
+  const bool ok = nms_edge::with_bucket(bucket, [&](auto bk) {
+                    return static_cast<int>(
+                        nms_edge::plan_holds<decltype(bk)>(warps, frames, m, n,
+                                                           dc, dv));
+                  }) == 1;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
   const float* l = static_cast<const float*>(llr);
   float* o = static_cast<float*>(out);
   const int* ec = static_cast<const int*>(edge_col);
   const int* ve = static_cast<const int*>(var_edges);
-  if (traj) {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(nms_edge_kernel<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-    nms_edge_kernel<true><<<blocks, threads, smem, s>>>(
-        l, o, ec, ve, batch, n, m, dc, dv, iters, frames_per_block,
-        threads_per_frame, w_vc, w_chk, w_marg);
-  } else {
-    if (smem > 48 * 1024)
-      cudaFuncSetAttribute(nms_edge_kernel<false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-    nms_edge_kernel<false><<<blocks, threads, smem, s>>>(
-        l, o, ec, ve, batch, n, m, dc, dv, iters, frames_per_block,
-        threads_per_frame, w_vc, w_chk, w_marg);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return nms_edge::with_bucket(bucket, [&](auto bk) {
+    using B = decltype(bk);
+    return traj ? launch<B, true>(l, o, ec, ve, batch, n, m, dc, dv, iters,
+                                  warps, frames, w_vc, w_chk, w_marg, s)
+                : launch<B, false>(l, o, ec, ve, batch, n, m, dc, dv, iters,
+                                   warps, frames, w_vc, w_chk, w_marg, s);
+  });
 }

@@ -1,27 +1,58 @@
-// The edge-layout normalized min-sum iteration body shared by the port's
-// CUDA kernels: K1/K2 (nms_edge.cu), the fused Monte-Carlo kernels
+// The edge-layout normalized min-sum iteration body of every CUDA kernel of
+// the port that decodes: K1/K2 (nms_edge.cu), the fused Monte-Carlo kernels
 // K3/K4/K8 (mc_fused.cu) and the dense-rung kernels K6/K7 (nms_dense.cu).
-// It is the CUDA form of the TPU's nms_edge_pallas._decode_edge; see
-// nms_edge.cu for the semantics it holds (duplicate-at-minimum tournament,
-// zero-aware sign product, dummy edges skipped).  With kClampBig (K6/K7) it
-// also holds the dense-rung TPU kernel's clamp (nms_pallas.py): magnitudes
-// are clamped to kBig and min/submin start at kBig, so a row of degree 1
-// sends w_chk * kBig where the other kernels send +inf.
+// It is the CUDA form of the TPU's nms_edge_pallas._decode_edge (the body
+// of _decode_kernel, _decode_traj_kernel, _mc_kernel and
+// _mc_schedule_kernel); see nms_edge.cu for the semantics it holds
+// (duplicate-at-minimum tournament, zero-aware sign product, dummy edges
+// skipped).  With kClampBig (K6/K7) it also holds the dense-rung TPU
+// kernel's clamp (nms_pallas.py): magnitudes are clamped to kBig and
+// min/submin start at kBig, so a row of degree 1 sends w_chk * kBig where
+// the other kernels send +inf.
 //
-// A block holds `frames_per_block` frames of `threads_per_frame` threads
-// each (a multiple of 32, so a warp never straddles two frames).  Each frame
-// keeps in shared memory its check-to-variable messages cv (dc*m floats,
-// slab-major e = j*m + c), its column totals (n) and its channel llr x (n).
-// Per iteration:
-//   phase A: one thread per variable sums its edges' cv in ascending check
-//            order (the order of the dense row sum), hands the column sum to
-//            `emit(it, v, colsum)` and forms total = colsum + w_vc * x;
-//   phase B: one thread per check runs the min/submin tournament over its
-//            real edges and writes the outgoing cv.
+// What bounds it on the H100: the f32 edge arithmetic (about 8 instructions
+// per edge and iteration) and the shared-memory traffic of the message
+// exchange, since nothing but the frame's input and output touches device
+// memory.  An SM's shared memory serves 32 words a clock against 128 f32
+// lanes, so each shared access per edge costs about as much as four
+// arithmetic instructions.
+//
+// Design (one frame on one group of 32 * W threads, W warps):
+//   * lane t of the group owns checks t + T q (q < CPL) and variables
+//     t + T i (i < VPL), T = 32 W.  Each owned check keeps in registers,
+//     for all iterations, its DC column offsets and its DC messages cv;
+//     each owned variable its DV message slots and its channel value x.
+//     DC, DV, CPL and VPL are compile-time (a Bucket), so every loop is
+//     unrolled and every array stays in registers.  A check of lower degree
+//     fills its slots with a dummy column that reads +inf (never the
+//     minimum, never a sign); a variable of lower degree reads a word that
+//     is always 0 (adding +0 leaves a sum unchanged);
+//   * shared memory holds only what crosses lanes: the column totals
+//     (VPL T words, then the +inf word) and the outgoing messages, one row
+//     of S = DC | 1 words per check (an odd stride: the row stores of a
+//     warp hit 32 distinct banks), then the zero word;
+//   * per iteration, phase A: each variable sums its cv slots in ascending
+//     check order (the order of the dense row sum), hands the column sum to
+//     `emit(it, i, colsum)` and stores total = colsum + w_vc * x; phase B:
+//     each check reads total[col] once per edge, keeps vc = total - cv in
+//     the register of cv, runs the min/submin tournament and the sign
+//     parity, then writes each outgoing message once, to its register and
+//     to its row.  About 3 shared accesses per edge, no address arithmetic
+//     and no degree test inside the loop;
+//   * the sign product is the parity of the sign bits plus a zero flag
+//     (min1 == 0: some vc is 0, which zeroes the row); the outgoing message
+//     is the selected magnitude with its sign bit flipped by the parity of
+//     the other edges: the twin's value, up to the sign of a zero message,
+//     which no later step can see (a column sum starts at +0);
+//   * phases are separated by frame-scoped barriers: __syncwarp for a
+//     one-warp frame, a named barrier (bar.sync 1 + group, T) for a group of
+//     warps.  No block-wide barrier runs inside a frame, so a block holds
+//     as many frames as registers and shared memory allow and no frame
+//     waits for another.
 // Phase A runs iters + 1 times; the last one (it == iters) only emits, and
-// the body returns without a closing __syncthreads: a caller that reads
-// what `emit` wrote from another thread synchronises first.  Every thread of
-// the block must call the body (it contains __syncthreads).
+// the body returns without a closing barrier: a caller that reads what
+// `emit` wrote from another lane synchronises the frame first.  Every
+// thread of the group must call the body (it synchronises the group).
 
 #pragma once
 
@@ -32,81 +63,231 @@ namespace nms_edge {
 
 constexpr float kBig = 3.4e38f;
 
-template <bool kClampBig = false, typename Emit>
-__device__ __forceinline__ void iterate(float* cv, float* total, const float* x,
-                                        const int* s_edge_col,
-                                        const int* s_var_edges, int n, int m,
-                                        int dc, int dv, int iters, int lt,
-                                        int threads_per_frame, bool in_block,
-                                        float w_vc, float w_chk, Emit emit) {
-  for (int it = 0; it <= iters; ++it) {
-    // phase A: column sums in ascending check order -> totals (and outputs)
-    if (in_block) {
-      for (int v = lt; v < n; v += threads_per_frame) {
-        float s = 0.f;
-        for (int d = 0; d < dv; ++d) {
-          const int e = s_var_edges[d * n + v];
-          if (e < 0) break;
-          s += cv[e];
-        }
-        emit(it, v, s);
-        total[v] = s + w_vc * x[v];
-      }
-    }
-    if (it == iters) break;
-    __syncthreads();
-    // phase B: per-check min/submin tournament and outgoing messages
-    if (in_block) {
-      for (int c = lt; c < m; c += threads_per_frame) {
-        float min1 = kClampBig ? kBig : INFINITY, min2 = min1, sign_prod = 1.f;
-        for (int j = 0; j < dc; ++j) {
-          const int e = j * m + c;
-          const int col = s_edge_col[e];
-          if (col < 0) continue;
-          const float vc = total[col] - cv[e];
-          const float mag = kClampBig ? fminf(fabsf(vc), kBig) : fabsf(vc);
-          const float sg = vc > 0.f ? 1.f : (vc < 0.f ? -1.f : 0.f);
-          min2 = fminf(min2, fmaxf(min1, mag));
-          min1 = fminf(min1, mag);
-          sign_prod = sign_prod * sg;
-        }
-        const float wmin1 = w_chk * min1;
-        const float wmin2 = w_chk * min2;
-        for (int j = 0; j < dc; ++j) {
-          const int e = j * m + c;
-          const int col = s_edge_col[e];
-          if (col < 0) continue;
-          const float vc = total[col] - cv[e];
-          const float mag = kClampBig ? fminf(fabsf(vc), kBig) : fabsf(vc);
-          const float sg = vc > 0.f ? 1.f : (vc < 0.f ? -1.f : 0.f);
-          cv[e] = (mag > min1 ? wmin1 : wmin2) * (sign_prod * sg);
-        }
-      }
-    }
-    __syncthreads();
+// Compile-time degree buckets: the largest check degree DC and variable
+// degree DV they take, and the checks and variables a lane owns.  The
+// packaged codes: dc 6-8 (code1_64_32, qc_96_48, ccsds_128_64,
+// wimaxlike_384_192) take bucket 0, dc 11 (array_121_*) bucket 1, dc 20
+// (wimax_1056_880) bucket 2; the extended matrices ENMS decodes on take
+// bucket 3 (qc_96_48: dv 27, wimaxlike_384_192: dv 60) and bucket 4
+// (wimax_1056_880: dc 36).  ops/nms_edge.py (BUCKETS) mirrors this table.
+template <int DC_, int DV_, int CPL_, int VPL_>
+struct Bucket {
+  static constexpr int DC = DC_, DV = DV_, CPL = CPL_, VPL = VPL_;
+  static constexpr int S = DC_ | 1;  // words of a check's message row
+};
+using Bucket0 = Bucket<8, 6, 2, 4>;
+using Bucket1 = Bucket<11, 6, 2, 4>;
+using Bucket2 = Bucket<20, 6, 1, 4>;
+using Bucket3 = Bucket<12, 64, 2, 1>;
+using Bucket4 = Bucket<40, 6, 1, 4>;
+constexpr int kBuckets = 5;
+// at most 16 warps a frame and 512 threads a block, so that every kernel
+// over the body compiles with __launch_bounds__(kMaxThreads, 1): at most
+// 128 registers a thread (without the cap the fused MC kernel takes 160-176
+// and fits 2-3 blocks an SM; with it 4 blocks, and K3 ran 21% faster on
+// the H100); at most 15 frames a block (named barriers 1..15; 0 is
+// __syncthreads)
+constexpr int kMaxWarps = 16;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxFrames = 15;
+
+// Calls f(Bucket{}) for bucket index b; cudaErrorInvalidValue for another b.
+template <typename F>
+inline int with_bucket(int b, F f) {
+  switch (b) {
+    case 0: return f(Bucket0{});
+    case 1: return f(Bucket1{});
+    case 2: return f(Bucket2{});
+    case 3: return f(Bucket3{});
+    case 4: return f(Bucket4{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// 4-byte words of one frame's region: totals + the +inf word, message rows
+// + the zero word, and `extra` words of the caller.
+template <class Bk>
+__host__ __device__ inline size_t region_words(int threads, int extra) {
+  return static_cast<size_t>(Bk::VPL) * threads + 1 +
+         static_cast<size_t>(Bk::CPL) * threads * Bk::S + 1 + extra;
+}
+
+// True when `warps` warps a frame and `frames` frames a block of bucket Bk
+// take an (m, n) code of largest degrees (dc, dv).
+template <class Bk>
+inline bool plan_holds(int warps, int frames, int m, int n, int dc, int dv) {
+  const int threads = 32 * warps;
+  return warps >= 1 && warps <= kMaxWarps && frames >= 1 &&
+         frames <= kMaxFrames && threads * frames <= kMaxThreads &&
+         dc >= 1 && dc <= Bk::DC && dv >= 1 && dv <= Bk::DV &&
+         m <= Bk::CPL * threads && n <= Bk::VPL * threads;
+}
+
+// The dynamic shared memory of every kernel starts here; offsets below are
+// bytes from it, held in 32-bit registers.
+__device__ __forceinline__ float& sh(unsigned off) {
+  extern __shared__ __align__(16) unsigned char nms_edge_shared[];
+  return *reinterpret_cast<float*>(nms_edge_shared + off);
+}
+
+// Synchronises the `threads` threads of one frame (barrier id `bar`).
+__device__ __forceinline__ void frame_sync(int bar, int threads) {
+  if (threads == 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(threads) : "memory");
   }
 }
 
-// Launch shape shared by the kernels: one thread per variable or check
-// (the larger count, rounded up to a warp, at most 1024), as many frames as
-// fit 512 threads and 48 KB of shared memory (at least one frame).
-// `table_words` and `frame_words` are the 4-byte words of shared memory the
-// kernel needs once per block and once per frame.  Returns false when one
-// frame does not fit the 227 KB a block can use.
-inline bool launch_shape(int n, int m, size_t table_words, size_t frame_words,
-                         int* threads_per_frame, int* frames_per_block,
-                         size_t* smem) {
-  int tpf = ((n > m ? n : m) + 31) / 32 * 32;
-  if (tpf > 1024) tpf = 1024;
-  int fpb = 512 / tpf;
-  if (fpb < 1) fpb = 1;
-  const size_t table = table_words * 4;
-  const size_t per_frame = frame_words * 4;
-  while (fpb > 1 && table + fpb * per_frame > 48 * 1024) --fpb;
-  *threads_per_frame = tpf;
-  *frames_per_block = fpb;
-  *smem = table + fpb * per_frame;
-  return *smem <= 227 * 1024;
+// One lane's share of a frame: its tables and messages, all in registers.
+template <class Bk>
+struct Lane {
+  unsigned col[Bk::CPL][Bk::DC];  // offset of total[col] (dummy: the +inf word)
+  unsigned row[Bk::CPL];          // offset of the check's message row
+  unsigned ve[Bk::VPL][Bk::DV];   // offsets of the variable's message slots
+  unsigned tot;                   // offset of total[t]; total[t + T i] at + 4 T i
+  int t, threads, bar;
+  float cv[Bk::CPL][Bk::DC];      // the owned checks' check-to-variable messages
+
+  // Reads the code's tables (edge_col (dc, m): slot j of check c, -1 for a
+  // dummy edge; var_edges (dv, n): edge e = j*m + c of variable v in
+  // ascending check order, -1 padded; global or shared memory) into this
+  // lane's registers for the frame region at byte offset `region`, lane t
+  // of `threads`, barrier `bar`.  Lane 0 writes the region's +inf and zero
+  // words; the first frame's barriers order them before any read.
+  __device__ __forceinline__ void setup(unsigned region, const int* edge_col,
+                                        const int* var_edges, int m, int n,
+                                        int dc, int dv, int lane, int nthreads,
+                                        int barrier) {
+    t = lane;
+    threads = nthreads;
+    bar = barrier;
+    const unsigned inf_word = region + 4u * (Bk::VPL * nthreads);
+    const unsigned rows = inf_word + 4u;
+    const unsigned zero_word = rows + 4u * (Bk::CPL * nthreads * Bk::S);
+    tot = region + 4u * lane;
+#pragma unroll
+    for (int q = 0; q < Bk::CPL; ++q) {
+      const int c = lane + nthreads * q;
+      row[q] = rows + 4u * static_cast<unsigned>(c * Bk::S);
+#pragma unroll
+      for (int j = 0; j < Bk::DC; ++j) {
+        const int v = (c < m && j < dc) ? edge_col[j * m + c] : -1;
+        col[q][j] = v >= 0 ? region + 4u * v : inf_word;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < Bk::VPL; ++i) {
+      const int v = lane + nthreads * i;
+#pragma unroll
+      for (int d = 0; d < Bk::DV; ++d) {
+        const int e = (v < n && d < dv) ? var_edges[d * n + v] : -1;
+        ve[i][d] = e >= 0 ? rows + 4u * static_cast<unsigned>(
+                                     (e % m) * Bk::S + e / m)
+                          : zero_word;
+      }
+    }
+    if (lane == 0) {
+      sh(inf_word) = INFINITY;
+      sh(zero_word) = 0.f;
+    }
+  }
+
+  // Messages from scratch.
+  __device__ __forceinline__ void reset() {
+#pragma unroll
+    for (int q = 0; q < Bk::CPL; ++q)
+#pragma unroll
+      for (int j = 0; j < Bk::DC; ++j) cv[q][j] = 0.f;
+  }
+
+  // Messages saved by `save` (src: (dc, m) f32, e = j*m + c).
+  __device__ __forceinline__ void load(const float* src, int m, int dc) {
+#pragma unroll
+    for (int q = 0; q < Bk::CPL; ++q) {
+      const int c = t + threads * q;
+#pragma unroll
+      for (int j = 0; j < Bk::DC; ++j)
+        cv[q][j] = (c < m && j < dc) ? src[j * m + c] : 0.f;
+    }
+  }
+
+  // The messages of the real edges to dst ((dc, m) f32, e = j*m + c; a
+  // dummy edge's slot gets 0, as in the plain twin).
+  __device__ __forceinline__ void save(float* dst, int m, int dc) const {
+    const unsigned inf_word = tot - 4u * t + 4u * (Bk::VPL * threads);
+#pragma unroll
+    for (int q = 0; q < Bk::CPL; ++q) {
+      const int c = t + threads * q;
+#pragma unroll
+      for (int j = 0; j < Bk::DC; ++j)
+        if (c < m && j < dc) dst[j * m + c] = col[q][j] == inf_word ? 0.f : cv[q][j];
+    }
+  }
+
+  // The total (or, after the last emit, whatever the caller stored there)
+  // of owned variable i.
+  __device__ __forceinline__ float& total(int i) {
+    return sh(tot + 4u * static_cast<unsigned>(threads * i));
+  }
+};
+
+// `iters` iterations from the messages in L.cv on the channel values x
+// (see the header note).  emit(it, i, colsum) for it = 0..iters.
+template <class Bk, bool kClampBig, typename Emit>
+__device__ __forceinline__ void iterate(Lane<Bk>& L, const float (&x)[Bk::VPL],
+                                        int iters, float w_vc, float w_chk,
+                                        Emit emit) {
+  // the region is free once every lane has left the previous frame
+  frame_sync(L.bar, L.threads);
+#pragma unroll
+  for (int q = 0; q < Bk::CPL; ++q)
+#pragma unroll
+    for (int j = 0; j < Bk::DC; ++j) sh(L.row[q] + 4u * j) = L.cv[q][j];
+  frame_sync(L.bar, L.threads);
+  for (int it = 0;; ++it) {
+    // phase A: column sums in ascending check order -> totals (and outputs)
+#pragma unroll
+    for (int i = 0; i < Bk::VPL; ++i) {
+      float s = 0.f;
+#pragma unroll
+      for (int d = 0; d < Bk::DV; ++d) s += sh(L.ve[i][d]);
+      emit(it, i, s);
+      if (it < iters) L.total(i) = s + w_vc * x[i];
+    }
+    if (it == iters) break;
+    frame_sync(L.bar, L.threads);
+    // phase B: per-check tournament and outgoing messages
+#pragma unroll
+    for (int q = 0; q < Bk::CPL; ++q) {
+      float min1 = kClampBig ? kBig : INFINITY, min2 = min1;
+      unsigned parity = 0;
+#pragma unroll
+      for (int j = 0; j < Bk::DC; ++j) {
+        const float vc = sh(L.col[q][j]) - L.cv[q][j];
+        L.cv[q][j] = vc;
+        const float mag = kClampBig ? fminf(fabsf(vc), kBig) : fabsf(vc);
+        min2 = fminf(min2, fmaxf(min1, mag));
+        min1 = fminf(min1, mag);
+        parity ^= __float_as_uint(vc);
+      }
+      // a zero vc (then min1 == 0) zeroes every message of the row
+      const float wmin1 = min1 == 0.f ? 0.f : w_chk * min1;
+      const float wmin2 = min1 == 0.f ? 0.f : w_chk * min2;
+#pragma unroll
+      for (int j = 0; j < Bk::DC; ++j) {
+        const float vc = L.cv[q][j];
+        const float mag = kClampBig ? fminf(fabsf(vc), kBig) : fabsf(vc);
+        const float pick = mag > min1 ? wmin1 : wmin2;
+        const float out = __uint_as_float(
+            __float_as_uint(pick) ^
+            ((__float_as_uint(vc) ^ parity) & 0x80000000u));
+        L.cv[q][j] = out;
+        sh(L.row[q] + 4u * j) = out;
+      }
+    }
+    frame_sync(L.bar, L.threads);
+  }
 }
 
 }  // namespace nms_edge

@@ -42,9 +42,11 @@ def phase1(mc: nms_edge.MCSetup, t1: int, batch: int):
     int32 flags, nonzero for a frame not converged at ``t1`` (its value is
     ``1 | bit_errors << 1``)."""
     if mc.device.type == "cpu":
-        counters, flags = nms_edge._mc_frames_plain(mc, t1, batch, stage=True)
+        counters, flags, _ = nms_edge._mc_frames_plain(mc, t1, batch,
+                                                        stage=True)
     else:
-        counters, flags = nms_edge._mc_frames_kernel(mc, t1, batch, stage=True)
+        counters, flags, _ = nms_edge._mc_frames_kernel(mc, t1, batch,
+                                                         stage=True)
         _kernels.LAUNCHES["cascade_p1"] += 1
     return counters[:5], flags
 
@@ -55,11 +57,11 @@ def phase2(mc: nms_edge.MCSetup, num_iterations: int,
     scratch through ``num_iterations`` iterations (kernel K8b on CUDA):
     (5,) int64 counters."""
     if mc.device.type == "cpu":
-        counters, _ = nms_edge._mc_frames_plain(mc, num_iterations, len(ids),
-                                                ids)
+        counters, _, _ = nms_edge._mc_frames_plain(mc, num_iterations,
+                                                   len(ids), ids)
     else:
-        counters, _ = nms_edge._mc_frames_kernel(mc, num_iterations, len(ids),
-                                                 ids)
+        counters, _, _ = nms_edge._mc_frames_kernel(mc, num_iterations,
+                                                    len(ids), ids)
         _kernels.LAUNCHES["cascade_p2"] += 1
     return counters[:5]
 

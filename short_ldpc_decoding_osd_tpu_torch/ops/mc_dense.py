@@ -14,7 +14,8 @@ on the same seed decode the same frames with the same arithmetic.
 
 Not ported, as TPU means: the on-core PRNG (:33-68) and the
 ``SLDPC_MSG_HARVEST`` sampler switch with ``msg_harvest_enabled`` (:71-87),
-and ``block_frames`` (the card's block is sized by ``nms_dense.holds``).
+and ``block_frames`` (the card's block follows the launch plan of
+``nms_dense.dense_plan``).
 """
 
 from __future__ import annotations
@@ -72,14 +73,14 @@ def _mc_dense_kernel(weights, seed: int, h: torch.Tensor, g: torch.Tensor,
     if batch >= 2**31:
         raise ValueError(f"batch {batch} exceeds the kernel's int32 frame ids")
     m = h.shape[0]
-    smem = nms_dense.smem_bytes(m, n, k)
-    blocks = min(nms_dense.max_blocks(smem, True, h.device.index or 0),
-                 max(batch, 1))
+    dc, dv, plan = nms_dense.dense_plan(h, k)
+    blocks = min(nms_dense.max_blocks(plan, m, n, dc, dv, k, h.device.index or 0),
+                 max(-(-batch // plan.frames), 1))
     partials = torch.empty((blocks, _LANES), dtype=torch.int64, device=h.device)
     status = _kernels.library("nms_dense").dense_mc(
-        h.data_ptr(), g.data_ptr(), partials.data_ptr(), batch, m, n, k,
-        num_iterations, smem, blocks, seed, sigma, mean, *weights,
-        _kernels.stream_handle(h.device))
+        h.data_ptr(), g.data_ptr(), partials.data_ptr(), batch, m, n, k, dc, dv,
+        num_iterations, plan.bucket, plan.warps, plan.frames, blocks, seed,
+        sigma, mean, *weights, _kernels.stream_handle(h.device))
     _kernels.check(status, "dense_mc")
     _kernels.LAUNCHES["mc_dense"] += 1
     return partials.sum(0)

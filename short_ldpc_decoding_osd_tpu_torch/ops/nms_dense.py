@@ -21,7 +21,11 @@ bit.  (``torch.sum``'s tree order would not.)
 A wrapper runs the twin only when ``llr`` lies on the CPU; for a CUDA tensor
 it launches the kernel or raises.  The TPU's VMEM block model
 (``auto_block_frames`` :34-43) is not ported: the card's limit is the
-shared memory of a block, and :func:`holds` states it by shape.
+shared memory of a block, and :func:`holds` states the rung's envelope by
+shape.  At launch the kernel's iteration body (``csrc/nms_edge_body.cuh``)
+needs the mask's largest degrees, which pick its compile-time bucket
+(:func:`dense_plan`: two reductions on the card and one copy of two
+integers to the host); a mask of degrees beyond every bucket raises.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import functools
 import torch
 
 from .. import _kernels
+from . import nms_edge
 from .nms import scalar_weights
 
 # magnitude clamp of the TPU kernel, as the f32 the kernel compares with
@@ -41,10 +46,13 @@ _PLAIN_CHUNK = 16_384
 
 
 def smem_bytes(m: int, n: int, k: int = 0) -> int:
-    """Shared memory a block of K6 (``k == 0``) or K7 (``k`` message bits)
-    asks for: the slab tables and one frame of the densest (m, n) mask
-    (dc = n, dv = m), so that every mask of the shape fits at least one
-    frame (the layout of ``csrc/nms_dense.cu``)."""
+    """The dense rung's envelope by shape, in bytes: the slab tables and one
+    frame of the densest (m, n) mask (dc = n, dv = m), cv (dc, m) and two
+    n-vectors, for K6 (``k == 0``) or K7 (``k`` message bits, with its
+    counters, G's column masks and the frame's bits, message words and
+    flags).  :func:`holds` keeps the rung to the shapes where this fits a
+    block; a launch sizes its block by the mask's real degrees
+    (:func:`dense_plan`)."""
     e = m * n
     tables = 2 + 2 * e  # dc, dv; edge_col (dc, m); var_edges (dv, n)
     frame = e + 2 * n  # cv (dc, m), total (n), llr (n)
@@ -110,14 +118,36 @@ def _decode_dense_plain(h: torch.Tensor, llr: torch.Tensor,
     return torch.cat(parts)
 
 
-@functools.lru_cache(maxsize=8)
-def max_blocks(smem: int, mc: bool, device_index: int) -> int:
-    """The persistent grid of a full launch: the blocks of ``smem`` bytes
-    that run at once on the card (``device_index`` keys the cache)."""
+def dense_plan(h: torch.Tensor, k: int = 0):
+    """(dc, dv, plan): the largest check and variable degrees of the mask
+    ``h`` on the card and the launch plan of K6 (``k == 0``) or K7 (``k``
+    message bits) for them: the slab tables (and, for K7, the counters and
+    G's column masks) once a block, one frame region a frame."""
+    edge = h > 0
+    dc, dv = (int(d) for d in torch.stack([edge.sum(1).max(),
+                                           edge.sum(0).max()]).tolist())
+    m, n = h.shape
+    table, extra = dc * m + dv * n, 0
+    if k:
+        kw = (k + 31) // 32
+        table, extra = table + 16 + n * kw, kw + 2
+    plan = nms_edge.launch_plan(m, n, dc, dv, extra, table)
+    if plan is None:
+        raise ValueError(f"no launch plan of the dense-rung kernels holds an "
+                         f"({m}, {n}) mask of degrees ({dc}, {dv})")
+    return dc, dv, plan
+
+
+@functools.lru_cache(maxsize=16)
+def max_blocks(plan: nms_edge.LaunchPlan, m: int, n: int, dc: int, dv: int,
+               k: int, device_index: int) -> int:
+    """The persistent grid of a full launch: the blocks of the plan that
+    run at once on the card (``device_index`` keys the cache)."""
     del device_index  # the launch runs on the current device
-    blocks = _kernels.library("nms_dense").dense_max_blocks(smem, int(mc))
+    blocks = _kernels.library("nms_dense").dense_max_blocks(
+        plan.bucket, plan.warps, plan.frames, m, n, dc, dv, k)
     if blocks < 1:
-        raise RuntimeError(f"dense_max_blocks({smem}, {int(mc)}) failed")
+        raise RuntimeError(f"dense_max_blocks({plan}, k={k}) failed")
     return blocks
 
 
@@ -146,11 +176,12 @@ def _decode_dense_kernel(h, llr, num_iterations, weights):
     if batch >= 2**31:
         raise ValueError(f"batch {batch} exceeds the kernel's int32 count")
     out = torch.empty_like(llr)
-    smem = smem_bytes(m, n)
-    blocks = min(max_blocks(smem, False, llr.device.index or 0), batch)
+    dc, dv, plan = dense_plan(h)
+    blocks = min(max_blocks(plan, m, n, dc, dv, 0, llr.device.index or 0),
+                 -(-batch // plan.frames))
     status = _kernels.library("nms_dense").dense_decode(
-        h.data_ptr(), llr.data_ptr(), out.data_ptr(), batch, m, n,
-        num_iterations, smem, blocks, *weights,
+        h.data_ptr(), llr.data_ptr(), out.data_ptr(), batch, m, n, dc, dv,
+        num_iterations, plan.bucket, plan.warps, plan.frames, blocks, *weights,
         _kernels.stream_handle(llr.device))
     _kernels.check(status, "dense_decode")
     _kernels.LAUNCHES["dense_final"] += 1

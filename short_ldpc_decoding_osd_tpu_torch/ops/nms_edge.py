@@ -13,7 +13,12 @@ order), so on the card kernel and twin agree to the last bit or close to it.
 
 A wrapper runs the twin only when ``llr`` lies on the CPU; for a CUDA tensor
 it launches the kernel or raises.  Only the scalar-normalized variants
-(NMS-1/2/3, ENMS) have a kernel; NMS-r raises, as in JAX.
+(NMS-1/2/3, ENMS) have a kernel; NMS-r raises, as in JAX.  Every kernel
+runs one iteration body (``csrc/nms_edge_body.cuh``) whose degree bucket
+and launch shape the host picks (:func:`launch_plan`); a code no bucket
+takes raises.  K3's launches after the first resume their frames from the
+messages the previous launch saved, as the TPU kernel carries its
+compacted rows' messages; the twins take the same route.
 
 Layout: check-centric edges numbered slab-major, ``e = j*m + c`` for slot
 ``j`` of check ``c``.  Irregular rows pad with dummy edges (``edge_col < 0``)
@@ -24,6 +29,7 @@ have no counterpart here.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -71,17 +77,73 @@ def edge_layout(h):
     return _edge_layout_cached(h.tobytes(), *h.shape)
 
 
-def kernel_holds(h) -> bool:
-    """True when K1 takes ``h``: every check has degree >= 2 and the tables
-    plus one frame fit a block's 227 KB of shared memory (the rule of
-    ``launch_shape`` in ``csrc/nms_edge_body.cuh``)."""
+# The compile-time buckets of the iteration body (csrc/nms_edge_body.cuh,
+# Bucket0..Bucket4): (largest check degree, largest variable degree, checks
+# a lane owns, variables a lane owns).  The packaged codes take buckets 0-2,
+# the extended matrices of ENMS buckets 3 and 4.
+BUCKETS = ((8, 6, 2, 4), (11, 6, 2, 4), (20, 6, 1, 4), (12, 64, 2, 1),
+           (40, 6, 1, 4))
+# warps of one frame and of one block (csrc/nms_edge_body.cuh kMaxWarps,
+# kMaxThreads / 32); a block holds max(1, 4 // warps) frames
+_MAX_WARPS = 16
+_BLOCK_WARPS = 4
+SMEM_LIMIT = 227 * 1024  # bytes of shared memory a Hopper block can use
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How the kernels over the iteration body lay out one code: the
+    degree bucket, the warps of one frame (lane t of the frame's 32 * warps
+    owns checks t + T q and variables t + T i) and the frames of a block."""
+
+    bucket: int
+    warps: int
+    frames: int
+
+
+def region_words(bucket: int, threads: int, extra: int = 0) -> int:
+    """Shared words of one frame of ``threads`` lanes (``region_words`` of
+    csrc/nms_edge_body.cuh): the column totals and the +inf word, one
+    message row of ``dc | 1`` words per owned check and the zero word, and
+    ``extra`` words of the kernel."""
+    dc, _, cpl, vpl = BUCKETS[bucket]
+    return vpl * threads + 1 + cpl * threads * (dc | 1) + 1 + extra
+
+
+def launch_plan(m: int, n: int, dc: int, dv: int, extra_words: int = 0,
+                table_words: int = 0) -> LaunchPlan | None:
+    """The launch plan of an (m, n) code of largest degrees (dc, dv): the
+    first bucket that takes the degrees, the fewest warps whose lanes own
+    every check and variable, ``max(1, 4 // warps)`` frames a block; None
+    when no bucket takes the degrees, a frame would need more than 16 warps
+    or a block (``table_words`` once, ``extra_words`` a frame) exceeds the
+    227 KB of shared memory a block can use."""
+    for bucket, (bdc, bdv, cpl, vpl) in enumerate(BUCKETS):
+        if dc > bdc or dv > bdv:
+            continue
+        warps = max(1, -(-m // (32 * cpl)), -(-n // (32 * vpl)))
+        if warps > _MAX_WARPS:
+            return None
+        frames = max(1, _BLOCK_WARPS // warps)
+        words = region_words(bucket, 32 * warps, extra_words)
+        if 4 * (table_words + frames * words) > SMEM_LIMIT:
+            return None
+        return LaunchPlan(bucket, warps, frames)
+    return None
+
+
+def _degrees(h) -> tuple[int, int]:
     h = np.asarray(h, dtype=np.int64)
-    degrees = h.sum(axis=1)
-    if degrees.min() < 2:
+    return int(h.sum(axis=1).max()), int(h.sum(axis=0).max())
+
+
+def kernel_holds(h) -> bool:
+    """True when K1 takes ``h``: every check has degree >= 2 and a launch
+    plan holds the code (:func:`launch_plan`)."""
+    h = np.asarray(h, dtype=np.int64)
+    if h.sum(axis=1).min() < 2:
         return False
-    m, n = h.shape
-    dc, dv = int(degrees.max()), int(h.sum(axis=0).max())
-    return 4 * (2 * dc * m + dv * n + 2 * n) <= 227 * 1024
+    return launch_plan(*h.shape, *_degrees(h)) is not None
 
 
 _DEVICE_TABLES: dict = {}
@@ -100,8 +162,13 @@ def _tables_on(h, device: torch.device):
     return _DEVICE_TABLES[key]
 
 
-def _decode_edge_plain(llr, h, num_iterations, weights, traj):
-    """Plain PyTorch twin of ``csrc/nms_edge.cu`` (same operation order)."""
+def _decode_edge_plain(llr, h, num_iterations, weights, traj, cv0=None,
+                       return_cv=False):
+    """Plain PyTorch twin of ``csrc/nms_edge.cu`` (same operation order).
+    ``cv0`` (B, dc*m), e = j*m + c: the check-to-variable messages to
+    resume from (default zero); ``return_cv`` also returns the messages
+    after the last iteration, so that a decode resumed from them runs on
+    exactly as an uninterrupted one."""
     w_vc, w_chk, w_marg = weights
     edge_col, var_edges = _tables_on(h, llr.device)
     dc, m = edge_col.shape
@@ -112,6 +179,8 @@ def _decode_edge_plain(llr, h, num_iterations, weights, traj):
     # padded variable slots read a message slot that stays zero
     var_idx = torch.where(var_edges >= 0, var_edges, num_edges).long()
     cv = torch.zeros(batch, num_edges + 1, dtype=torch.float32, device=llr.device)
+    if cv0 is not None:
+        cv[:, :num_edges] = cv0
     outs = [llr] if traj else []
     soft = None
     for it in range(num_iterations + 1):
@@ -142,10 +211,12 @@ def _decode_edge_plain(llr, h, num_iterations, weights, traj):
         new = torch.where(valid, emag * (sign_prod[:, None] * sgn), 0.0)
         cv[:, :num_edges] = new.reshape(batch, num_edges)
     if traj:
-        return torch.stack(outs, 0)
-    if soft is None:  # zero iterations
-        soft = w_marg * llr
-    return soft
+        out = torch.stack(outs, 0)
+    elif soft is not None:
+        out = soft
+    else:  # zero iterations: the column sums of the initial messages
+        out = w_marg * llr if cv0 is None else s + w_marg * llr
+    return (out, cv[:, :num_edges]) if return_cv else out
 
 
 def _decode_edge_kernel(llr, h, num_iterations, weights, traj):
@@ -153,9 +224,16 @@ def _decode_edge_kernel(llr, h, num_iterations, weights, traj):
         raise ValueError("llr must be a contiguous (B, n) float32 tensor")
     edge_col, var_edges = _tables_on(h, llr.device)
     dc, m = edge_col.shape
-    batch, n = llr.shape
-    if var_edges.shape[1] != n:
-        raise ValueError(f"llr has {n} columns, h has {var_edges.shape[1]}")
+    dv, n = var_edges.shape
+    batch = llr.shape[0]
+    if llr.shape[1] != n:
+        raise ValueError(f"llr has {llr.shape[1]} columns, h has {n}")
+    plan = launch_plan(m, n, dc, dv)
+    if plan is None:
+        raise ValueError(f"no launch plan of the edge kernels holds an ({m}, "
+                         f"{n}) code of degrees ({dc}, {dv})")
+    if batch >= 2**31:
+        raise ValueError(f"batch {batch} exceeds the kernel's int32 count")
     if num_iterations == 0 and not traj:
         return weights[2] * llr
     shape = (num_iterations + 1, batch, n) if traj else (batch, n)
@@ -163,8 +241,9 @@ def _decode_edge_kernel(llr, h, num_iterations, weights, traj):
     lib = _kernels.library("nms_edge")
     status = lib.nms_edge_decode(
         llr.data_ptr(), out.data_ptr(), edge_col.data_ptr(),
-        var_edges.data_ptr(), batch, n, m, dc, var_edges.shape[0],
-        num_iterations, *weights, int(traj), _kernels.stream_handle(llr.device),
+        var_edges.data_ptr(), batch, n, m, dc, dv, num_iterations, *weights,
+        int(traj), plan.bucket, plan.warps, plan.frames,
+        _kernels.stream_handle(llr.device),
     )
     _kernels.check(status, "nms_edge_decode")
     _kernels.LAUNCHES["nms_edge_traj" if traj else "nms_edge_final"] += 1
@@ -211,6 +290,7 @@ def decode_traj_edge(params: dict, h, llr: torch.Tensor, num_iterations: int,
 # step is redone one-shot by the Monte-Carlo harness.
 DEFAULT_COMPACT_SCHEDULE = ((4, 0.40625),)
 _LANES = 6
+_MC_COUNT_WORDS = 16  # a block's 8 int64 counters (csrc/mc_fused.cu)
 # frames per plain-twin chunk: bounds the twin's memory on the card
 _PLAIN_CHUNK = 262_144
 
@@ -278,6 +358,22 @@ class MCSetup:
     def device(self) -> torch.device:
         return self.edge_col.device
 
+    @property
+    def plan(self) -> LaunchPlan | None:
+        """The launch plan of ``mc_frames`` for this code (None: the
+        kernels do not hold it)."""
+        dc, m = self.edge_col.shape
+        dv, n = self.var_edges.shape
+        return mc_plan(m, n, dc, dv, self.k)
+
+
+def mc_plan(m: int, n: int, dc: int, dv: int, k: int) -> LaunchPlan | None:
+    """The launch plan of ``mc_frames`` (csrc/mc_fused.cu): a frame also
+    keeps its ceil(k/32) message words and 2 flags, a block its 64 bytes of
+    counters."""
+    return launch_plan(m, n, dc, dv, extra_words=(k + 31) // 32 + 2,
+                       table_words=_MC_COUNT_WORDS)
+
 
 def mc_setup(code, params: dict, variant: str, snr_db: float, seed: int,
              device: str | torch.device = "cuda") -> MCSetup:
@@ -312,13 +408,20 @@ def _count(bit_err, unconv, judged) -> torch.Tensor:
 
 
 def _mc_frames_plain(mc: MCSetup, iters: int, count: int, ids=None,
-                     stage: bool = False):
+                     stage: bool = False, msgs_in=None, src=None,
+                     keep: bool = False):
     """Plain twin of ``mc_frames_kernel`` (csrc/mc_fused.cu): slots
     ``0..count-1`` hold frames ``0..count-1``, or ``ids`` (int32, -1 =
-    padding).  Returns the (6,) counters and, for a stage launch, the
-    per-slot stat: 0 (converged or padding) or ``1 | bit_errors << 1``."""
+    padding).  A slot starts from zero messages or, given ``msgs_in``
+    (rows, dc*m) and ``src`` (count,) int32, from row ``src[i]`` (a resumed
+    frame), and runs ``iters`` iterations.  Returns the (6,) counters, for a
+    stage launch the per-slot stat (0 for a converged frame or padding,
+    else ``1 | bit_errors << 1``), and with ``keep`` (a stage launch) the
+    (count, dc*m) messages of the unconverged slots (other rows unset)."""
     total = torch.zeros(_LANES, dtype=torch.int64, device=mc.device)
     stats = []
+    msgs_out = (torch.zeros((count, mc.edge_col.numel()), dtype=torch.float32,
+                            device=mc.device) if keep else None)
     for start in range(0, count, _PLAIN_CHUNK):
         stop = min(count, start + _PLAIN_CHUNK)
         if ids is None:
@@ -328,58 +431,102 @@ def _mc_frames_plain(mc: MCSetup, iters: int, count: int, ids=None,
         valid = fid >= 0
         codeword, llr = mc_hash.sample(fid.clamp(min=0), mc.seed, mc.g32,
                                        mc.sigma)
-        soft = _decode_edge_plain(llr, mc.h, iters, mc.weights, traj=False)
+        cv0 = None
+        if msgs_in is not None:
+            cv0 = msgs_in[src[start:stop].to(torch.int64).clamp(min=0)]
+        soft, cv = _decode_edge_plain(llr, mc.h, iters, mc.weights, traj=False,
+                                      cv0=cv0, return_cv=True)
         bit_err, unconv = _frame_errors(mc, soft, codeword)
         if stage:
             total += _count(bit_err, unconv, valid & ~unconv)
             stats.append(torch.where(valid & unconv, 1 | (bit_err << 1), 0)
                          .to(torch.int32))
+            if keep:
+                saved = valid & unconv
+                msgs_out[start:stop][saved] = cv[saved]
         else:
             total += _count(bit_err, unconv, valid)
     if not stage:
-        return total, None
+        return total, None, None
     if not stats:
-        return total, torch.zeros(0, dtype=torch.int32, device=mc.device)
-    return total, torch.cat(stats)
+        return total, torch.zeros(0, dtype=torch.int32, device=mc.device), msgs_out
+    return total, torch.cat(stats), msgs_out
+
+
+@functools.lru_cache(maxsize=32)
+def mc_occupancy(plan: LaunchPlan, k: int, stage: bool,
+                 device_index: int) -> dict:
+    """The launch shape of ``mc_frames`` on the card: resident blocks per
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local (spilled) bytes per thread, shared bytes and threads per block,
+    SMs.  ``device_index`` keys the cache (the query runs on the current
+    device)."""
+    del device_index
+    out = (ctypes.c_int * 6)()
+    status = _kernels.library("mc_fused").mc_frames_occupancy(
+        plan.bucket, plan.warps, plan.frames, k, int(stage), ctypes.addressof(out))
+    _kernels.check(status, "mc_frames_occupancy")
+    return dict(zip(("blocks_per_sm", "registers", "local_bytes",
+                     "smem_bytes", "threads", "sms"), out))
+
+
+def _check_i32(name, t, count, device):
+    if (t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous()
+            or len(t) != count or t.device != device):
+        raise ValueError(f"{name} must be a contiguous (count,) int32 tensor "
+                         "on the tables' device")
 
 
 def _mc_frames_kernel(mc: MCSetup, iters: int, count: int, ids=None,
-                      stage: bool = False):
+                      stage: bool = False, msgs_in=None, src=None,
+                      keep: bool = False):
     """Launch ``mc_frames`` (csrc/mc_fused.cu); same contract as
     :func:`_mc_frames_plain`."""
-    if ids is not None and (ids.dtype != torch.int32 or ids.dim() != 1
-                            or not ids.is_contiguous() or len(ids) != count
-                            or ids.device != mc.device):
-        raise ValueError("ids must be a contiguous (count,) int32 tensor on "
-                         "the tables' device")
+    if ids is not None:
+        _check_i32("ids", ids, count, mc.device)
+    if (msgs_in is None) != (src is None) or (keep and not stage):
+        raise ValueError("msgs_in and src go together; keep needs stage")
+    num_edges = mc.edge_col.numel()
+    if msgs_in is not None:
+        _check_i32("src", src, count, mc.device)
+        if (msgs_in.dtype != torch.float32 or msgs_in.dim() != 2
+                or msgs_in.shape[1] != num_edges or not msgs_in.is_contiguous()
+                or msgs_in.device != mc.device):
+            raise ValueError(f"msgs_in must be a contiguous (rows, {num_edges}) "
+                             "float32 tensor on the tables' device")
     if count >= 2**31:
         raise ValueError(f"count {count} exceeds the kernel's int32 frame ids")
+    plan = mc.plan
+    if plan is None:
+        raise ValueError(f"no launch plan of mc_frames holds the "
+                         f"{mc.h.shape} code")
+    occ = mc_occupancy(plan, mc.k, stage, mc.device.index or 0)
+    grid = min(-(-count // plan.frames), occ["blocks_per_sm"] * occ["sms"])
     lib = _kernels.library("mc_fused")
     dc, m = mc.edge_col.shape
     dv, n = mc.var_edges.shape
-    fpb = lib.mc_frames_per_block(n, m, dc, dv, mc.k)
-    if fpb < 1:
-        raise ValueError(f"one ({m}, {n}) frame does not fit a block's "
-                         "shared memory")
-    partials = torch.empty(((count + fpb - 1) // fpb, _LANES),
-                           dtype=torch.int32, device=mc.device)
+    counters = torch.zeros(_LANES, dtype=torch.int64, device=mc.device)
     stat = (torch.empty(count, dtype=torch.int32, device=mc.device)
             if stage else None)
+    msgs_out = (torch.empty((count, num_edges), dtype=torch.float32,
+                            device=mc.device) if keep else None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     status = lib.mc_frames(
-        None if ids is None else ids.data_ptr(),
-        None if stat is None else stat.data_ptr(), partials.data_ptr(),
-        mc.edge_col.data_ptr(), mc.var_edges.data_ptr(), mc.gcols.data_ptr(),
-        count, n, m, dc, dv, mc.k, iters, mc.seed, mc.sigma, 1.0,
-        *mc.weights, _kernels.stream_handle(mc.device))
+        ptr(ids), ptr(src), ptr(msgs_in), ptr(msgs_out), ptr(stat),
+        counters.data_ptr(), mc.edge_col.data_ptr(), mc.var_edges.data_ptr(),
+        mc.gcols.data_ptr(), count, n, m, dc, dv, mc.k, iters, plan.bucket,
+        plan.warps, plan.frames, grid, mc.seed, mc.sigma, 1.0, *mc.weights,
+        _kernels.stream_handle(mc.device))
     _kernels.check(status, "mc_frames")
-    return partials.sum(0, dtype=torch.int64), stat
+    return counters, stat, msgs_out
 
 
 def _group_rank_plain(stat, ids_in, groups: int, group_size: int,
                       rows_next: int):
     """Plain twin of ``group_rank_kernel``: per group, the unconverged slots
     ranked in frame order; the first ``rows_next`` go to the next id list
-    (-1 padded), the rest count as overflow judged at this stage."""
+    with their slot (-1 padded), the rest count as overflow judged at this
+    stage.  Returns (counters, ids_out, src_out)."""
     s = stat.view(groups, group_size)
     u = s != 0
     rank = torch.cumsum(u, 1) - u.to(torch.int64)
@@ -390,16 +537,16 @@ def _group_rank_plain(stat, ids_in, groups: int, group_size: int,
     zero = torch.zeros((), dtype=torch.int64, device=stat.device)
     counters = torch.stack([n_over, (over & (be > 0)).sum(),
                             torch.where(over, be, 0).sum(), n_over, zero, n_over])
-    if ids_in is None:
-        fid = torch.arange(groups * group_size, dtype=torch.int32,
-                           device=stat.device).view(groups, group_size)
-    else:
-        fid = ids_in.view(groups, group_size)
+    slots = torch.arange(groups * group_size, dtype=torch.int32,
+                         device=stat.device).view(groups, group_size)
+    fid = slots if ids_in is None else ids_in.view(groups, group_size)
     ids_out = torch.full((groups, rows_next), -1, dtype=torch.int32,
                          device=stat.device)
+    src_out = torch.full_like(ids_out, -1)
     g_idx, pos = covered.nonzero(as_tuple=True)
     ids_out[g_idx, rank[g_idx, pos]] = fid[g_idx, pos]
-    return counters, ids_out.view(-1)
+    src_out[g_idx, rank[g_idx, pos]] = slots[g_idx, pos]
+    return counters, ids_out.view(-1), src_out.view(-1)
 
 
 def _group_rank_kernel(stat, ids_in, groups: int, group_size: int,
@@ -409,36 +556,41 @@ def _group_rank_kernel(stat, ids_in, groups: int, group_size: int,
     lib = _kernels.library("mc_fused")
     ids_out = torch.empty(groups * rows_next, dtype=torch.int32,
                           device=stat.device)
+    src_out = torch.empty_like(ids_out)
     partials = torch.empty((groups, _LANES), dtype=torch.int32,
                            device=stat.device)
     status = lib.mc_group_rank(
         stat.data_ptr(), None if ids_in is None else ids_in.data_ptr(),
-        ids_out.data_ptr(), partials.data_ptr(), groups, group_size, rows_next,
-        _kernels.stream_handle(stat.device))
+        ids_out.data_ptr(), src_out.data_ptr(), partials.data_ptr(), groups,
+        group_size, rows_next, _kernels.stream_handle(stat.device))
     _kernels.check(status, "mc_group_rank")
-    return partials.sum(0, dtype=torch.int64), ids_out
+    return partials.sum(0, dtype=torch.int64), ids_out, src_out
 
 
 def _compact_chain(mc: MCSetup, batch: int, block_frames: int, rows_schedule,
                    final_iters: int, frames_fn=_mc_frames_kernel,
                    rank_fn=_group_rank_kernel) -> torch.Tensor:
-    """K3 as a chain of launches: per stage, the alive frames decode from
-    scratch to the stage's cumulative iteration count (STAGE launch, which
-    banks the converged ones), then each group's unconverged frames are
-    ranked and the first ``rows`` go on; the last list decodes all T
-    iterations (COUNT launch).  ``frames_fn``/``rank_fn`` are the kernel
-    launchers on the card; the tests hand in the plain twins."""
+    """K3 as a chain of launches: per stage, the alive frames run the
+    stage's iterations (STAGE launch: from scratch at the first stage,
+    resumed from the previous stage's saved messages after it; it banks the
+    converged frames and saves the messages of the others), then each
+    group's unconverged frames are ranked and the first ``rows`` go on with
+    their source slot; the last list runs the remaining ``final_iters``
+    iterations, resumed (COUNT launch).  Each frame thus decodes each
+    iteration once, as in the TPU kernel.  ``frames_fn``/``rank_fn`` are
+    the kernel launchers on the card; the tests hand in the plain twins."""
     total = torch.zeros(_LANES, dtype=torch.int64, device=mc.device)
     groups = batch // block_frames
-    ids, group, count, spent = None, block_frames, batch, 0
+    ids, src, msgs, group, count = None, None, None, block_frames, batch
     for iters_i, rows_i in rows_schedule:
-        spent += iters_i
-        counters, stat = frames_fn(mc, spent, count, ids, stage=True)
+        counters, stat, saved = frames_fn(mc, iters_i, count, ids, stage=True,
+                                          msgs_in=msgs, src=src, keep=True)
         total += counters
-        counters, ids = rank_fn(stat, ids, groups, group, rows_i)
+        counters, ids, src = rank_fn(stat, ids, groups, group, rows_i)
         total += counters
-        group, count = rows_i, groups * rows_i
-    counters, _ = frames_fn(mc, spent + final_iters, count, ids, stage=False)
+        msgs, group, count = saved, rows_i, groups * rows_i
+    counters, _, _ = frames_fn(mc, final_iters, count, ids, msgs_in=msgs,
+                               src=src)
     return total + counters
 
 
@@ -489,7 +641,7 @@ def fused_counters_edge(code, params: dict, variant: str, num_iterations: int,
     mc = mc_setup(code, params, variant, snr_db, seed, device)
     if mc.device.type == "cpu":
         return _mc_frames_plain(mc, num_iterations, batch)[0][:5]
-    counters, _ = _mc_frames_kernel(mc, num_iterations, batch)
+    counters, _, _ = _mc_frames_kernel(mc, num_iterations, batch)
     _kernels.LAUNCHES["mc_oneshot"] += 1
     return counters[:5]
 

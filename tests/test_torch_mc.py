@@ -3,7 +3,9 @@
 The hash sampler (``ops/mc_hash.py``) is held bit for bit against a numpy
 golden and against JAX's ``mc_cascade._mix``/``_stream_bits``/``_sample``
 run through a tiny interpret-mode Pallas kernel; normals agree to 1e-5
-(f32 ``log``/``cos`` differ at the ulp level between the two libraries).
+(measured worst 1.32e-6 against the f64 golden and 2.4e-7 against JAX: the
+f32 uniforms and 2 pi u2 round before the transcendentals, which the port
+evaluates in f64 on the CPU).
 
 K8 (``cascade_counters``) is held against JAX's interpret-mode K8 Pallas
 kernels.  The JAX side of K3 and K4 cannot run here: those Pallas kernels
@@ -321,6 +323,116 @@ def test_compact_chain_matches_literal_rule(schedule, block):
                                     nms_edge._group_rank_plain)
     literal = nms_edge._compact_plain(mc, 1024, block, rows, final)
     np.testing.assert_array_equal(chain.numpy(), literal.numpy())
+
+
+@pytest.mark.parametrize("code_name", ["ccsds_128_64", "qc_96_48"])
+@pytest.mark.parametrize("schedule,block,snr_db", [
+    (((4, 0.375),), 1024, 3.0),  # bench.py's schedule
+    (nms_edge.DEFAULT_COMPACT_SCHEDULE, 512, 3.0),
+    (((4, 0.5), (2, 0.25)), 512, 2.0),  # two stages
+    (((2, 0.125),), 128, 1.5),  # a capacity that overflows
+], ids=["bench", "default", "two_stage", "overflow"])
+def test_resumed_chain_matches_literal_rule_and_golden(code_name, schedule,
+                                                       block, snr_db):
+    """The launch chain as the card runs it, each stage resuming its frames
+    from the messages the previous one saved, on the plain twins: equal to
+    the literal rule (every frame decoded from scratch) counter for
+    counter, and to the JAX-decoder golden within the tolerance."""
+    batch, T, seed = 1024, 12, 19
+    mc = nms_edge.mc_setup(get_code(code_name), _params(), "NMS-1", snr_db,
+                           seed, "cpu")
+    rows, final = nms_edge.build_rows_schedule(schedule, block, T)
+    chain = nms_edge._compact_chain(mc, batch, block, rows, final,
+                                    nms_edge._mc_frames_plain,
+                                    nms_edge._group_rank_plain)
+    literal = nms_edge._compact_plain(mc, batch, block, rows, final)
+    np.testing.assert_array_equal(chain.numpy(), literal.numpy())
+    stages, spent = [], 0
+    for iters, cap in rows:
+        spent += iters
+        stages.append((spent, cap))
+    want, overflow = _golden(code_name, seed, batch, T, snr_db=snr_db,
+                             stages=tuple(stages), block=block)
+    np.testing.assert_allclose(chain.numpy(), list(want) + [overflow],
+                               atol=ATOL)
+    if schedule == ((2, 0.125),):
+        assert int(chain[5]) > 0
+
+
+@pytest.mark.parametrize("code_name", ["ccsds_128_64", "qc_96_48"])
+def test_plain_decode_resumes_bit_for_bit(code_name):
+    """A decode resumed from its messages after t iterations is, bit for
+    bit, the decode from scratch of t + r iterations, and JAX's
+    ``nms.decode`` within 1e-5."""
+    code = get_code(code_name)
+    rng = np.random.default_rng(29)
+    llr = rng.normal(1.0, 0.9, (256, code.n)).astype(np.float32)
+    x = torch.as_tensor(llr)
+    weights = nms.scalar_weights(_params(), "NMS-1")
+    t, r = 4, 8
+    first, cv = nms_edge._decode_edge_plain(x, code.h, t, weights, False,
+                                            return_cv=True)
+    assert cv.shape == (256, nms_edge.edge_layout(code.h)[0].size)
+    resumed = nms_edge._decode_edge_plain(x, code.h, r, weights, False, cv0=cv)
+    scratch = nms_edge._decode_edge_plain(x, code.h, t + r, weights, False)
+    assert torch.equal(resumed, scratch)
+    assert not torch.equal(first, scratch)
+    ref = np.asarray(jnms.decode(jnms.init_params("NMS-1"),
+                                 jnp.asarray(code.h, jnp.float32),
+                                 jnp.asarray(llr), t + r, "NMS-1"))[t + r]
+    np.testing.assert_allclose(resumed.numpy(), ref, rtol=1e-5, atol=1e-5)
+    # zero further iterations: the column sums of the saved messages
+    again = nms_edge._decode_edge_plain(x, code.h, 0, weights, False, cv0=cv)
+    assert torch.equal(again, first)
+
+
+def _pr3_shape_accepts(code) -> bool:
+    """The rule of the previous ``mc_frames_per_block``: the tables (dc m +
+    dv n + 8 words) and one frame (dc m + 3 n + ceil(k/32) + 2 words) fit
+    a block's 227 KB."""
+    h = np.asarray(code.h, np.int64)
+    m, n = h.shape
+    dc, dv = int(h.sum(1).max()), int(h.sum(0).max())
+    words = (dc * m + dv * n + 8) + (dc * m + 3 * n + (code.k + 31) // 32 + 2)
+    return 4 * words <= 227 * 1024
+
+
+@pytest.mark.parametrize("code_name", [
+    "array_121_60", "array_121_80", "ccsds_128_64", "code1_64_32", "qc_96_48",
+    "wimax_1056_880", "wimaxlike_384_192"])
+def test_launch_plan_takes_every_packaged_code(code_name):
+    """The host's choice of degree bucket and launch shape takes every
+    packaged code the previous frame layout took, and the plan's lanes own
+    every check and variable within the bucket's degrees."""
+    code = get_code(code_name)
+    assert _pr3_shape_accepts(code)
+    h = np.asarray(code.h, np.int64)
+    m, n = h.shape
+    dc, dv = int(h.sum(1).max()), int(h.sum(0).max())
+    for plan in (nms_edge.mc_setup(code, _params(), "NMS-1", 3.0, 1, "cpu").plan,
+                 nms_edge.launch_plan(m, n, dc, dv)):
+        assert plan is not None
+        bdc, bdv, cpl, vpl = nms_edge.BUCKETS[plan.bucket]
+        lanes = 32 * plan.warps
+        assert dc <= bdc and dv <= bdv and m <= cpl * lanes and n <= vpl * lanes
+        assert 1 <= plan.frames <= 15 and 32 * plan.warps * plan.frames <= 512
+        # the smallest bucket that takes the degrees, the fewest warps
+        assert all(dc > b[0] or dv > b[1] for b in nms_edge.BUCKETS[:plan.bucket])
+        assert plan.warps == 1 or m > cpl * (lanes - 32) or n > vpl * (lanes - 32)
+    assert nms_edge.kernel_holds(code.h)
+    assert nms_edge.kernel_holds(code.extended().h)  # ENMS decodes on it
+    want = {"ccsds_128_64": (0, 1, 4), "qc_96_48": (0, 1, 4),
+            "array_121_60": (1, 2, 2), "wimax_1056_880": (2, 9, 1)}
+    if code_name in want:
+        assert (plan.bucket, plan.warps, plan.frames) == want[code_name]
+
+
+def test_launch_plan_refuses_what_no_bucket_takes():
+    assert nms_edge.launch_plan(64, 128, 41, 3) is None  # dc above every bucket
+    assert nms_edge.launch_plan(64, 128, 8, 65) is None  # dv above every bucket
+    assert nms_edge.launch_plan(64, 4 * 32 * 17, 8, 3) is None  # > 16 warps
+    assert [nms_edge.launch_plan(64, 128, dc, dv).bucket for dc, dv in (
+        (8, 3), (9, 3), (12, 6), (8, 7), (21, 3))] == [0, 1, 2, 3, 4]
 
 
 def test_compact_refuses_ragged_batch():
