@@ -5,17 +5,93 @@ Port of ``short_ldpc_decoding_osd_tpu/ops/osd_disc_pallas.py``
 
     lterm[b, t] = sum_m u_l[b, m] * mod2( sum_k M[b, m, k] * T[t, k] )
 
-The kernel (``csrc/osd_disc.cu``) never writes the (B, m, Ntot) parity
-intermediate to device memory.  The caller adds ``c0 + u_m @ T^T``
-(``osd/engine.py``).  The wrapper runs the plain twin ``lterm_reference``
-only for CPU tensors; for CUDA tensors it launches the kernel or raises.
+The kernel (``csrc/osd_disc.cu``) runs the parity products on the int8
+tensor cores and never writes the (B, m, Ntot) parity intermediate to
+device memory; it takes any (m, k) whose padded frame fits shared memory
+(every packaged code).  Its tiles come from :func:`lterm_plan`.  The caller
+adds ``c0 + u_m @ T^T`` (``osd/engine.py``).  The wrapper runs the plain
+twin ``lterm_reference`` only for CPU tensors; for CUDA tensors it launches
+the kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
 from .. import _kernels
+
+THREADS = 512  # a block: 16 warps
+SMEM_MAX = 232_448  # bytes of shared memory a block may opt in to on H100
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class LtermPlan:
+    """One launch of K5.  ``kch`` > 0: "resident" (m, k <= 64: the frame's
+    B fragments, ``m_pad`` x ``k_pad`` = 8 ``tn`` x 32 ``kch``, held in
+    registers);
+    ``kch`` == 0: "general" (groups of 8 ``tn`` check rows, k in 32-byte
+    chunks, both operands from shared memory).  A block holds ``nt`` TEPs
+    (rows of T, zero-padded to k_pad) in shared memory and walks frames
+    ``grid[0]`` apart through ``nbuf`` frame buffers; ``grid[1]`` =
+    ``n_tiles`` blocks cover the TEPs."""
+
+    kch: int
+    tn: int
+    m_pad: int
+    k_pad: int
+    stride: int  # shared-memory row stride in bytes (k_pad + 16)
+    nt: int
+    n_tiles: int
+    nbuf: int
+    smem_bytes: int
+    grid: tuple[int, int]
+
+    @property
+    def resident(self) -> bool:
+        return self.kch > 0
+
+
+def _smem(stride: int, m_pad: int, nt: int, nbuf: int) -> int:
+    # T tile, then nbuf x (a frame's M rows + its u_l as f64)
+    return stride * nt + nbuf * (stride * m_pad + 8 * m_pad)
+
+
+def lterm_plan(b: int, m: int, k: int, ntot: int,
+               sms: int = H100_SMS) -> LtermPlan | None:
+    """The tile plan of K5 for M (b, m, k) and T (ntot, k) on a card with
+    ``sms`` SMs, or None where a padded frame does not fit a block's
+    shared memory (far above every packaged code)."""
+    if min(b, m, k, ntot) < 1:
+        raise ValueError(f"lterm_plan needs positive sizes, got {(b, m, k, ntot)}")
+    if k <= 64 and m <= 64:
+        kch, tn, m_pad, k_pad = 2, 8, 64, 64
+    else:
+        kch, tn = 0, 4
+        m_pad, k_pad = -(-m // 32) * 32, -(-k // 32) * 32
+    stride = k_pad + 16  # odd multiple of 16 bytes: ldmatrix conflict-free
+    if m_pad > THREADS:
+        return None
+    n16 = -(-ntot // 16) * 16
+    choice = None
+    for nbuf in (2, 1):
+        fit = (SMEM_MAX - _smem(stride, m_pad, 0, nbuf)) // stride // 16 * 16
+        if fit >= min(n16, 256) or (nbuf == 1 and fit >= 16):
+            choice = nbuf, fit
+            break
+    if choice is None:
+        return None
+    nbuf, fit = choice
+    n_tiles = -(-n16 // fit)
+    nt = -(-(-(-ntot // n_tiles)) // 16) * 16  # balanced tiles of 16
+    grid_x = max(1, min(b, sms // n_tiles))
+    return LtermPlan(kch=kch, tn=tn, m_pad=m_pad, k_pad=k_pad, stride=stride,
+                     nt=nt, n_tiles=n_tiles, nbuf=nbuf,
+                     smem_bytes=_smem(stride, m_pad, nt, nbuf),
+                     grid=(grid_x, n_tiles))
 
 
 def lterm_reference(m_matrix: torch.Tensor, u_l: torch.Tensor,
@@ -28,6 +104,18 @@ def lterm_reference(m_matrix: torch.Tensor, u_l: torch.Tensor,
     return torch.einsum("bm,bmn->bn", u_l.to(torch.float32), a)
 
 
+def lterm_occupancy(plan: LtermPlan, device: int = 0) -> dict:
+    """What the card makes of ``plan``'s kernel: registers and local bytes
+    a thread, threads a block, resident blocks per SM, SMs, static shared
+    bytes."""
+    out = (ctypes.c_int * 6)()
+    status = _kernels.library("osd_disc").lterm_occupancy(
+        plan.kch, plan.tn, plan.smem_bytes, device, out)
+    _kernels.check(status, "lterm_occupancy")
+    return dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm",
+                     "sms", "static_smem_bytes"), list(out)))
+
+
 def lterm(m_matrix: torch.Tensor, u_l: torch.Tensor,
           teps_flat: torch.Tensor) -> torch.Tensor:
     """(B, Ntot) f32 ``sum_m u_l * mod2(M @ T^T)`` (kernel K5 on CUDA).
@@ -38,6 +126,8 @@ def lterm(m_matrix: torch.Tensor, u_l: torch.Tensor,
         return lterm_reference(m_matrix, u_l, teps_flat)
     if m_matrix.device.type != "cuda":
         raise ValueError(f"unsupported device {m_matrix.device}")
+    if m_matrix.dim() != 3 or teps_flat.dim() != 2:
+        raise ValueError("lterm takes a 3-d m_matrix and a 2-d teps_flat")
     b, m, k = m_matrix.shape
     ntot = teps_flat.shape[0]
     if (m_matrix.dtype != torch.int8 or teps_flat.dtype != torch.int8
@@ -48,16 +138,28 @@ def lterm(m_matrix: torch.Tensor, u_l: torch.Tensor,
             f"shape mismatch: M {tuple(m_matrix.shape)}, u_l "
             f"{tuple(u_l.shape)}, teps {tuple(teps_flat.shape)}"
         )
-    if k > 256:
-        raise ValueError(f"lterm kernel packs k <= 256 bits, got k={k}")
     for name, t in (("m_matrix", m_matrix), ("u_l", u_l), ("teps", teps_flat)):
         if not t.is_contiguous() or t.device != m_matrix.device:
             raise ValueError(f"{name} must be contiguous on {m_matrix.device}")
+    if min(b, ntot) == 0 or min(m, k) == 0:
+        # nothing to launch: no rows, or every parity is 0
+        return torch.zeros((b, ntot), dtype=torch.float32,
+                           device=m_matrix.device)
+    dev = m_matrix.device.index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    plan = lterm_plan(b, m, k, ntot,
+                      torch.cuda.get_device_properties(dev).multi_processor_count)
+    if plan is None:
+        raise ValueError(f"lterm: a padded ({m}, {k}) frame does not fit a "
+                         f"block's {SMEM_MAX} bytes of shared memory")
     out = torch.empty((b, ntot), dtype=torch.float32, device=m_matrix.device)
     lib = _kernels.library("osd_disc")
     status = lib.lterm_launch(
         m_matrix.data_ptr(), u_l.data_ptr(), teps_flat.data_ptr(),
-        out.data_ptr(), b, m, k, ntot, _kernels.stream_handle(m_matrix.device),
+        out.data_ptr(), b, m, k, ntot, plan.kch, plan.tn, plan.m_pad,
+        plan.k_pad, plan.nt, plan.n_tiles, plan.nbuf, plan.grid[0],
+        plan.smem_bytes, _kernels.stream_handle(m_matrix.device),
     )
     _kernels.check(status, "lterm_launch")
     _kernels.LAUNCHES["lterm"] += 1

@@ -22,7 +22,7 @@ import dataclasses
 
 import torch
 
-from ..ops import gf2ops, nms, nms_edge, osd_disc
+from ..ops import gf2ops, nms, nms_edge, nms_edge_padded, osd_disc
 from ..ops.nms import first_argmin, first_index
 
 _BIG = 3.4e38  # f32-representable "no candidate" discrepancy
@@ -308,6 +308,41 @@ def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
     }
 
 
+def redecode_route(decode_h, variant: str, device, batch: int) -> str:
+    """The phase-2 trajectory re-decode's route for ``batch`` rows: a scalar
+    variant takes ``"edge"`` (kernel K2 on CUDA); NMS-r, whose neural check
+    update no kernel has, takes the padded edge layout (``"edge_padded"``)
+    where ``nms_edge_padded.auto_select`` says so (CUDA, a regular check
+    degree, ``NMS_R_MIN_BATCH`` rows or more), else the dense ``nms.decode``
+    (``"dense"``), as JAX's ``"auto"`` takes its edge-layout rung for NMS-r
+    (``short_ldpc_decoding_osd_tpu/osd/engine.py:653-671``)."""
+    if variant != "NMS-r":
+        return "edge"
+    if nms_edge_padded.auto_select(decode_h, variant, device, batch):
+        return "edge_padded"
+    return "dense"
+
+
+def redecode_trajectory(nms_params, decode_h, llr: torch.Tensor,
+                        num_iterations: int, variant: str, route: str,
+                        edge_cols=None) -> torch.Tensor:
+    """(T+1, B, n) trajectory of the phase-2 re-decode on ``route`` (one of
+    :func:`redecode_route`'s); ``edge_cols`` is ``nms.edge_columns`` of
+    ``decode_h`` for NMS-r on the dense route (computed when None)."""
+    if route == "edge":
+        return nms_edge.decode_traj_edge(nms_params, decode_h, llr,
+                                         num_iterations, variant)
+    if route == "edge_padded":
+        return nms_edge_padded.decode_edge_padded(nms_params, decode_h, llr,
+                                                  num_iterations, variant)
+    if route == "dense":
+        if edge_cols is None and variant == "NMS-r":
+            edge_cols = nms.edge_columns(decode_h)
+        return nms.decode(nms_params, decode_h, llr, num_iterations, variant,
+                          edge_cols)
+    raise ValueError(f"unknown re-decode route {route!r}")
+
+
 def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
                               window: int = 5, soft_margin: float = 0.9,
                               bounds: tuple | None = None):
@@ -321,9 +356,8 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
     but the re-decode does not confirm can be excluded by the caller.
     ``model`` carries its own weights (an ``nn.Module``).
 
-    The re-decode is ``nms_edge.decode_traj_edge`` (kernel K2 on CUDA),
-    except for NMS-r, whose neural check update only the dense
-    ``nms.decode`` has.  The JAX step's ``with_iteration_stats``
+    The re-decode is :func:`redecode_trajectory` on the route of
+    :func:`redecode_route`.  The JAX step's ``with_iteration_stats``
     diagnostics are not ported."""
     decode_h = code.extended().h if variant == "ENMS" else code.h
     edge_cols = nms.edge_columns(decode_h) if variant == "NMS-r" else None
@@ -331,12 +365,10 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
     h_osd = code.h_osd
 
     def step(nms_params, llr, labels, teps, mask, acc, fcn_params):
-        if edge_cols is None:
-            outs = nms_edge.decode_traj_edge(
-                nms_params, decode_h, llr, num_iterations, variant)
-        else:
-            outs = nms.decode(nms_params, decode_h, llr, num_iterations,
-                              variant, edge_cols)
+        outs = redecode_trajectory(
+            nms_params, decode_h, llr, num_iterations, variant,
+            redecode_route(decode_h, variant, llr.device, llr.shape[0]),
+            edge_cols)
         traj = outs.permute(1, 0, 2)  # (B, T+1, n)
         st = nms.frame_stats(traj[:, -1], labels, decode_h)
         refined = model.refine_fast(traj)

@@ -108,9 +108,11 @@ class TwoPhase:
             return out
 
         _, buf = timed("capture_step_k1", lambda: self.capture_round(i))
-        traj = timed("traj_redecode_k2", lambda: nms_edge.decode_traj_edge(
-            self.nms_params, decode_h, buf["llr"], self.iters,
-            self.variant).permute(1, 0, 2))
+        route = engine.redecode_route(decode_h, self.variant, dev,
+                                      buf["llr"].shape[0])
+        traj = timed("traj_redecode_k2", lambda: engine.redecode_trajectory(
+            self.nms_params, decode_h, buf["llr"], self.iters, self.variant,
+            route).permute(1, 0, 2))
         timed("frame_stats", lambda: nms.frame_stats(traj[:, -1], buf["labels"],
                                                      decode_h))
         refined = timed("dia_refine_fast", lambda: self.dia.refine_fast(traj))

@@ -18,6 +18,7 @@ from short_ldpc_decoding_osd_tpu.ops import gf2ops as jgf2
 from short_ldpc_decoding_osd_tpu.ops import osd_disc_pallas as jodp
 from short_ldpc_decoding_osd_tpu.osd import engine as jengine
 from short_ldpc_decoding_osd_tpu.osd import segments as jseg
+from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.ops import gf2ops, osd_disc
 from short_ldpc_decoding_osd_tpu_torch.osd import engine, segments
 
@@ -102,6 +103,9 @@ def test_tep_chunks_equal_for_r4_path():
     (16, 64, 64, 700, 0),    # CCSDS shapes, unaligned Ntot
     (5, 61, 60, 130, 1),     # rank-deficient 121_60-like, odd B
     (8, 128, 128, 512, 2),   # 256_128 shapes
+    (4, 48, 48, 130, 3),     # qc_96_48
+    (3, 192, 192, 513, 4),   # wimaxlike_384_192
+    (2, 176, 880, 600, 5),   # wimax_1056_880: k > 256
 ])
 def test_lterm_reference_matches_jax_kernel(b, m, k, ntot, seed):
     rng = np.random.default_rng(seed)
@@ -114,6 +118,54 @@ def test_lterm_reference_matches_jax_kernel(b, m, k, ntot, seed):
                          torch.as_tensor(teps)).numpy()
     scale = np.maximum(np.abs(want), 1.0)
     assert (np.abs(got - want) / scale).max() < 1e-5
+
+
+@pytest.mark.parametrize("shape", [
+    ("array_121_60",), ("array_121_80",), ("ccsds_128_64",), ("code1_64_32",),
+    ("qc_96_48",), ("wimax_1056_880",), ("wimaxlike_384_192",),
+    (32768, 64, 64, 1536),  # the main path: 32,768 captured rows, 1,536 TEPs
+    (5, 61, 60, 130), (256, 176, 880, 1536), (1, 1, 1, 1)],
+    ids=lambda s: s[0] if len(s) == 1 else "x".join(map(str, s)))
+def test_lterm_plan_covers_every_code(shape):
+    """K5's tile plan takes every packaged code's (m, k) = (n - k, k) at the
+    main path's batch and TEP count, WiMAX included: it fits a block's
+    shared memory, its tiles cover (B, m, k, N), and its launch is one the
+    kernel has (resident (kch, 8) or general (0, 4))."""
+    if len(shape) == 1:
+        code = get_code(shape[0])
+        shape = (32768, code.n - code.k, code.k, 1536)
+    b, m, k, ntot = shape
+    plan = osd_disc.lterm_plan(b, m, k, ntot)
+    assert plan is not None
+    assert plan.smem_bytes <= 232_448
+    assert plan.smem_bytes == (plan.stride * plan.nt + plan.nbuf * (
+        plan.stride * plan.m_pad + 8 * plan.m_pad))
+    assert plan.stride == plan.k_pad + 16 and (plan.stride // 16) % 2 == 1
+    assert m <= plan.m_pad and plan.m_pad % (8 * plan.tn) == 0
+    assert plan.m_pad <= osd_disc.THREADS
+    if plan.resident:  # the one resident launch: a 64 x 64 frame
+        assert m <= 64 and k <= 64
+        assert (plan.kch, plan.tn, plan.m_pad, plan.k_pad) == (2, 8, 64, 64)
+    else:
+        assert (plan.kch, plan.tn) == (0, 4)
+        assert plan.k_pad % 32 == 0 and k <= plan.k_pad < k + 32
+    # TEP tiles: multiples of 16 that cover N, none empty
+    assert plan.nt % 16 == 0 and plan.nt * plan.n_tiles >= ntot
+    assert plan.nt * (plan.n_tiles - 1) < ntot
+    assert plan.nbuf in (1, 2)
+    assert plan.grid[1] == plan.n_tiles and 1 <= plan.grid[0] <= b
+    assert plan.grid[0] * plan.grid[1] <= osd_disc.H100_SMS or plan.grid[0] == 1
+    if shape == (32768, 64, 64, 1536):
+        # every TEP resident in one tile, two frame buffers, a block an SM
+        assert (plan.kch, plan.nt, plan.n_tiles, plan.nbuf, plan.grid) == (
+            2, 1536, 1, 2, (132, 1))
+
+
+def test_lterm_plan_refuses_only_what_does_not_fit():
+    assert osd_disc.lterm_plan(8, 64, 4096, 16) is None  # a frame > 227 KB
+    assert osd_disc.lterm_plan(8, 600, 64, 16) is None  # m beyond a block
+    with pytest.raises(ValueError, match="positive"):
+        osd_disc.lterm_plan(0, 64, 64, 16)
 
 
 def _fcn(seed):

@@ -28,7 +28,7 @@ from short_ldpc_decoding_osd_tpu_torch import _device, convert, system
 from short_ldpc_decoding_osd_tpu_torch.channel import ChannelSpec, sample_batch
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.mc.harness import count_and_capture
-from short_ldpc_decoding_osd_tpu_torch.ops import nms_edge
+from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge, nms_edge_padded
 from short_ldpc_decoding_osd_tpu_torch.osd import engine, segments
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,6 +78,64 @@ def test_dl_osd_step_from_llr_matches_jax(r4, refparity_jax):
     for key in WALK_KEYS:
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]), key)
     np.testing.assert_array_equal(det.numpy(), np.asarray(ref_det))
+
+
+@pytest.mark.parametrize("code_name,variant,device,batch,route", [
+    ("ccsds_128_64", "NMS-1", "cuda", 4096, "edge"),
+    ("ccsds_128_64", "NMS-r", "cuda", 4096, "edge_padded"),
+    ("ccsds_128_64", "NMS-r", "cuda", nms_edge_padded.NMS_R_MIN_BATCH,
+     "edge_padded"),
+    ("ccsds_128_64", "NMS-r", "cuda", 1024, "dense"),  # small batch
+    ("ccsds_128_64", "NMS-r", "cpu", 4096, "dense"),
+    ("qc_96_48", "NMS-r", "cuda", 4096, "dense"),  # irregular check degree
+])
+def test_redecode_route_rule(code_name, variant, device, batch, route):
+    """NMS-r's phase-2 re-decode takes the padded edge layout where the
+    capture step's rule does (JAX's "auto" takes its edge-layout rung)."""
+    h = get_code(code_name).h
+    assert engine.redecode_route(h, variant, torch.device(device), batch) == route
+
+
+def test_nms_r_redecode_routes_agree(r4, monkeypatch):
+    """The NMS-r phase-2 trajectory on the padded edge layout and on the
+    dense decoder, with the trained NMS-r weights of
+    ``runs/r5_variants_nmsr``, on the committed failure set: the tolerance
+    of ``tests/test_torch_edge_padded.py`` for NMS-r (1e-3 relative to the
+    largest output), identical hard decisions and detected flags; and the
+    step itself runs on the padded route."""
+    blob = np.load(os.path.join(_ROOT, "runs", "refparity", "failures.npz"))
+    llr = torch.as_tensor(blob["llr"])
+    labels = torch.as_tensor(blob["labels"])
+    code = get_code("ccsds_128_64")
+    params = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
+              for k, v in convert.load_jax_pickle(os.path.join(
+                  _ROOT, "runs", "r5_variants_nmsr", "nms_params.pkl")).items()}
+    trajs = {route: engine.redecode_trajectory(params, code.h, llr, 12, "NMS-r",
+                                               route)
+             for route in ("edge_padded", "dense")}
+    got, ref = trajs["edge_padded"].numpy(), trajs["dense"].numpy()
+    assert got.shape == ref.shape == (13,) + tuple(llr.shape)
+    assert np.abs(got - ref).max() / max(np.abs(ref).max(), 1.0) < 1e-3
+    np.testing.assert_array_equal(got < 0, ref < 0)
+    det = {route: nms.frame_stats(t[-1], labels, code.h)["detected_failure"]
+           for route, t in trajs.items()}
+    assert torch.equal(det["edge_padded"], det["dense"])
+
+    run = r4["port"]
+    step = engine.make_dl_osd_step_from_llr(run["dia"], code, "NMS-r", 12,
+                                            bounds=r4["bounds"])
+    args = (params, llr, labels, torch.as_tensor(r4["teps"]),
+            torch.as_tensor(r4["mask"]), r4["acc"], run["fcn"])
+    routes = []
+    real = engine.redecode_trajectory
+    monkeypatch.setattr(engine, "redecode_trajectory",
+                        lambda *a: routes.append(a[5]) or real(*a))
+    _, _, det_dense = step(*args)  # on the CPU: the dense route
+    monkeypatch.setattr(engine, "redecode_route", lambda *a: "edge_padded")
+    _, _, det_padded = step(*args)
+    assert routes == ["dense", "edge_padded"]
+    assert torch.equal(det_dense, det["dense"])
+    assert torch.equal(det_padded, det["edge_padded"])
 
 
 def test_sliding_osd_matches_jax_on_refparity25(r4):
