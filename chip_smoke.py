@@ -15,7 +15,13 @@ Phases (each raises on failure, so the script never exits 0 after one):
    in its SASS, its launch shapes, and the main path's block minima and
    walk from K5 against those from its plain twin; NMS-r's phase-2
    re-decode at 4,096 captured rows on the padded edge layout against the
-   dense decoder; the fused Monte-Carlo kernels
+   dense decoder; the GE kernel (bit-packed GF(2) elimination) against its
+   plain packed twin and the dense route bit for bit on the main path's
+   32,768 captured rows (its perm load), on the same rows with columns
+   duplicated across word edges (its dense load), on qc_96_48,
+   wimaxlike_384_192 and wimax_1056_880 under random permutations, and
+   against the twin alone on the rank-deficient raw H of the array codes;
+   the fused Monte-Carlo kernels
    K3, K4, K8a and K8b are compared at 262,144 frames (K3 also with a
    capacity that overflows, and with two stages; the messages its first
    stage saves for resuming against the twin's) and timed at 2,097,152,
@@ -29,7 +35,9 @@ Phases (each raises on failure, so the script never exits 0 after one):
    before and read just after; its NMS FER and OSD success share must agree
    statistically with the JAX package's record (``BENCH_r05.json``), and
    the card's results must equal the port's CPU results on the committed
-   failure set;
+   failure set (the card's GE is the kernel, the CPU's the dense route),
+   and ``osd/path.py``'s MRB error patterns and pattern counter on the card
+   equal the CPU's on that set and on 2,048 captured rows;
 4. the phase-1 path as ``bench.py`` drives it (``system.Phase1``): 8 steps
    of 2,097,152 frames with K3 (schedule ((4, 0.375),), groups of 1024),
    then 8 with K4, counts reset after the warm-up step and required to be
@@ -83,10 +91,11 @@ from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.convert import load_jax_pickle, load_run
 from short_ldpc_decoding_osd_tpu_torch.mc import harness
 from short_ldpc_decoding_osd_tpu_torch.mc.harness import count_and_capture
-from short_ldpc_decoding_osd_tpu_torch.ops import (mc_cascade, mc_dense, nms,
+from short_ldpc_decoding_osd_tpu_torch.ops import (gf2_bitpack, gf2ops,
+                                                   mc_cascade, mc_dense, nms,
                                                    nms_dense, nms_edge,
                                                    nms_edge_padded, osd_disc)
-from short_ldpc_decoding_osd_tpu_torch.osd import engine, segments
+from short_ldpc_decoding_osd_tpu_torch.osd import engine, path, segments
 from short_ldpc_decoding_osd_tpu_torch.train import NMSTrainConfig, nms_train
 from short_ldpc_decoding_osd_tpu_torch.utils.metrics import wilson_interval
 
@@ -97,6 +106,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BPS = 3.35e12
 F32_INSTR = 67e12 / 2
 INT8_OPS = 1979e12
+# 32-bit integer instructions/s: 64 INT32 lanes an SM against the 128 f32
+# lanes behind the f32 rate (Hopper architecture white paper)
+INT32_OPS = F32_INSTR / 2
 Z999 = 3.2905  # two-sided 99.9% normal quantile
 # the JAX package's two-phase record at 3.0 dB on the same artifacts
 # (BENCH_r05.json: system_fer_nms, system_frames, system_osd_success,
@@ -117,7 +129,7 @@ LAUNCH_KEY = {"K1 nms_edge_final": "nms_edge_final", "K2 nms_edge_traj": "nms_ed
               "K3 mc_compact": "mc_compact", "K4 mc_oneshot": "mc_oneshot",
               "K5 lterm": "lterm", "K6 dense_final": "dense_final",
               "K7 mc_dense": "mc_dense", "K8a cascade_p1": "cascade_p1",
-              "K8b cascade_p2": "cascade_p2"}
+              "K8b cascade_p2": "cascade_p2", "GE ge_packed": "ge_packed"}
 # the JAX run's learned NMS-1 factor (runs/r4_pipeline/nms_train_summary.json)
 REF_TRAINED_CHECK = 0.16855433583259583
 
@@ -453,6 +465,111 @@ def k5_row(dev, run, prep, u_l, t_flat, layout):
     torch.cuda.empty_cache()
     return row
 
+# GE beside the main path: (code, frames) on h_osd with random permutations
+GE_CODES = (("qc_96_48", 4096), ("wimaxlike_384_192", 4096),
+            ("wimax_1056_880", 1024))
+
+
+def ge_check(label, perm=None, h=None, k=None, h_batch=None, dense_too=True):
+    """The GE kernel (perm load, or dense load of ``h_batch``) against its
+    plain packed twin and, where ``dense_too``, the port's dense route:
+    the reduced tail and col_order bit for bit (the frames where the dense
+    route differs are logged where it is not held)."""
+    if perm is not None:
+        got = gf2_bitpack.reduce_from_perm(perm, h, k)
+        twin = gf2_bitpack._reduce_perm_plain(perm, h, k)
+        h_batch = gf2ops.permute_columns(perm, h)
+    else:
+        k = k or h_batch.shape[2]
+        got = gf2_bitpack.reduce_dense(h_batch, k)
+        twin = gf2_bitpack._reduce_dense_plain(h_batch, k)
+    b, m, n = h_batch.shape
+    for part, a, w in zip(("tail", "col_order"), got, twin):
+        if not torch.equal(a, w):
+            raise AssertionError(f"GE {label}: kernel {part} differs from the "
+                                 "plain packed twin")
+    red, order = gf2ops.batched_row_reduce(h_batch)
+    differ = ((red[:, :, n - k:] != got[0]).flatten(1).any(1)
+              | (order != got[1]).any(1))
+    n_differ = int(differ.sum())
+    if dense_too and n_differ:
+        raise AssertionError(f"GE {label}: kernel differs from the dense route "
+                             f"on {n_differ} frames")
+    plan = gf2_bitpack.ge_plan(b, m, n)
+    log(f"GE {label} ({b} frames of {m} x {n}, tail {k}): kernel == plain "
+        f"packed twin bit for bit; dense route differs on {n_differ} frames"
+        f"{'' if dense_too else ' (not held: rank-deficient H)'}; plan "
+        f"{plan.mode}, {plan.threads} threads, {plan.smem_bytes} shared bytes,"
+        f" grid {plan.grid}")
+
+
+def ge_row(dev, code, perm):
+    """The GE kernel: the main path's perm load (the captured rows' sort
+    over h_osd), the same rows as a dense batch with columns duplicated
+    across word edges (forced column swaps), the other codes' h_osd under
+    random permutations, the rank-deficient raw H of the array codes
+    (held to the twin alone), then the timed row."""
+    h, k = code.h_osd, code.k
+    ge_check("main path (perm load)", perm, h, k)
+    forced = gf2ops.permute_columns(perm, h)
+    for src in (5, 30, 62, 94):  # early, and across each word edge
+        forced[:, :, src + 1] = forced[:, :, src]
+    ge_check("main path, duplicated columns (dense load)", h_batch=forced, k=k)
+    del forced
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for name, frames in GE_CODES:
+        other = get_code(name)
+        p = torch.argsort(torch.rand((frames, other.n), generator=gen,
+                                     device=dev), dim=1)
+        ge_check(f"{name} h_osd", p, other.h_osd, other.k)
+    for name in ("array_121_60", "array_121_80"):
+        other = get_code(name)
+        p = torch.argsort(torch.rand((4096, other.n), generator=gen,
+                                     device=dev), dim=1)
+        ge_check(f"{name} raw H", p, other.h, other.n - other.h.shape[0],
+                 dense_too=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    b, n = perm.shape
+    m = h.shape[0]
+    nw = -(-n // 32)
+    # perm in, the int8 tail and the int32 order out; B m^2 nw word XORs at
+    # most (bytes bound it even at that count, so also at the count this
+    # data needs)
+    bms, bound_by = bound_ms(8 * b * n + b * m * k + 4 * b * n,
+                             b * m * m * nw / INT32_OPS)
+    row = {
+        "name": "GE ge_packed", "route": "cuda",
+        "source": "short_ldpc_decoding_osd_tpu_torch/csrc/gf2_ge.cu",
+        # not a Pallas kernel: JAX runs the packed GE in XLA
+        "replaces": "short_ldpc_decoding_osd_tpu/ops/gf2_bitpack.py:143",
+        "launches": None, "max_abs_err": 0,
+        "ms": cuda_ms(lambda: gf2_bitpack.reduce_from_perm(perm, h, k), 20),
+        "plain_ms": cuda_ms(lambda: gf2_bitpack._reduce_perm_plain(perm, h, k),
+                            3, warmup=1),
+        "dense_route_ms": cuda_ms(lambda: gf2ops.batched_row_reduce(
+            gf2ops.permute_columns(perm, h)), 3, warmup=1),
+        "bound_ms": bms, "bound_by": bound_by,
+        # no single PyTorch call computes a GF(2) elimination
+        "library_ms": None,
+        "shape": f"perm ({b}, {n}) int64 over h_osd ({m}, {n}) -> tail "
+                 f"({b}, {m}, {k}) int8 + col_order ({b}, {n}) int32",
+    }
+    log(f"GE ge_packed: kernel {row['ms']:.4f} ms, plain packed twin "
+        f"{row['plain_ms']:.4f} ms, dense route {row['dense_route_ms']:.4f} ms,"
+        f" bound {bms:.4f} ms ({bound_by})")
+    for name, frames in GE_CODES:
+        other = get_code(name)
+        p = torch.argsort(torch.rand((frames, other.n), generator=gen,
+                                     device=dev), dim=1)
+        log(f"GE {name} h_osd, {frames} frames: kernel "
+            f"{cuda_ms(lambda: gf2_bitpack.reduce_from_perm(p, other.h_osd, other.k), 10):.4f}"
+            " ms")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return row
+
 
 def nms_r_redecode(dev, run, cap):
     """NMS-r's phase-2 re-decode at 4,096 captured CCSDS rows with the
@@ -546,10 +663,12 @@ def phase_kernels(dev):
              cap["llr"].contiguous(), f"llr ({CAP}, 128) f32 -> (13, {CAP}, 128)")
 
     rows.append(k5_row(dev, run, prep, u_l, t_flat, layout))
+    rows.append(ge_row(dev, code, torch.sort(refined.abs(), dim=1,
+                                             stable=True).indices))
     nms_r_redecode(dev, run, cap)
 
-    # the GPU's prepare (stable sort, first-index GE pivots) bit-exact
-    # against the same function on the CPU
+    # the GPU's prepare (stable sort, the GE kernel) bit-exact against the
+    # same function on the CPU (the dense GE route)
     ref = engine.prepare(*(t[:4096].cpu() for t in (
         refined, cap["llr"], cap["labels"])), code.h_osd, code.k)
     for field in ("order_updated", "order_original", "order_labels", "m_matrix",
@@ -1098,10 +1217,12 @@ def phase_main_path(dev, rows):
     launches = dict(_kernels.LAUNCHES)
     out["system_stage_s"] = two_phase.stage_times(ROUNDS)
     want = dict.fromkeys(launches, 0) | {
-        "nms_edge_final": 2 * ROUNDS, "nms_edge_traj": ROUNDS, "lterm": ROUNDS}
+        "nms_edge_final": 2 * ROUNDS, "nms_edge_traj": ROUNDS, "lterm": ROUNDS,
+        "ge_packed": ROUNDS}
     log(f"main path launches over {ROUNDS} timed rounds: {launches} "
         f"(expected {want})")
-    set_launches(rows, launches, ("nms_edge_final", "nms_edge_traj", "lterm"))
+    set_launches(rows, launches, ("nms_edge_final", "nms_edge_traj", "lterm",
+                                  "ge_packed"))
     if launches != want:
         raise AssertionError(f"main-path launches {launches} != {want}")
 
@@ -1125,8 +1246,10 @@ def phase_main_path(dev, rows):
         f"on {torch.cuda.get_device_name(0)}")
     log("stages (s): " + json.dumps(out["system_stage_s"]))
     stages = out["system_stage_s"]
-    log(f"disc_minima_k5 stage: {1e3 * stages['disc_minima_k5']:.4f} ms of a "
-        f"staged round's {1e3 * sum(v for k, v in stages.items() if k != 'sliding_osd_total'):.4f} ms")
+    staged = sum(v for k, v in stages.items() if k != "sliding_osd_total")
+    for stage in ("prepare_sort_ge", "disc_minima_k5"):
+        log(f"{stage} stage: {1e3 * stages[stage]:.4f} ms of a staged round's "
+            f"{1e3 * staged:.4f} ms")
     log("system: " + json.dumps(out))
     if not (fer_ci[0] <= ref_fer_ci[1] and ref_fer_ci[0] <= fer_ci[1]):
         raise AssertionError(f"NMS FER CI {fer_ci} misses the record {ref_fer_ci}")
@@ -1201,6 +1324,53 @@ def phase_card_vs_cpu(dev):
         f"{int(results[0]['success'].sum())} successes")
 
 
+def phase_path(dev):
+    """``osd/path.py`` on the card against the CPU: MRB error patterns and
+    swap_len (the GE kernel's dense load on the card, the dense route on
+    the CPU) row for row on the committed failure set and on the main
+    path's first 2,048 captured rows, the pattern counters fed from either
+    side equal, and the pre-GE MRB bit-error histograms equal."""
+    blob = np.load(os.path.join(ROOT, "runs", "refparity", "failures.npz"))
+    run, _, _, cap, refined, *_ = main_path_inputs(dev)
+    code = run["code"]
+    sets = {"refparity": (torch.as_tensor(blob["llr"], device=dev),
+                          torch.as_tensor(blob["labels"], device=dev)),
+            "main path rows": (refined[:2048].contiguous(),
+                               cap["labels"][:2048].contiguous())}
+    counters = {}
+    for label, (upd, lab) in sets.items():
+        _kernels.reset_launches()
+        card = path.mrb_error_patterns(upd, lab, code.h_osd, code.k)
+        synchronize(dev)
+        launches = _kernels.LAUNCHES["ge_packed"]
+        cpu = path.mrb_error_patterns(upd.cpu(), lab.cpu(), code.h_osd, code.k)
+        for part, a, w in zip(("patterns", "swap_len"), card, cpu):
+            if not torch.equal(a.cpu(), w):
+                raise AssertionError(f"path {label}: {part} card != CPU")
+        hist = [path.mrb_bit_error_histogram(x, y, code.k)
+                for x, y in ((upd, lab), (upd.cpu(), lab.cpu()))]
+        if hist[0] != hist[1] or launches != 1:
+            raise AssertionError(f"path {label}: histograms {hist}, GE "
+                                 f"launches {launches}")
+        for side, (pat, swap) in (("card", card), ("cpu", cpu)):
+            pc = counters.setdefault(side, path.PatternCounter(code.k))
+            pc.update(pat, swap)
+        log(f"path: {label} ({upd.shape[0]} rows): patterns and swap_len card "
+            f"== CPU row for row (1 GE launch), MRB bit-error histogram "
+            f"{dict(sorted(hist[0].items()))}")
+    if counters["card"].counts != counters["cpu"].counts or (
+            counters["card"].swap_sum != counters["cpu"].swap_sum):
+        raise AssertionError("path: the pattern counters differ")
+    cfg = run["config"]
+    log(f"path: PatternCounter card == CPU over {counters['card'].total} rows "
+        f"({len(counters['card'].counts)} patterns, swap_sum "
+        f"{counters['card'].swap_sum}); its decoding path "
+        f"({cfg['threshold_sum']}, {cfg['decoding_length']}) starts "
+        f"{counters['card'].decoding_path(cfg['threshold_sum'], cfg['decoding_length'])[:6]}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1210,6 +1380,7 @@ def main():
     rows = phase_kernels(dev) + phase_mc_kernels(dev) + phase_dense_kernels(dev)
     phase_mc_other_codes(dev)
     phase_card_vs_cpu(dev)
+    phase_path(dev)
     phase_main_path(dev, rows)
     phase_phase1(dev, rows)
     phase_sweep(dev)

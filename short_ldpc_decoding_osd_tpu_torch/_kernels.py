@@ -28,7 +28,7 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("nms_edge", "osd_disc", "mc_fused", "nms_dense")
+SOURCES = ("nms_edge", "osd_disc", "mc_fused", "nms_dense", "gf2_ge")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # no fused multiply-add: the kernels then round exactly like their plain
@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 
 LAUNCHES = {"nms_edge_final": 0, "nms_edge_traj": 0, "lterm": 0,
             "mc_oneshot": 0, "mc_compact": 0, "cascade_p1": 0, "cascade_p2": 0,
-            "dense_final": 0, "mc_dense": 0}
+            "dense_final": 0, "mc_dense": 0, "ge_packed": 0}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -87,6 +87,12 @@ _SIGNATURES = {
         # frames, blocks, seed, sigma, mean, w_vc, w_chk, w_marg, stream
         "dense_mc": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _I, _U, _F, _F, _F, _F, _F, _VP],
+    },
+    "gf2_ge": {
+        # perm, hcol, mw, dense, out, order, batch, m, n, c0, mode, nw,
+        # threads, smem_bytes, grid, stream
+        "ge_launch": [_VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _VP],
     },
 }
 

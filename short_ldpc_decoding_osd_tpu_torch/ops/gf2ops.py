@@ -14,15 +14,25 @@ pivot/column-swap semantics, at step t:
 
 "First" is a first-occurrence rule (``jnp.argmax`` over 0/1 in JAX).  A CUDA
 ``argmax`` does not promise which of equal maxima it returns, so the port
-computes the first index explicitly (``nms.first_index``).  The JAX
-package's bit-packed route (``gf2_bitpack``) is not ported yet; the dense
-route is bit-exact against both JAX routes.
+computes the first index explicitly (``nms.first_index``).
+
+Two routes, as in JAX.  The dense route (:func:`batched_row_reduce`, plain
+PyTorch) is JAX's CPU route; the bit-packed route (``ops/gf2_bitpack.py``,
+the CUDA kernel ``csrc/gf2_ge.cu`` on the card) is JAX's TPU route.
+``use_packed=None`` takes the packed route on a CUDA tensor and the dense
+route on the CPU; ``True`` runs the packed plain twin on the CPU and the
+kernel on CUDA; ``False`` is the dense route on either.  The two agree bit
+for bit on full-row-rank matrices (every packaged ``h_osd``); on a
+rank-deficient one a step with no pivot and no swap column differs (the
+dense route swaps column t with column 0, the packed one leaves the
+columns), so each route is held to its own JAX twin.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import gf2_bitpack
 from .nms import first_index
 
 
@@ -104,21 +114,37 @@ def _mrb_post(reduced_tail: torch.Tensor, col_order: torch.Tensor, n: int,
     }
 
 
-def identify_mrb(h_batch: torch.Tensor, k: int) -> dict:
+def _packed(use_packed: bool | None, device: torch.device) -> bool:
+    return device.type == "cuda" if use_packed is None else use_packed
+
+
+def identify_mrb(h_batch: torch.Tensor, k: int,
+                 use_packed: bool | None = None) -> dict:
     """MRB identification on reliability-permuted parity matrices
     (``identify_mrb``, ``ordered_statistics_decoding.py:43-80``).
 
     Returns ``m_matrix`` (B, m, k) int8 (MRB -> LRB re-encode map, columns
     by ascending rank), ``index_order`` (B, n) (first n-k = LRB, last k = MRB
-    ascending), ``swap_len`` (B,) and ``lrb_ranks`` (B, n-k)."""
+    ascending), ``swap_len`` (B,) and ``lrb_ranks`` (B, n-k).  The route
+    follows ``use_packed`` (module docstring)."""
     n = h_batch.shape[2]
+    if _packed(use_packed, h_batch.device):
+        tail, col_order = gf2_bitpack.reduce_dense(h_batch, k)
+        return _mrb_post(tail, col_order.long(), n, k)
     reduced, col_order = batched_row_reduce(h_batch)
     return _mrb_post(reduced[:, :, n - k:], col_order, n, k)
 
 
-def identify_mrb_from_perm(perm: torch.Tensor, h, k: int) -> dict:
-    """:func:`identify_mrb` of ``permute_columns(perm, h)`` (dense route)."""
-    return identify_mrb(permute_columns(perm, h), k)
+def identify_mrb_from_perm(perm: torch.Tensor, h, k: int,
+                           use_packed: bool | None = None) -> dict:
+    """:func:`identify_mrb` of ``permute_columns(perm, h)``.  The packed
+    route builds each frame's packed rows from the static ``h`` (packed
+    once per device) and ``perm``, and unpacks only the k tail columns; the
+    dense route materializes the (B, m, n) permuted matrix."""
+    if _packed(use_packed, perm.device):
+        tail, col_order = gf2_bitpack.reduce_from_perm(perm, h, k)
+        return _mrb_post(tail, col_order.long(), perm.shape[1], k)
+    return identify_mrb(permute_columns(perm, h), k, use_packed=False)
 
 
 def lrb_swap_indicator(lrb_ranks: torch.Tensor, jump_point: int) -> torch.Tensor:

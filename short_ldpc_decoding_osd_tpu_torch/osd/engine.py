@@ -4,7 +4,8 @@ Port of ``short_ldpc_decoding_osd_tpu/osd/engine.py`` (reference
 ``DL_OSD_Testing_serial/ordered_statistics_decoding.py``):
 
 * the permutation dance (stable |LLR| co-sort, GE column swaps, MRB re-sort)
-  is ``ops.gf2ops``, bit-exact against the JAX package;
+  is ``ops.gf2ops``, bit-exact against the JAX package; on the card its GE
+  is the bit-packed route, the CUDA kernel ``csrc/gf2_ge.cu``;
 * candidate re-encoding and the weighted-Hamming discrepancy fold into the
   affine map ``c0 + u_l @ mod2(M @ T^T) + u_m @ T^T`` (``x ^ y = x + y -
   2xy``), whose parity term is the CUDA kernel K5 (``ops.osd_disc.lterm``)
@@ -49,6 +50,11 @@ def prepare(updated: torch.Tensor, original: torch.Tensor,
     """Sort by |updated| ascending, run GE, apply the final index order
     (``check_matrix_reorder`` + ``identify_mrb`` + the gathers of
     ``sliding_osd``, ``ordered_statistics_decoding.py:169-185``).
+
+    The GE takes ``gf2ops.identify_mrb_from_perm``'s default route: the
+    GE kernel (packed, from ``perm`` and the static ``h``) on the card,
+    the dense plain route on the CPU; both give the same answer on a
+    full-row-rank ``h`` such as every code's ``h_osd``.
 
     The sort must be STABLE and carry ``updated``, ``original`` and
     ``labels`` in exactly its order (``engine.py:67-74`` uses ``lax.sort``

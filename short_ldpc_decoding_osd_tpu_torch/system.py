@@ -7,7 +7,8 @@ Port of ``bench.py:199-419`` (``system_two_phase_throughput``).  One round:
    compaction into a ``cap``-row buffer;
 2. phase 2 (``osd.engine.make_dl_osd_step_from_llr``): kernel K2
    (``decode_traj_edge``) -> ``frame_stats`` on the last slot (detected
-   flags) -> ``ConvBitwise.refine_fast`` -> ``engine.prepare`` ->
+   flags) -> ``ConvBitwise.refine_fast`` -> ``engine.prepare`` (its GF(2)
+   elimination the GE kernel, ``ops/gf2_bitpack.py``) ->
    ``engine.sliding_osd``, whose discrepancy parity term is kernel K5.
 
 :func:`run_two_phase` returns the fields of ``bench.py``'s ``system_*``
@@ -131,7 +132,7 @@ class TwoPhase:
         each loop timed on the host clock and closed by a device
         synchronisation; returns ``bench.py``'s ``system_*`` fields.  Call
         it after a warm-up round: the loops launch K1 ``2 * rounds`` times
-        and K2 and K5 ``rounds`` times each."""
+        and K2, GE and K5 ``rounds`` times each."""
         dev, cap = self.device, self.cap
         t0 = time.perf_counter()
         for i in range(rounds):
