@@ -20,7 +20,12 @@ Phases (each raises on failure, so the script never exits 0 after one):
    32,768 captured rows (its perm load), on the same rows with columns
    duplicated across word edges (its dense load), on qc_96_48,
    wimaxlike_384_192 and wimax_1056_880 under random permutations, and
-   against the twin alone on the rank-deficient raw H of the array codes;
+   against the twin alone on rank-deficient input in each of its modes
+   (the array codes' raw H; WiMAX's h_osd with six rows duplicated, dense
+   load), its launch shapes (ptxas registers and spills, resident frames
+   per SM), every shape timed through its wrapper and back to back against
+   its bound (the main path also through the dense load, wimax_1056_880
+   also at 8,192 frames), and the wrapper's host work split by part;
    the fused Monte-Carlo kernels
    K3, K4, K8a and K8b are compared at 262,144 frames (K3 also with a
    capacity that overflows, and with two stages; the messages its first
@@ -465,9 +470,12 @@ def k5_row(dev, run, prep, u_l, t_flat, layout):
     torch.cuda.empty_cache()
     return row
 
-# GE beside the main path: (code, frames) on h_osd with random permutations
+# GE beside the main path: (code, frames) on h_osd with random permutations;
+# timed also with wimax_1056_880 at 8,192 frames (block mode filling the
+# card: a 1.27 GB tail)
 GE_CODES = (("qc_96_48", 4096), ("wimaxlike_384_192", 4096),
             ("wimax_1056_880", 1024))
+GE_TIMED = GE_CODES + (("wimax_1056_880", 8192),)
 
 
 def ge_check(label, perm=None, h=None, k=None, h_batch=None, dense_too=True):
@@ -499,16 +507,133 @@ def ge_check(label, perm=None, h=None, k=None, h_batch=None, dense_too=True):
     log(f"GE {label} ({b} frames of {m} x {n}, tail {k}): kernel == plain "
         f"packed twin bit for bit; dense route differs on {n_differ} frames"
         f"{'' if dense_too else ' (not held: rank-deficient H)'}; plan "
-        f"{plan.mode}, {plan.threads} threads, {plan.smem_bytes} shared bytes,"
-        f" grid {plan.grid}")
+        f"{plan.mode}, {plan.words} words a column, {plan.cols} columns a "
+        f"thread, {plan.threads} threads, grid {plan.grid}")
+
+
+def back_to_back_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """ms a call of ``fn``, ``reps`` calls launched back to back between two
+    CUDA events: the kernel's own time wherever the card, not the host, is
+    the slower (the host work of each call overlaps the previous kernel)."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ge_bound(b, m, n, k, load):
+    """GE's least time: perm in (int64) or the dense batch in (int8), the
+    int8 tail and the int32 order out, against B m^2 nw word XORs on the
+    INT32 lanes (at most what the data needs; bytes bound the main path
+    even at that count)."""
+    nin = 8 * b * n if load == "perm" else b * m * n
+    return bound_ms(nin + b * m * k + 4 * b * n,
+                    b * m * m * -(-n // 32) / INT32_OPS)
+
+
+def ge_time(label, fn, b, m, n, k, load):
+    """One GE shape: its time through the wrapper (one call between two
+    events, host work included) and back to back, against its bound."""
+    wrapper = cuda_ms(fn, 10)
+    alone = back_to_back_ms(fn)
+    bms, by = ge_bound(b, m, n, k, load)
+    log(f"GE time {label} ({b} frames of {m} x {n}, {load} load): through the "
+        f"wrapper {wrapper:.4f} ms, back to back {alone:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}), {alone / bms:.2f}x the bound")
+    return {"shape": label, "frames": b, "wrapper_ms": wrapper,
+            "back_to_back_ms": alone, "bound_ms": bms, "bound_by": by}
+
+
+def ge_build_lines(plans):
+    """ptxas's registers and spills for the GE kernels the plans launch,
+    and what the card makes of each plan (cudaFuncGetAttributes,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    entries, name = {}, None  # each instantiation's spill and register lines
+    for ln in _kernels.BUILD_LOG.get("gf2_ge", "").splitlines():
+        if "Compiling entry" in ln:
+            name = ln
+            entries[name] = []
+        elif name and ("spill" in ln or "registers" in ln):
+            entries[name].append(ln.strip().replace("ptxas info    : ", ""))
+    spilling = sum(1 for v in entries.values()
+                   if any("spill" in x and not x.startswith("0 bytes stack")
+                          for x in v))
+    log(f"GE gf2_ge.cu: {len(entries)} kernel instantiations, {spilling} "
+        "with a stack frame or spills (ptxas -v)")
+    for label, m, n, plan in plans:
+        tag = (f"ge_kernelILi{plan.words}ELi{plan.cols}"
+               f"ELb{1 if plan.mode == 'warp' else 0}E")
+        ptx = " | ".join(next((v for k, v in entries.items() if tag in k), []))
+        occ = gf2_bitpack.ge_occupancy(plan, m, n, torch.cuda.current_device())
+        log(f"GE launch shape {label} ({m} x {n}): {plan.mode} mode, "
+            f"ge_kernel<{plan.words}, {plan.cols}, "
+            f"{'true' if plan.mode == 'warp' else 'false'}>, {plan.threads} "
+            f"threads a block, {occ['registers']} registers and "
+            f"{occ['local_bytes']} local bytes a thread, "
+            f"{occ['static_smem_bytes']} static shared bytes, "
+            f"{occ['blocks_per_sm']} resident block(s) = "
+            f"{occ['frames_per_sm']} frames per SM on {occ['sms']} SMs; "
+            f"ptxas: {ptx}")
+
+
+def ge_host_breakdown(dev, perm, h, k, reps: int = 200):
+    """Host microseconds a call of the perm-load wrapper spends before its
+    kernel runs, split by part (perf_counter over ``reps`` calls; the
+    kernels queue behind, so no part waits on the card)."""
+    b, n = perm.shape
+    m = h.shape[0]
+    hcol = gf2_bitpack.packed_h_columns(h, dev)
+    plan = gf2_bitpack.ge_plan(b, m, n)
+    out = torch.empty((b, m, k), dtype=torch.int8, device=dev)
+    order = torch.empty((b, n), dtype=torch.int32, device=dev)
+    lib = _kernels.library("gf2_ge")
+    args = (perm.data_ptr(), hcol.data_ptr(), hcol.shape[1], 0,
+            out.data_ptr(), order.data_ptr(), b, m, n, n - k, 0, plan.words,
+            plan.cols, plan.threads, plan.grid, _kernels.stream_handle(dev))
+
+    def per_call(fn):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t0) * 1e6 / reps
+        synchronize(dev)
+        return us
+
+    parts = {
+        "reduce_from_perm": per_call(
+            lambda: gf2_bitpack.reduce_from_perm(perm, h, k)),
+        "packed_h_columns": per_call(
+            lambda: gf2_bitpack.packed_h_columns(h, dev)),
+        "ge_plan": per_call(lambda: gf2_bitpack.ge_plan(b, m, n)),
+        "two torch.empty": per_call(lambda: (
+            torch.empty((b, m, k), dtype=torch.int8, device=dev),
+            torch.empty((b, n), dtype=torch.int32, device=dev))),
+        "library + stream handle": per_call(lambda: (
+            _kernels.library("gf2_ge"), _kernels.stream_handle(dev))),
+        "ge_launch (ctypes + launch)": per_call(lambda: lib.ge_launch(*args)),
+    }
+    rest = parts["reduce_from_perm"] - sum(
+        v for key, v in parts.items() if key != "reduce_from_perm")
+    log("GE wrapper host work per call (us): " + ", ".join(
+        f"{key} {v:.2f}" for key, v in parts.items())
+        + f", the rest (checks, the int64 view, the count) {rest:.2f}")
 
 
 def ge_row(dev, code, perm):
     """The GE kernel: the main path's perm load (the captured rows' sort
     over h_osd), the same rows as a dense batch with columns duplicated
     across word edges (forced column swaps), the other codes' h_osd under
-    random permutations, the rank-deficient raw H of the array codes
-    (held to the twin alone), then the timed row."""
+    random permutations, the rank-deficient raw H of the array codes and
+    WiMAX's h_osd with six rows duplicated (held to the twin alone; one
+    input a mode), each plan's launch shape, every shape timed against its
+    bound, the wrapper's host work, then the timed row."""
     h, k = code.h_osd, code.k
     ge_check("main path (perm load)", perm, h, k)
     forced = gf2ops.permute_columns(perm, h)
@@ -522,50 +647,76 @@ def ge_row(dev, code, perm):
         p = torch.argsort(torch.rand((frames, other.n), generator=gen,
                                      device=dev), dim=1)
         ge_check(f"{name} h_osd", p, other.h_osd, other.k)
-    for name in ("array_121_60", "array_121_80"):
+    for name in ("array_121_60", "array_121_80"):  # block, warp mode
         other = get_code(name)
         p = torch.argsort(torch.rand((4096, other.n), generator=gen,
                                      device=dev), dim=1)
         ge_check(f"{name} raw H", p, other.h, other.n - other.h.shape[0],
                  dense_too=False)
+    wimax = get_code("wimax_1056_880")
+    dup = wimax.h_osd.copy()
+    dup[120:126] = dup[0:6]  # rank 170 of 176 rows: six steps with neither
+    p = torch.argsort(torch.rand((1024, wimax.n), generator=gen, device=dev),
+                      dim=1)
+    ge_check("wimax_1056_880 h_osd with rows 0-5 copied onto 120-125 "
+             "(dense load, block mode, rank-deficient)",
+             h_batch=gf2ops.permute_columns(p, dup), k=wimax.k,
+             dense_too=False)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     b, n = perm.shape
     m = h.shape[0]
-    nw = -(-n // 32)
-    # perm in, the int8 tail and the int32 order out; B m^2 nw word XORs at
-    # most (bytes bound it even at that count, so also at the count this
-    # data needs)
-    bms, bound_by = bound_ms(8 * b * n + b * m * k + 4 * b * n,
-                             b * m * m * nw / INT32_OPS)
+    plans = [("main path", m, n, gf2_bitpack.ge_plan(b, m, n))]
+    for name in ("qc_96_48", "wimaxlike_384_192", "wimax_1056_880"):
+        hm, hn = get_code(name).h_osd.shape
+        plans.append((name, hm, hn, gf2_bitpack.ge_plan(1, hm, hn)))
+    hm, hn = get_code("array_121_60").h.shape
+    plans.append(("array_121_60 raw H", hm, hn, gf2_bitpack.ge_plan(1, hm, hn)))
+    ge_build_lines(plans)
+
+    fn = lambda: gf2_bitpack.reduce_from_perm(perm, h, k)  # noqa: E731
+    main = ge_time("main path", fn, b, m, n, k, "perm")
+    dense = gf2ops.permute_columns(perm, h)
+    ge_time("main path (osd/path.py's route)",
+            lambda: gf2_bitpack.reduce_dense(dense, k), b, m, n, k, "dense")
+    del dense
+    shapes = []
+    for name, frames in GE_TIMED:
+        other = get_code(name)
+        p = torch.argsort(torch.rand((frames, other.n), generator=gen,
+                                     device=dev), dim=1)
+        hm = other.h_osd.shape[0]
+        shapes.append(ge_time(
+            f"{name} h_osd",
+            lambda: gf2_bitpack.reduce_from_perm(p, other.h_osd, other.k),
+            frames, hm, other.n, other.k, "perm"))
+        del p
+        torch.cuda.empty_cache()
+    ge_host_breakdown(dev, perm, h, k)
     row = {
         "name": "GE ge_packed", "route": "cuda",
         "source": "short_ldpc_decoding_osd_tpu_torch/csrc/gf2_ge.cu",
         # not a Pallas kernel: JAX runs the packed GE in XLA
         "replaces": "short_ldpc_decoding_osd_tpu/ops/gf2_bitpack.py:143",
         "launches": None, "max_abs_err": 0,
-        "ms": cuda_ms(lambda: gf2_bitpack.reduce_from_perm(perm, h, k), 20),
+        "ms": cuda_ms(fn, 20),
+        "back_to_back_ms": main["back_to_back_ms"],
         "plain_ms": cuda_ms(lambda: gf2_bitpack._reduce_perm_plain(perm, h, k),
                             3, warmup=1),
         "dense_route_ms": cuda_ms(lambda: gf2ops.batched_row_reduce(
             gf2ops.permute_columns(perm, h)), 3, warmup=1),
-        "bound_ms": bms, "bound_by": bound_by,
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         # no single PyTorch call computes a GF(2) elimination
         "library_ms": None,
         "shape": f"perm ({b}, {n}) int64 over h_osd ({m}, {n}) -> tail "
                  f"({b}, {m}, {k}) int8 + col_order ({b}, {n}) int32",
+        "other_shapes": shapes,
     }
-    log(f"GE ge_packed: kernel {row['ms']:.4f} ms, plain packed twin "
+    log(f"GE ge_packed: kernel {row['ms']:.4f} ms through the wrapper, "
+        f"{row['back_to_back_ms']:.4f} ms back to back, plain packed twin "
         f"{row['plain_ms']:.4f} ms, dense route {row['dense_route_ms']:.4f} ms,"
-        f" bound {bms:.4f} ms ({bound_by})")
-    for name, frames in GE_CODES:
-        other = get_code(name)
-        p = torch.argsort(torch.rand((frames, other.n), generator=gen,
-                                     device=dev), dim=1)
-        log(f"GE {name} h_osd, {frames} frames: kernel "
-            f"{cuda_ms(lambda: gf2_bitpack.reduce_from_perm(p, other.h_osd, other.k), 10):.4f}"
-            " ms")
+        f" bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return row
@@ -1259,10 +1410,11 @@ def phase_main_path(dev, rows):
     log("statistics agree with BENCH_r05.json (99.9% Wilson intervals overlap)")
 
 
-def profile(dev, label: str, fn):
+def profile(dev, label: str, fn, watch=()):
     """``fn`` once under ``torch.profiler`` after a warm-up call: the
     device's busy share (device time over the same call's unprofiled wall
-    time) and the kernels that take the most device time."""
+    time), the kernels that take the most device time, and those whose name
+    holds a ``watch`` string."""
     fn()  # warm-up
     synchronize(dev)
     t0 = time.perf_counter()
@@ -1286,12 +1438,17 @@ def profile(dev, label: str, fn):
         f"{sum(e.count for e in kernels)} device operations")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:100]}")
+    for e in kernels:
+        if any(w in e.key for w in watch):
+            log(f"  {label}, {e.key[:100]}: {e.self_device_time_total / 1e3:.3f}"
+                f" ms over {e.count} launch(es)")
 
 
 def phase_profile(dev, cap_b: int = CAP_B, cap: int = CAP):
     """One two-phase round and one phase-1 K3 step under the profiler."""
     two_phase = system.TwoPhase(cap_b=cap_b, cap=cap, device=dev)
-    profile(dev, "one round", lambda: two_phase.full_round(1))
+    profile(dev, "one round", lambda: two_phase.full_round(1),
+            watch=("::ge_kernel<",))
     del two_phase
     phase1 = system.Phase1(batch=PH1_BATCH, device=dev)
     profile(dev, "one phase-1 K3 step", lambda: phase1.step(1))

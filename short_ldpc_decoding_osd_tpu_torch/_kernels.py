@@ -89,10 +89,12 @@ _SIGNATURES = {
                      _I, _U, _F, _F, _F, _F, _F, _VP],
     },
     "gf2_ge": {
-        # perm, hcol, mw, dense, out, order, batch, m, n, c0, mode, nw,
-        # threads, smem_bytes, grid, stream
+        # perm, hcol, mw, dense, out, order, batch, m, n, c0, then the plan
+        # (mode, words, cols, threads, grid), stream
         "ge_launch": [_VP, _VP, _I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _VP],
+        # m, n, mode, words, cols, threads, device, out (int32 [6])
+        "ge_occupancy": [_I, _I, _I, _I, _I, _I, _I, _VP],
     },
 }
 

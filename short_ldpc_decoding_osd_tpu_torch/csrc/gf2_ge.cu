@@ -14,37 +14,59 @@
 //   3. row t is XORed into every other row with a 1 in column t.
 // Out: the last n - c0 columns of the reduced matrix as int8 (B, m, n - c0)
 // and the column order (B, n) int32 (the position each column came from).
-// Two loads: "perm" builds frame b's rows from the static H packed by
-// columns (hcol, (n, mw) int32) and its permutation perm[b] (B, n) int64,
-// so that column p of the frame is column perm[b, p] of H; "dense" reads a
-// (B, m, n) int8 batch.
+// Two loads: "perm" gathers frame b's columns from the static H packed by
+// columns (hcol, (n, mw) int32): column p of the frame is column perm[b, p]
+// of H; "dense" reads a (B, m, n) int8 batch.
 //
-// What bounds it on H100: bytes.  At the main path (B = 32768, m = 64,
-// n = 128, tail 64) it reads perm (33.5 MB) and writes the tail (134 MB)
-// and the order (16.8 MB): 0.055 ms at 3.35 TB/s, against about 0.54 G
-// word XORs (B m^2 nw, 0.032 ms on 64 INT32 lanes an SM).
+// What bounds it on H100: bytes at the main path (B = 32768, m = 64,
+// n = 128, tail 64): perm in (33.5 MB), the tail (134 MB) and the order
+// (16.8 MB) out, 0.0551 ms at 3.35 TB/s, against about 0.54 G word XORs
+// (B m^2 nw, 0.032 ms on 64 INT32 lanes an SM).  In block mode the XORs
+// bound it: wimaxlike 192 x 384 at 4,096 frames 0.108 ms, WiMAX 176 x 1056
+// at 1,024 frames 0.063 ms.
 //
-// Design, for those bytes: the matrix never reaches device memory.  Each
-// frame's rows are built on load as 32-bit words of columns (one ballot
-// per row and word: lane l contributes column 32q + l, read coalesced from
-// perm or from the dense batch), eliminated on chip, and only the tail
-// columns and the order are written, the tail four bytes a lane where the
-// shapes allow.
-// - "warp" (m <= 64, n <= 128: CCSDS and the other short codes): a frame
-//   on one warp, lane l holds rows l and l + 32 in registers (2 x nw
-//   words).  The pivot is a ballot of bit t over the rows >= t and __ffs;
-//   rows t and p and row t for the swap-column search and the XOR come by
-//   __shfl_sync; the column order is an int array in shared memory that
-//   lane 0 swaps.  No block barrier in the loop.  The load's ballot loops
-//   stay rolled: unrolled by the compiler they took the kernel to 178-255
-//   registers, one block an SM and 0.74 ms at the main path, against 47
-//   registers and 0.49 ms rolled (NVIDIA H100 80GB HBM3, 700 W).
-// - "block" (larger codes: wimaxlike 192 x 384, WiMAX 176 x 1056): a frame
-//   on one block, its rows in shared memory (m x nw words, 23 KB for
-//   WiMAX), the pivot by a shared atomicMin, the swap column by warp 0,
-//   the row XOR a warp a row.
-// A shape that neither takes (a frame's rows beyond shared memory) is
-// refused by the host plan (ops/gf2_bitpack.py ge_plan) and checked here.
+// Design, for those bytes: the matrix never reaches device memory, and the
+// threads own COLUMNS, each column's m rows as bits in registers (MW words),
+// so that a step exchanges nothing between threads but column t:
+// - load: the perm load gathers H's packed columns (column p of frame b is
+//   hcol[perm[b, p]]); the dense load reads 32 rows x 32 columns a warp as
+//   16-byte rows and transposes them (a 32 x 32 bit transpose by shuffles);
+// - step t: column t is made known to the frame (two shuffles in a warp; in
+//   a block thread t writes it and the pivot to shared memory, double-
+//   buffered by step parity, behind one barrier); the pivot p is column t's
+//   lowest set bit >= t, the same on every thread; then in each owned
+//   column rows t and p swap and, where the new bit t is set, column t less
+//   bit p is XORed in: folded into "where bit p was set, XOR A (column t,
+//   bit t flipped); where bit t was set and p != t, XOR bits t and p", a
+//   predicated XOR a word.  The step loop runs per word of t and a uniform
+//   branch picks p's word, so both are compile-time and nothing indexes
+//   registers at run time; a warp skips the slots whose columns are all < t
+//   (final: e_j, or no bit at rows >= j);
+// - no pivot (rank-deficient H only): the lowest column sc > t with bit t
+//   set (a warp minimum, and a block-wide one over shared memory) takes
+//   column t's part for the step, which turns it into e_t; columns t and
+//   sc, both without bits at rows >= t from then on, are exchanged with
+//   their order entries after the last step, swap by swap in step order;
+// - out: the tail through the same 32 x 32 transposes, lane r writing row
+//   r's 32 bytes of its warp's columns as two 16-byte stores (byte stores
+//   where n or c0 is not a multiple of 16), and the order a column a thread.
+// "warp" (m <= 64, n <= 128: CCSDS and the other short codes): a frame on
+//   a warp, lane l owns columns l + 32 s (s < ceil(n/32)), so column t is
+//   slot t >> 5 of lane t & 31; 8 frames a block.
+// "block" (wimaxlike 192 x 384, WiMAX 176 x 1056, array_121_60's 66-row
+//   raw H): a frame on a block of T = 32 ceil(m/32) threads (<= 256),
+//   thread i owning columns i + T s, so column t (t < m <= T) is slot 0 of
+//   thread t; up to 6 columns (BLOCK_COLS) of up to 8 words a thread.
+// Registers (ptxas -v for sm_90a, cudaFuncGetAttributes) and resident
+// frames an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) on an
+// NVIDIA H100 80GB HBM3 (chip_smoke.py "GE launch shape" lines): warp
+// ge_kernel<2, 4> (CCSDS) 38 registers, 48 frames; block <6, 2>
+// (wimaxlike) 46 registers, 6 frames; <6, 6> (WiMAX) 78 registers, 4
+// frames; <4, 2> (array_121_60's raw H) 47 registers, 13 frames; none of
+// them spills.  Their registers are capped by min_blocks below.
+// A shape that neither mode takes (m > 256 rows, or more than 6 columns
+// for each of 256 threads) is refused by the host plan
+// (ops/gf2_bitpack.py ge_plan) and here.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -53,354 +75,532 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpFrames = 8;     // frames (warps) a block, warp mode
-constexpr int kBlockThreads = 256;  // block mode
-constexpr int kMaxSmem = 232448;    // 227 KB, the opt-in limit of a block
+constexpr int kWarpFrames = 8;         // frames (warps) a block, warp mode
+constexpr int kWarpCols = 4;           // columns a lane, at most, warp mode
+constexpr int kBlockMaxThreads = 256;  // block mode
 
-// bits jb+1.. of a word (none at jb = 31)
-__device__ __forceinline__ uint32_t above(int jb) {
-  return jb == 31 ? 0u : (kFull << (jb + 1));
-}
-
-template <int NW>
-__device__ __forceinline__ uint32_t pick(const uint32_t (&w)[NW], int q) {
-  uint32_t v = w[0];
+// One owned column's words c at step t with pivot p: rows t and p swap (bits
+// t and p of c), then where the new bit t (the old bit p) is set, c XORs
+// column t less bit p.  With A = column t with bit t flipped (a pivot) or
+// cleared (none, p = t), that is: where bit p was set, c ^= A; where bit t
+// was set and p != t (SWAP), c ^= bits t and p.  tb and pb are the bits of
+// t and p in their words JW and PW.  The conditions compile to predicated
+// XORs (sign masks and one LOP3 a word were 7% slower on the card).
+template <int MW, int JW, int PW, bool SWAP>
+__device__ __forceinline__ void update_column(uint32_t (&c)[MW], uint32_t tb,
+                                              uint32_t pb,
+                                              const uint32_t (&a)[MW]) {
+  const bool hp = (c[PW] & pb) != 0;
+  const bool ht = SWAP && (c[JW] & tb) != 0;
+  if (hp) {
 #pragma unroll
-  for (int i = 1; i < NW; ++i) v = q == i ? w[i] : v;
-  return v;
+    for (int w = 0; w < MW; ++w) c[w] ^= a[w];
+  }
+  if (ht) {
+    c[JW] ^= tb;
+    c[PW] ^= pb;
+  }
 }
 
-// Writes a frame's tail columns c0..n-1 (int8) from its packed rows in
-// shared memory, and its column order; threads tid, tid + nthr, ...
-__device__ void write_frame(const uint32_t* rows, const int* order_s, int nw,
-                            int m, int n, int c0, int8_t* out,
-                            int32_t* order, int tid, int nthr) {
-  const int kt = n - c0;
-  if ((kt & 3) == 0 && (c0 & 3) == 0) {
-    // four columns a thread: one nibble of a word -> four bytes
-    const int kq = kt >> 2;
-    uint32_t* out4 = reinterpret_cast<uint32_t*>(out);
-    int r = 0, g = tid;
-    while (g >= kq) { g -= kq; ++r; }
-    while (r < m) {
-      const int c = c0 + 4 * g;
-      const uint32_t v = (rows[r * nw + (c >> 5)] >> (c & 31)) & 0xfu;
-      out4[r * kq + g] = (v & 1u) | ((v & 2u) << 7) | ((v & 4u) << 14) |
-                         ((v & 8u) << 21);
-      g += nthr;
-      while (g >= kq) { g -= kq; ++r; }
+// Whether slot s of this thread's warp holds a column that step t can
+// change: columns < t are final (e_j, or no bit at rows >= j), columns >= n
+// do not exist.  The same on every lane of the warp; compile-time but for
+// a block's first slot (columns < T, some < t) and the last (some >= n).
+template <int CPT, bool WARP, int JW>
+__device__ __forceinline__ bool slot_live(int s, int tid, int nthr, int t,
+                                          int n) {
+  if (WARP) return s >= JW;  // CPT = ceil(n / 32): no slot is empty
+  if (s > 0 && s < CPT - 1) return true;
+  const int first = (tid & ~31) + nthr * s;
+  return first < n && first + 31 >= t;
+}
+
+// Every owned column at p != t; p's word pw (>= JW, the same on every
+// thread) becomes the compile-time PW by a uniform branch.
+template <int MW, int CPT, bool WARP, int JW, int PW = JW>
+__device__ __forceinline__ void update_swapping(uint32_t (&col)[CPT][MW],
+                                                int p, uint32_t tb,
+                                                const uint32_t (&a)[MW],
+                                                int tid, int nthr, int t,
+                                                int n) {
+  if constexpr (PW + 1 < MW) {
+    if ((p >> 5) != PW) {
+      update_swapping<MW, CPT, WARP, JW, PW + 1>(col, p, tb, a, tid, nthr, t,
+                                                 n);
+      return;
     }
+  }
+  const uint32_t pb = 1u << (p & 31);
+#pragma unroll
+  for (int s = 0; s < CPT; ++s)
+    if (slot_live<CPT, WARP, JW>(s, tid, nthr, t, n))
+      update_column<MW, JW, PW, true>(col[s], tb, pb, a);
+}
+
+// The lowest set bit at or above bit jb of word JW of v, or -1.
+template <int MW, int JW>
+__device__ __forceinline__ int lowest_from(const uint32_t (&v)[MW], int jb) {
+  const uint32_t lo = v[JW] & (kFull << jb);
+  if (lo) return 32 * JW + __ffs(lo) - 1;
+  int p = -1;
+#pragma unroll
+  for (int w = MW - 1; w > JW; --w)
+    if (v[w]) p = 32 * w + __ffs(v[w]) - 1;
+  return p;
+}
+
+// A frame's shared words: column t and its pivot (block mode, words 0..7
+// and 8, double-buffered by step parity), two columns' words and order entries being exchanged, each
+// warp's lowest swap-column candidate (block mode), and the deferred column
+// swaps, (t << 16) | sc, at most one a step of R.
+template <int R>
+struct FrameShared {
+  uint32_t colt[2][12];
+  uint32_t x[8], y[8];
+  int xo, yo;
+  int wmin[kBlockMaxThreads / 32];
+  int swaps[R];
+};
+
+template <bool WARP>
+__device__ __forceinline__ void frame_sync() {
+  if constexpr (WARP)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// No pivot at step t: the lowest column sc > t with bit t set takes column
+// t's part, colT becoming its words.  The exchange of the two columns is
+// deferred (apply_swaps): the step turns column sc into e_t in place of
+// column t, and both have no bit at rows >= t, so no later step changes or
+// picks either.  Paid only on such steps (rank-deficient H).
+template <int MW, int CPT, bool WARP, int JW, int R>
+__device__ __forceinline__ void find_swap(const uint32_t (&col)[CPT][MW],
+                                          uint32_t (&colT)[MW],
+                                          FrameShared<R>& fs, int& nsw,
+                                          int tid, int nthr, int t,
+                                          uint32_t tb, int n) {
+  int cand = INT_MAX;
+#pragma unroll
+  for (int s = CPT - 1; s >= 0; --s) {
+    const int c = tid + nthr * s;
+    if (c > t && c < n && (col[s][JW] & tb)) cand = c;
+  }
+  int sc = __reduce_min_sync(kFull, cand);
+  if constexpr (!WARP) {
+    if ((tid & 31) == 0) fs.wmin[tid >> 5] = sc;
+    __syncthreads();
+    sc = INT_MAX;
+    for (int i = 0; i < (nthr >> 5); ++i) sc = min(sc, fs.wmin[i]);
+  }
+  if (sc == INT_MAX) return;  // neither: the columns stay
+  const int so = sc % nthr, ss = sc / nthr;
+  uint32_t v[MW];
+#pragma unroll
+  for (int w = 0; w < MW; ++w) v[w] = col[0][w];
+#pragma unroll
+  for (int s = 1; s < CPT; ++s) {
+    if (s == ss) {
+#pragma unroll
+      for (int w = 0; w < MW; ++w) v[w] = col[s][w];
+    }
+  }
+  if constexpr (WARP) {
+#pragma unroll
+    for (int w = 0; w < MW; ++w) colT[w] = __shfl_sync(kFull, v[w], so);
   } else {
-    int r = 0, g = tid;
-    while (g >= kt) { g -= kt; ++r; }
-    while (r < m) {
-      const int c = c0 + g;
-      out[r * kt + g] =
-          static_cast<int8_t>((rows[r * nw + (c >> 5)] >> (c & 31)) & 1u);
-      g += nthr;
-      while (g >= kt) { g -= kt; ++r; }
+    if (tid == so) {
+#pragma unroll
+      for (int w = 0; w < MW; ++w) fs.x[w] = v[w];
     }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < MW; ++w) colT[w] = fs.x[w];
   }
-  for (int p = tid; p < n; p += nthr) order[p] = order_s[p];
+  if (tid == 0) fs.swaps[nsw] = (t << 16) | sc;
+  ++nsw;
 }
 
-// ---------------------------------------------------------------- warp mode
-template <int NW>
-__global__ void __launch_bounds__(kWarpFrames * 32)
-    ge_warp_kernel(const int64_t* __restrict__ perm,
-                   const uint32_t* __restrict__ hcol, int mw,
-                   const int8_t* __restrict__ dense, int8_t* __restrict__ out,
-                   int32_t* __restrict__ order, int batch, int m, int n,
-                   int c0) {
-  extern __shared__ uint32_t smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long b = static_cast<long long>(blockIdx.x) * kWarpFrames + warp;
-  if (b >= batch) return;  // the whole warp leaves together
-  uint32_t* rows_s = smem + warp * (64 * NW);
-  int* order_s = reinterpret_cast<int*>(smem + kWarpFrames * 64 * NW) +
-                 warp * (32 * NW);
-
-  // rows lane (r0) and lane + 32 (r1); rows >= m stay 0
-  uint32_t r0[NW], r1[NW];
+// Slot s of this thread's columns: its words into x and order entry into
+// xo where s == slot (a select over the slots, no indexing at run time).
+template <int MW, int CPT>
+__device__ __forceinline__ void read_slot(const uint32_t (&col)[CPT][MW],
+                                          const int (&ord)[CPT], int slot,
+                                          uint32_t* x, int* xo) {
 #pragma unroll
-  for (int q = 0; q < NW; ++q) {
-    r0[q] = 0;
-    r1[q] = 0;
-    const int p = 32 * q + lane;
-    if (perm != nullptr) {
-      uint64_t col = 0;  // column perm[b, p] of H, a bit a row
-      if (p < n) {
-        const long long j = perm[b * n + p];
-        col = hcol[j * mw];
-        if (mw > 1) col |= static_cast<uint64_t>(hcol[j * mw + 1]) << 32;
-      }
-#pragma unroll 1
-      for (int rr = 0; rr < 32; ++rr) {
-        const uint32_t w0 = __ballot_sync(kFull, (col >> rr) & 1u);
-        const uint32_t w1 = __ballot_sync(kFull, (col >> (rr + 32)) & 1u);
-        if (lane == rr) {
-          r0[q] = w0;
-          r1[q] = w1;
-        }
-      }
-    } else {
-      const int8_t* f = dense + b * m * n;
-#pragma unroll 1
-      for (int rr = 0; rr < 32; ++rr) {
-        const bool v0 = p < n && rr < m && f[rr * n + p] != 0;
-        const bool v1 = p < n && rr + 32 < m && f[(rr + 32) * n + p] != 0;
-        const uint32_t w0 = __ballot_sync(kFull, v0);
-        const uint32_t w1 = __ballot_sync(kFull, v1);
-        if (lane == rr) {
-          r0[q] = w0;
-          r1[q] = w1;
-        }
-      }
+  for (int s = 0; s < CPT; ++s) {
+    if (s == slot) {
+      *xo = ord[s];
+#pragma unroll
+      for (int w = 0; w < MW; ++w) x[w] = col[s][w];
     }
   }
-  for (int p = lane; p < 32 * NW; p += 32) order_s[p] = p;
-  __syncwarp();
-
-  for (int t = 0; t < m; ++t) {
-    const int jw = t >> 5, jb = t & 31;
-    const uint32_t bt = 1u << jb;
-    const int src_t = t & 31;
-    const bool t_hi = t >= 32;
-    const uint32_t piv0 = __ballot_sync(kFull, (pick(r0, jw) & bt) && lane >= t);
-    const uint32_t piv1 =
-        __ballot_sync(kFull, (pick(r1, jw) & bt) && lane + 32 >= t);
-    if (piv0 | piv1) {
-      const int p = piv0 ? __ffs(piv0) - 1 : 31 + __ffs(piv1);
-      if (p != t) {  // rows t <-> p
-        const int src_p = p & 31;
-        const bool p_hi = p >= 32;
-#pragma unroll
-        for (int q = 0; q < NW; ++q) {
-          const uint32_t vt = __shfl_sync(kFull, t_hi ? r1[q] : r0[q], src_t);
-          const uint32_t vp = __shfl_sync(kFull, p_hi ? r1[q] : r0[q], src_p);
-          if (lane == src_t) {
-            if (t_hi) r1[q] = vp; else r0[q] = vp;
-          }
-          if (lane == src_p) {
-            if (p_hi) r1[q] = vt; else r0[q] = vt;
-          }
-        }
-      }
-    } else {
-      // swap column: the lowest set bit above t in row t
-      int sc = -1;
-#pragma unroll
-      for (int q = 0; q < NW; ++q) {
-        uint32_t cand = __shfl_sync(kFull, t_hi ? r1[q] : r0[q], src_t);
-        cand = q < jw ? 0u : (q == jw ? cand & above(jb) : cand);
-        if (sc < 0 && cand != 0) sc = 32 * q + __ffs(cand) - 1;
-      }
-      if (sc >= 0) {  // columns t <-> sc
-        const int sw = sc >> 5;
-        const uint32_t bs = 1u << (sc & 31);
-        const bool d0 = ((pick(r0, jw) & bt) != 0) != ((pick(r0, sw) & bs) != 0);
-        const bool d1 = ((pick(r1, jw) & bt) != 0) != ((pick(r1, sw) & bs) != 0);
-#pragma unroll
-        for (int q = 0; q < NW; ++q) {
-          const uint32_t cm = (q == jw ? bt : 0u) | (q == sw ? bs : 0u);
-          if (d0) r0[q] ^= cm;
-          if (d1) r1[q] ^= cm;
-        }
-        if (lane == 0) {
-          const int o = order_s[t];
-          order_s[t] = order_s[sc];
-          order_s[sc] = o;
-        }
-      }
-    }
-    // row t into every other row with a 1 in column t
-    const bool e0 = (pick(r0, jw) & bt) && lane != t;
-    const bool e1 = (pick(r1, jw) & bt) && lane + 32 != t;
-#pragma unroll
-    for (int q = 0; q < NW; ++q) {
-      const uint32_t pv = __shfl_sync(kFull, t_hi ? r1[q] : r0[q], src_t);
-      if (e0) r0[q] ^= pv;
-      if (e1) r1[q] ^= pv;
-    }
-  }
-
-#pragma unroll
-  for (int q = 0; q < NW; ++q) {
-    rows_s[lane * NW + q] = r0[q];
-    rows_s[(lane + 32) * NW + q] = r1[q];
-  }
-  __syncwarp();
-  write_frame(rows_s, order_s, NW, m, n, c0, out + b * m * (n - c0),
-              order + b * n, lane, 32);
 }
 
-// --------------------------------------------------------------- block mode
-__global__ void __launch_bounds__(kBlockThreads)
-    ge_block_kernel(const int64_t* __restrict__ perm,
-                    const uint32_t* __restrict__ hcol, int mw,
-                    const int8_t* __restrict__ dense, int8_t* __restrict__ out,
-                    int32_t* __restrict__ order, int batch, int m, int n,
-                    int nw, int c0) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* rows = smem;                                 // (m, nw)
-  int* order_s = reinterpret_cast<int*>(smem + m * nw);  // (32 nw)
-  __shared__ int s_piv, s_sc;
-  const long long b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+template <int MW, int CPT>
+__device__ __forceinline__ void write_slot(uint32_t (&col)[CPT][MW],
+                                           int (&ord)[CPT], int slot,
+                                           const uint32_t* x, int xo) {
+#pragma unroll
+  for (int s = 0; s < CPT; ++s) {
+    if (s == slot) {
+      ord[s] = xo;
+#pragma unroll
+      for (int w = 0; w < MW; ++w) col[s][w] = x[w];
+    }
+  }
+}
 
+// The deferred column swaps, in step order: columns t and sc exchange their
+// words and order entries.
+template <int MW, int CPT, bool WARP, int R>
+__device__ __forceinline__ void apply_swaps(uint32_t (&col)[CPT][MW],
+                                            int (&ord)[CPT],
+                                            FrameShared<R>& fs, int nsw,
+                                            int tid, int nthr) {
+  if (nsw == 0) return;
+  frame_sync<WARP>();
+  for (int i = 0; i < nsw; ++i) {
+    const int t = fs.swaps[i] >> 16, sc = fs.swaps[i] & 0xffff;
+    const int ot = t % nthr, st = t / nthr, os = sc % nthr, ss = sc / nthr;
+    if (tid == ot) read_slot<MW, CPT>(col, ord, st, fs.x, &fs.xo);
+    if (tid == os) read_slot<MW, CPT>(col, ord, ss, fs.y, &fs.yo);
+    frame_sync<WARP>();
+    if (tid == ot) write_slot<MW, CPT>(col, ord, st, fs.y, fs.yo);
+    if (tid == os) write_slot<MW, CPT>(col, ord, ss, fs.x, fs.xo);
+    frame_sync<WARP>();
+  }
+}
+
+// The steps t = 32 JW .. of word JW: column t made known to the frame,
+// the pivot, a swap column where there is none, and the elimination.
+template <int MW, int CPT, bool WARP, int JW, int R>
+__device__ __forceinline__ void steps(uint32_t (&col)[CPT][MW],
+                                      FrameShared<R>& fs, int& nsw, int tid,
+                                      int nthr, int m, int n) {
+  if constexpr (JW < MW) {
+    constexpr int TS = WARP ? JW : 0;  // column t's slot
+#pragma unroll 1
+    for (int jb = 0; jb < 32 && 32 * JW + jb < m; ++jb) {
+      const int t = 32 * JW + jb;
+      const uint32_t tb = 1u << jb;
+      uint32_t colT[MW];
+      int p;
+      if constexpr (WARP) {
+#pragma unroll
+        for (int w = 0; w < MW; ++w)
+          colT[w] = __shfl_sync(kFull, col[TS][w], jb);
+        p = lowest_from<MW, JW>(colT, jb);
+      } else {  // thread t finds the pivot once for the block
+        uint32_t* buf = fs.colt[t & 1];
+        if (tid == t) {
+#pragma unroll
+          for (int w = 0; w < MW; ++w) buf[w] = col[TS][w];
+          buf[8] = static_cast<uint32_t>(lowest_from<MW, JW>(col[TS], jb));
+        }
+        __syncthreads();
+#pragma unroll
+        for (int w = 0; w < MW; ++w) colT[w] = buf[w];
+        p = static_cast<int>(buf[8]);
+      }
+      if (p < 0)
+        find_swap<MW, CPT, WARP, JW>(col, colT, fs, nsw, tid, nthr, t, tb, n);
+      uint32_t a[MW];
+#pragma unroll
+      for (int w = 0; w < MW; ++w) a[w] = colT[w];
+      a[JW] = p < 0 ? a[JW] & ~tb : a[JW] ^ tb;
+      if (p < 0 || p == t) {  // rows stay: bit p is bit t
+#pragma unroll
+        for (int s = 0; s < CPT; ++s)
+          if (slot_live<CPT, WARP, JW>(s, tid, nthr, t, n))
+            update_column<MW, JW, JW, false>(col[s], tb, tb, a);
+      } else {
+        update_swapping<MW, CPT, WARP, JW>(col, p, tb, a, tid, nthr, t, n);
+      }
+    }
+    steps<MW, CPT, WARP, JW + 1>(col, fs, nsw, tid, nthr, m, n);
+  }
+}
+
+// The 32 x 32 bit matrix held a word a lane, transposed: bit r of lane l's
+// word becomes bit l of lane r's (five butterfly rounds of shuffles).
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  uint32_t m = 0x0000ffffu;
+#pragma unroll
+  for (int j = 16; j > 0; j >>= 1, m ^= m << j) {
+    const uint32_t y = __shfl_xor_sync(kFull, x, j);
+    x = (lane & j) ? (x & ~m) | ((y >> j) & m) : (x & m) | ((y << j) & ~m);
+  }
+  return x;
+}
+
+// Bit i of y as byte i (0 or 1) of row[off .. off + 32), 16 bytes a store,
+// the first half where lo and the second where hi (16-byte aligned).
+__device__ __forceinline__ void store_bits(int8_t* row, int off, uint32_t y,
+                                           bool lo, bool hi) {
+  uint32_t w[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)  // a nibble spread to the low bit of 4 bytes
+    w[q] = (((y >> (4 * q)) & 0xfu) * 0x00204081u) & 0x01010101u;
+  if (lo)
+    *reinterpret_cast<uint4*>(row + off) = make_uint4(w[0], w[1], w[2], w[3]);
+  if (hi)
+    *reinterpret_cast<uint4*>(row + off + 16) =
+        make_uint4(w[4], w[5], w[6], w[7]);
+}
+
+// Byte i != 0 of row[off .. off + 32) as bit i, the halves read where lo /
+// hi (else 0), 16 bytes a load (16-byte aligned).
+__device__ __forceinline__ uint32_t load_bits(const int8_t* row, int off,
+                                              bool lo, bool hi) {
+  uint4 v0 = make_uint4(0, 0, 0, 0), v1 = v0;
+  if (lo) v0 = *reinterpret_cast<const uint4*>(row + off);
+  if (hi) v1 = *reinterpret_cast<const uint4*>(row + off + 16);
+  const uint32_t w[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    uint32_t x = w[q];  // bit 0 of each byte: the OR of its 8 bits
+    x |= x >> 4;
+    x |= x >> 2;
+    x |= x >> 1;
+    bits |= (((x & 0x01010101u) * 0x10204080u) >> 28) << (4 * q);
+  }
+  return bits;
+}
+
+// Resident blocks an SM that the register cap must allow: 6 warp-mode
+// blocks (48 frames); 3 blocks of 256 for a block frame of 24 or more
+// column words a thread (85 registers: 4 WiMAX frames of 192 threads),
+// else 5 (51 registers: 7 wimaxlike frames).
+template <int MW, int CPT, bool WARP>
+constexpr int min_blocks() {
+  return WARP ? 6 : (MW * CPT >= 24 ? 3 : 5);
+}
+
+template <int MW, int CPT, bool WARP>
+__global__ void __launch_bounds__(kBlockMaxThreads, min_blocks<MW, CPT, WARP>())
+    ge_kernel(const int64_t* __restrict__ perm,
+              const uint32_t* __restrict__ hcol, int mw,
+              const int8_t* __restrict__ dense, int8_t* __restrict__ out,
+              int32_t* __restrict__ order, int batch, int m, int n, int c0) {
+  constexpr int R = WARP ? 64 : kBlockMaxThreads;  // steps a frame, at most
+  __shared__ FrameShared<R> shared[WARP ? kWarpFrames : 1];
+  const int tid = WARP ? threadIdx.x & 31 : threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int nthr = WARP ? 32 : blockDim.x;
+  const long long b =
+      WARP ? static_cast<long long>(blockIdx.x) * kWarpFrames +
+                 (threadIdx.x >> 5)
+           : blockIdx.x;
+  if (b >= batch) return;  // a whole warp (warp mode) leaves together
+  FrameShared<R>& fs = shared[WARP ? threadIdx.x >> 5 : 0];
+
+  // columns tid + T s, a bit a row; columns >= n and rows >= m stay 0
+  uint32_t col[CPT][MW];
+  int ord[CPT];
+#pragma unroll
+  for (int s = 0; s < CPT; ++s) {
+    ord[s] = tid + nthr * s;
+#pragma unroll
+    for (int w = 0; w < MW; ++w) col[s][w] = 0;
+  }
   if (perm != nullptr) {
-    // warp w builds words q = w, w + nwarps, ...: lane l holds column
-    // perm[b, 32q + l] of H, one ballot a row
-    for (int q = warp; q < nw; q += nwarps) {
-      const int p = 32 * q + lane;
-      const long long j = p < n ? perm[b * n + p] : -1;
-      for (int r5 = 0; r5 < mw; ++r5) {
-        const uint32_t hw = j >= 0 ? hcol[j * mw + r5] : 0u;
-        for (int rb = 0; rb < 32 && 32 * r5 + rb < m; ++rb) {
-          const uint32_t w = __ballot_sync(kFull, (hw >> rb) & 1u);
-          if (lane == rb) rows[(32 * r5 + rb) * nw + q] = w;
-        }
+#pragma unroll
+    for (int s = 0; s < CPT; ++s) {
+      const int c = tid + nthr * s;
+      if (c < n) {
+        const long long j = perm[b * n + c];
+#pragma unroll
+        for (int w = 0; w < MW; ++w)
+          if (w < mw) col[s][w] = hcol[j * mw + w];
+      }
+    }
+  } else if ((n & 15) == 0) {
+    // a warp's 32 columns g..: lane l reads row 32 w + l's 32 bytes of
+    // them, and a transpose gives each lane its column's word w.  The
+    // shuffles stay outside any condition the compiler cannot see is the
+    // same on the whole warp (else it emulates them, slowly).
+    const int8_t* f = dense + b * m * n;
+#pragma unroll
+    for (int s = 0; s < CPT; ++s) {
+      const int g = (tid & ~31) + nthr * s;
+      if (WARP && g >= n) continue;  // g = 32 s: known uniform
+#pragma unroll
+      for (int w = 0; w < MW; ++w) {
+        if (32 * w >= m) continue;
+        const int r = 32 * w + lane;
+        const uint32_t bits =
+            r < m && g < n ? load_bits(f + r * n, g, true, g + 32 <= n) : 0u;
+        col[s][w] = transpose32(bits, lane);
       }
     }
   } else {
     const int8_t* f = dense + b * m * n;
-    for (int r = warp; r < m; r += nwarps) {
-      for (int q = 0; q < nw; ++q) {
-        const int p = 32 * q + lane;
-        const uint32_t w = __ballot_sync(kFull, p < n && f[r * n + p] != 0);
-        if (lane == 0) rows[r * nw + q] = w;
+#pragma unroll
+    for (int s = 0; s < CPT; ++s) {
+      const int c = tid + nthr * s;
+      if (c >= n) continue;
+#pragma unroll
+      for (int w = 0; w < MW; ++w) {
+#pragma unroll 1
+        for (int rb = 0; rb < 32; ++rb) {
+          const int r = 32 * w + rb;
+          if (r < m && f[r * n + c] != 0) col[s][w] |= 1u << rb;
+        }
       }
     }
   }
-  for (int p = tid; p < 32 * nw; p += blockDim.x) order_s[p] = p;
-  if (tid == 0) s_piv = INT_MAX;
-  __syncthreads();
 
-  for (int t = 0; t < m; ++t) {
-    const int jw = t >> 5, jb = t & 31;
-    const uint32_t bt = 1u << jb;
-    for (int r = t + tid; r < m; r += blockDim.x)
-      if (rows[r * nw + jw] & bt) atomicMin(&s_piv, r);
-    __syncthreads();
-    const int p = s_piv;
-    if (p == INT_MAX) {
-      if (warp == 0) {  // the swap column: lowest set bit above t in row t
-        int sc = -1;
-        for (int base = jw; base < nw && sc < 0; base += 32) {
-          const int q = base + lane;
-          uint32_t cand = q < nw ? rows[t * nw + q] : 0u;
-          if (q == jw) cand &= above(jb);
-          const uint32_t any = __ballot_sync(kFull, cand != 0);
-          if (any) {
-            const int src = __ffs(any) - 1;
-            const uint32_t c = __shfl_sync(kFull, cand, src);
-            sc = 32 * (base + src) + __ffs(c) - 1;
-          }
-        }
-        if (lane == 0) s_sc = sc;
-      }
-      __syncthreads();
-      const int sc = s_sc;
-      if (sc >= 0) {  // columns t <-> sc
-        const int sw = sc >> 5;
-        const uint32_t bs = 1u << (sc & 31);
-        for (int r = tid; r < m; r += blockDim.x) {
-          uint32_t* row = rows + r * nw;
-          if (((row[jw] & bt) != 0) != ((row[sw] & bs) != 0)) {
-            row[jw] ^= bt;
-            row[sw] ^= bs;
-          }
-        }
-        if (tid == 0) {
-          const int o = order_s[t];
-          order_s[t] = order_s[sc];
-          order_s[sc] = o;
-        }
-      }
-    } else if (p != t) {  // rows t <-> p
-      for (int q = tid; q < nw; q += blockDim.x) {
-        const uint32_t v = rows[t * nw + q];
-        rows[t * nw + q] = rows[p * nw + q];
-        rows[p * nw + q] = v;
-      }
-    }
-    __syncthreads();
-    // row t into every other row with a 1 in column t, a warp a row; the
-    // row's flag is read by lane 0 before any lane writes the row
-    const uint32_t* row_t = rows + t * nw;
-    for (int r = warp; r < m; r += nwarps) {
-      if (r == t) continue;
-      const bool hit =
-          __shfl_sync(kFull, lane == 0 ? rows[r * nw + jw] & bt : 0u, 0) != 0;
-      if (hit)
-        for (int q = lane; q < nw; q += 32) rows[r * nw + q] ^= row_t[q];
-    }
-    if (tid == 0) s_piv = INT_MAX;
-    __syncthreads();
+  int nsw = 0;  // deferred column swaps, the same count on every thread
+  steps<MW, CPT, WARP, 0>(col, fs, nsw, tid, nthr, m, n);
+  apply_swaps<MW, CPT, WARP>(col, ord, fs, nsw, tid, nthr);
+
+  const int kt = n - c0;
+  int8_t* o = out + b * m * kt;
+  int32_t* ob = order + b * n;
+#pragma unroll
+  for (int s = 0; s < CPT; ++s) {
+    const int c = tid + nthr * s;
+    if (c < n) ob[c] = ord[s];
   }
-  write_frame(rows, order_s, nw, m, n, c0, out + b * m * (n - c0),
-              order + b * n, tid, blockDim.x);
+  if ((n & 15) == 0 && (c0 & 15) == 0) {
+    // a warp's 32 columns transposed to rows: lane l writes row 32 w + l's
+    // 32 bytes of them, 16 a store
+#pragma unroll
+    for (int s = 0; s < CPT; ++s) {
+      const int g = (tid & ~31) + nthr * s;
+      if (WARP && (g + 32 <= c0 || g >= n)) continue;
+      const bool lo = g >= c0 && g + 16 <= n;
+      const bool hi = g + 16 >= c0 && g + 32 <= n;
+#pragma unroll
+      for (int w = 0; w < MW; ++w) {
+        if (32 * w >= m) continue;
+        const uint32_t y = transpose32(col[s][w], lane);
+        const int r = 32 * w + lane;
+        if (r < m) store_bits(o + r * kt, g - c0, y, lo, hi);
+      }
+    }
+    return;
+  }
+  // else the tail a byte a column (32 bytes a warp a row)
+#pragma unroll
+  for (int s = 0; s < CPT; ++s) {
+    const int c = tid + nthr * s;
+    if (c < c0 || c >= n) continue;
+#pragma unroll
+    for (int w = 0; w < MW; ++w) {
+#pragma unroll 1
+      for (int rb = 0; rb < 32; ++rb) {
+        const int r = 32 * w + rb;
+        if (r < m)
+          o[r * kt + c - c0] = static_cast<int8_t>((col[s][w] >> rb) & 1u);
+      }
+    }
+  }
 }
 
-using WarpKernel = void (*)(const int64_t*, const uint32_t*, int,
-                            const int8_t*, int8_t*, int32_t*, int, int, int,
-                            int);
+using Kernel = void (*)(const int64_t*, const uint32_t*, int, const int8_t*,
+                        int8_t*, int32_t*, int, int, int, int);
 
-WarpKernel pick_warp(int nw) {
-  switch (nw) {
-    case 1: return ge_warp_kernel<1>;
-    case 2: return ge_warp_kernel<2>;
-    case 3: return ge_warp_kernel<3>;
-    case 4: return ge_warp_kernel<4>;
+template <int MW>
+Kernel pick_block_cols(int cols) {
+  switch (cols) {
+    case 2: return ge_kernel<MW, 2, false>;
+    case 4: return ge_kernel<MW, 4, false>;
+    case 6: return ge_kernel<MW, 6, false>;
     default: return nullptr;
   }
+}
+
+// warp mode: words a column 1 or 2 x columns a lane ceil(n / 32) <= 4;
+// block mode: words {2, 4, 6, 8} x columns a thread {2, 4, 6}, as
+// ops/gf2_bitpack.py BLOCK_WORDS and BLOCK_COLS
+Kernel pick(int mode, int words, int cols) {
+  if (mode == 0) {
+    switch (words * 8 + cols) {
+      case 9: return ge_kernel<1, 1, true>;
+      case 10: return ge_kernel<1, 2, true>;
+      case 11: return ge_kernel<1, 3, true>;
+      case 12: return ge_kernel<1, 4, true>;
+      case 18: return ge_kernel<2, 2, true>;
+      case 19: return ge_kernel<2, 3, true>;
+      case 20: return ge_kernel<2, 4, true>;
+      default: return nullptr;
+    }
+  }
+  if (mode != 1) return nullptr;
+  switch (words) {
+    case 2: return pick_block_cols<2>(cols);
+    case 4: return pick_block_cols<4>(cols);
+    case 6: return pick_block_cols<6>(cols);
+    case 8: return pick_block_cols<8>(cols);
+    default: return nullptr;
+  }
+}
+
+// The plan (mode 0 warp, 1 block; words a column, columns a thread,
+// threads a block) is one that ops/gf2_bitpack.py ge_plan makes for (m, n).
+bool plan_ok(int m, int n, int mode, int words, int cols, int threads) {
+  if (pick(mode, words, cols) == nullptr) return false;
+  if (mode == 0)
+    return m <= 64 && n <= 32 * kWarpCols && words == (m + 31) / 32 &&
+           cols == (n + 31) / 32 && threads == kWarpFrames * 32;
+  return threads % 32 == 0 && threads >= m && threads <= kBlockMaxThreads &&
+         32 * words >= m && cols * threads >= n;
 }
 
 }  // namespace
 
 // perm (B, n) int64 with hcol (n, mw) int32, or dense (B, m, n) int8 (the
-// other null); out (B, m, n - c0) int8; order (B, n) int32.  mode 0 warp,
-// 1 block; threads, smem_bytes and grid from ge_plan, checked here.
+// other null); out (B, m, n - c0) int8; order (B, n) int32.  The plan
+// (mode, words, cols, threads, grid) from ge_plan, checked here.
 extern "C" int ge_launch(const void* perm, const void* hcol, int mw,
                          const void* dense, void* out, void* order, int batch,
-                         int m, int n, int c0, int mode, int nw, int threads,
-                         int smem_bytes, int grid, void* stream) {
+                         int m, int n, int c0, int mode, int words, int cols,
+                         int threads, int grid, void* stream) {
   const bool from_perm = perm != nullptr;
-  bool ok = batch > 0 && m > 0 && n > 0 && c0 >= 0 && c0 < n &&
-            nw == (n + 31) / 32 && from_perm == (hcol != nullptr) &&
-            from_perm != (dense != nullptr) &&
-            (!from_perm || mw == (m + 31) / 32) && out != nullptr &&
-            order != nullptr && smem_bytes <= kMaxSmem;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t* pp = static_cast<const int64_t*>(perm);
-  const uint32_t* hc = static_cast<const uint32_t*>(hcol);
-  const int8_t* dn = static_cast<const int8_t*>(dense);
-  int8_t* o = static_cast<int8_t*>(out);
-  int32_t* ord = static_cast<int32_t*>(order);
-  if (mode == 0) {
-    const WarpKernel kern = pick_warp(nw);
-    ok = ok && kern != nullptr && m <= 64 && threads == kWarpFrames * 32 &&
-         grid == (batch + kWarpFrames - 1) / kWarpFrames &&
-         smem_bytes == kWarpFrames * (64 * nw + 32 * nw) * 4;
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<grid, threads, smem_bytes, st>>>(pp, hc, mw, dn, o, ord, batch, m,
-                                            n, c0);
-  } else if (mode == 1) {
-    ok = ok && threads == kBlockThreads && grid == batch &&
-         smem_bytes == (m * nw + 32 * nw) * 4;
-    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaFuncSetAttribute(
-        ge_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    ge_block_kernel<<<grid, threads, smem_bytes, st>>>(pp, hc, mw, dn, o, ord,
-                                                       batch, m, n, nw, c0);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool ok = batch > 0 && m > 0 && n > 0 && c0 >= 0 && c0 < n &&
+                  from_perm == (hcol != nullptr) &&
+                  from_perm != (dense != nullptr) &&
+                  (!from_perm || mw == (m + 31) / 32) && out != nullptr &&
+                  order != nullptr &&
+                  plan_ok(m, n, mode, words, cols, threads) &&
+                  grid == (mode == 0 ? (batch + kWarpFrames - 1) / kWarpFrames
+                                     : batch);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const Kernel kern = pick(mode, words, cols);
+  kern<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(perm), static_cast<const uint32_t*>(hcol),
+      mw, static_cast<const int8_t*>(dense), static_cast<int8_t*>(out),
+      static_cast<int32_t*>(order), batch, m, n, c0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card makes of a plan's kernel: out = {registers, local bytes a
+// thread, threads a block, resident blocks per SM, SMs, static shared
+// bytes}; returns a cudaError.
+extern "C" int ge_occupancy(int m, int n, int mode, int words, int cols,
+                            int threads, int device, int* out) {
+  if (!plan_ok(m, n, mode, words, cols, threads))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kern = reinterpret_cast<const void*>(pick(mode, words, cols));
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
+                                                      0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = threads;
+  out[3] = blocks;
+  out[4] = sms;
+  out[5] = static_cast<int>(attr.sharedSizeBytes);
+  return 0;
 }

@@ -22,13 +22,16 @@ two's-complement words.
 CUDA kernel ``csrc/gf2_ge.cu`` (launch count ``"ge_packed"``): on a CPU
 tensor they run the plain twins :func:`_reduce_perm_plain` and
 :func:`_reduce_dense_plain`; on a CUDA tensor they launch the kernel or
-raise.  The kernel's plan (one warp a frame, or one block a frame) comes
-from :func:`ge_plan`.
+raise.  The kernel's threads own columns (a column's rows in registers);
+its plan (one warp a frame, or one block a frame) comes from
+:func:`ge_plan`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import hashlib
 
 import numpy as np
@@ -38,8 +41,12 @@ from .. import _kernels
 from .nms import first_index
 
 WARP_FRAMES = 8  # frames (warps) a block in the warp mode
-BLOCK_THREADS = 256  # threads a block in the block mode
-SMEM_MAX = 232_448  # bytes of shared memory a block may opt in to on H100
+LANE_COLS = 4  # columns a lane in the warp mode, at most (l, l + 32, ...)
+BLOCK_MAX_THREADS = 256  # threads a block in the block mode, at most
+# the block kernel's instantiations (csrc/gf2_ge.cu pick_block): words a
+# column (ceil(m/32) rounded up) and columns a thread
+BLOCK_WORDS = (2, 4, 6, 8)
+BLOCK_COLS = (2, 4, 6)
 
 
 def _narrow(x: torch.Tensor) -> torch.Tensor:
@@ -244,50 +251,84 @@ def batched_row_reduce_bitpack(h_batch: torch.Tensor):
 
 @dataclasses.dataclass(frozen=True)
 class GePlan:
-    """One launch of the GE kernel.  ``warp``: a frame on one warp, its
-    rows in registers (two a lane), ``WARP_FRAMES`` frames a block;
-    ``block``: a frame on one block of ``BLOCK_THREADS`` threads, its rows
-    in shared memory."""
+    """One launch of the GE kernel, whose threads own columns, each
+    column's ``words`` words of rows in registers: a frame's T threads own
+    its columns i + T s, ``cols`` of them a thread.  ``warp``: a frame on
+    one warp (T = 32, ``cols`` = ceil(n/32) <= ``LANE_COLS``),
+    ``WARP_FRAMES`` frames a block; ``block``: a frame on one block of
+    ``threads`` = T >= m threads, so that column t < m is thread t's
+    first."""
 
     mode: str
-    nw: int
+    words: int
+    cols: int
     threads: int
-    smem_bytes: int
     grid: int
 
+    @property
+    def frames_per_block(self) -> int:
+        return WARP_FRAMES if self.mode == "warp" else 1
 
+
+@functools.lru_cache(maxsize=256)
 def ge_plan(b: int, m: int, n: int) -> GePlan | None:
     """The GE kernel's launch for ``b`` frames of (m, n), or None where a
-    frame's packed rows do not fit a block's shared memory."""
+    frame's columns do not fit the kernel's registers (m > 256 rows, or more
+    than ``BLOCK_COLS[-1]`` columns for each of ``BLOCK_MAX_THREADS``)."""
     if min(b, m, n) < 1:
         raise ValueError(f"ge_plan needs positive sizes, got {(b, m, n)}")
-    nw = -(-n // 32)
-    if m <= 64 and nw <= 4:
-        # a warp stages its 64 rows and its column order for the output
-        smem = WARP_FRAMES * (64 * nw + 32 * nw) * 4
-        return GePlan("warp", nw, WARP_FRAMES * 32, smem, -(-b // WARP_FRAMES))
-    smem = (m * nw + 32 * nw) * 4
-    if smem > SMEM_MAX:
+    mw = -(-m // 32)
+    if m <= 64 and n <= 32 * LANE_COLS:
+        return GePlan("warp", mw, -(-n // 32), WARP_FRAMES * 32,
+                      -(-b // WARP_FRAMES))
+    threads = 32 * max(mw, -(-n // (32 * BLOCK_COLS[-1])))
+    words = next((w for w in BLOCK_WORDS if w >= mw), None)
+    cols = next((c for c in BLOCK_COLS if c * threads >= n), None)
+    if words is None or cols is None or threads > BLOCK_MAX_THREADS:
         return None
-    return GePlan("block", nw, BLOCK_THREADS, smem, b)
+    return GePlan("block", words, cols, threads, b)
 
 
+def ge_occupancy(plan: GePlan, m: int, n: int, device: int = 0) -> dict:
+    """What the card makes of ``plan``'s kernel for (m, n) frames: registers
+    and local bytes a thread, threads a block, resident blocks and frames
+    per SM, SMs, static shared bytes."""
+    out = (ctypes.c_int * 6)()
+    status = _kernels.library("gf2_ge").ge_occupancy(
+        m, n, 0 if plan.mode == "warp" else 1, plan.words, plan.cols,
+        plan.threads, device, out)
+    _kernels.check(status, "ge_occupancy")
+    occ = dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm",
+                    "sms", "static_smem_bytes"), list(out)))
+    occ["frames_per_sm"] = occ["blocks_per_sm"] * plan.frames_per_block
+    return occ
+
+
+# H packed by columns, cached by its bytes (a sha1), and by the H object and
+# the target device, so that a call with an H already seen reads nothing of
+# it (the main path passes the same h_osd every round).  The entry holds H,
+# so no other object can take its id while it is cached; H is static: one
+# changed in place after its first use is not re-read.
 _HCOL_CACHE: dict = {}
+_HCOL_BY_ID: dict = {}
 
 
 def packed_h_columns(h, device) -> torch.Tensor:
     """The static (m, n) H packed by columns on ``device``: (n, ceil(m/32))
     int32, bit r%32 of word r//32 of column j = h[r, j]; built once per
     (H, device) and cached."""
+    hit = _HCOL_BY_ID.get((id(h), device))
+    if hit is not None and hit[0] is h:
+        return hit[1]
     h_np = np.asarray(h.cpu() if isinstance(h, torch.Tensor) else h)
     h_np = (h_np != 0).astype(np.uint8)
     key = (str(torch.device(device)), h_np.shape,
            hashlib.sha1(h_np.tobytes()).hexdigest())
     if key not in _HCOL_CACHE:
-        m, _ = h_np.shape
         cols = torch.as_tensor(h_np.T.copy())[None]  # (1, n, m) as a "batch"
         words = pack_columns(cols)[:, :, 0].contiguous()  # (n, mw)
         _HCOL_CACHE[key] = words.to(device)
+    _HCOL_BY_ID[(id(h), device)] = (h, _HCOL_CACHE[key])
     return _HCOL_CACHE[key]
 
 
@@ -295,19 +336,20 @@ def _launch(b: int, m: int, n: int, tail: int, device, perm=None, hcol=None,
             dense=None):
     plan = ge_plan(b, m, n)
     if plan is None:
-        raise ValueError(f"GE kernel: a packed ({m}, {n}) frame does not fit "
-                         f"a block's {SMEM_MAX} bytes of shared memory")
+        raise ValueError(f"GE kernel: the columns of a ({m}, {n}) frame do not "
+                         "fit its registers (at most 256 rows, and "
+                         f"{BLOCK_COLS[-1]} columns for each of "
+                         f"{BLOCK_MAX_THREADS} threads)")
     out = torch.empty((b, m, tail), dtype=torch.int8, device=device)
     order = torch.empty((b, n), dtype=torch.int32, device=device)
-    lib = _kernels.library("gf2_ge")
-    status = lib.ge_launch(
+    status = _kernels.library("gf2_ge").ge_launch(
         0 if perm is None else perm.data_ptr(),
         0 if hcol is None else hcol.data_ptr(),
         0 if hcol is None else hcol.shape[1],
         0 if dense is None else dense.data_ptr(),
         out.data_ptr(), order.data_ptr(), b, m, n, n - tail,
-        0 if plan.mode == "warp" else 1, plan.nw, plan.threads,
-        plan.smem_bytes, plan.grid, _kernels.stream_handle(device))
+        0 if plan.mode == "warp" else 1, plan.words, plan.cols, plan.threads,
+        plan.grid, _kernels.stream_handle(device))
     _kernels.check(status, "ge_launch")
     _kernels.LAUNCHES["ge_packed"] += 1
     return out, order

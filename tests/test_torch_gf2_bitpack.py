@@ -193,21 +193,25 @@ def test_default_route_is_dense_on_cpu():
                                   "wimaxlike_384_192", "wimax_1056_880"])
 def test_ge_plan_takes_every_packaged_code(name):
     """The kernel's plan takes every packaged code's h_osd and raw H: one
-    warp a frame at m <= 64 and n <= 128, else one block a frame whose
-    packed rows fit shared memory."""
+    warp a frame at m <= 64 and n <= 128 (ceil(n/32) columns a lane), else
+    one block a frame of 32 ceil(m/32) threads whose columns fit 8 a
+    thread, each column's rows in registers."""
     code = get_code(name)
     for h in (code.h_osd, code.h):
         m, n = h.shape
         plan = gf2_bitpack.ge_plan(32768, m, n)
-        nw = -(-n // 32)
-        assert plan is not None and plan.nw == nw
-        assert plan.smem_bytes <= gf2_bitpack.SMEM_MAX
-        if m <= 64 and nw <= 4:
+        mw = -(-m // 32)
+        assert plan is not None
+        if m <= 64 and n <= 128:
             assert (plan.mode, plan.threads, plan.grid) == ("warp", 256, 4096)
-            assert plan.smem_bytes == 8 * 96 * nw * 4
+            assert (plan.cols, plan.words) == (-(-n // 32), mw)
         else:
-            assert (plan.mode, plan.threads, plan.grid) == ("block", 256, 32768)
-            assert plan.smem_bytes == (m * nw + 32 * nw) * 4
+            assert (plan.mode, plan.threads, plan.grid) == ("block", 32 * mw,
+                                                            32768)
+            assert plan.cols == min(c for c in (2, 4, 6, 8)
+                                    if c * 32 * mw >= n)
+            assert plan.words == min(w for w in (2, 4, 6, 8) if w >= mw)
+        assert plan.cols * (32 if plan.mode == "warp" else plan.threads) >= n
 
 
 def test_ge_plan_refuses_what_does_not_fit():
