@@ -67,7 +67,26 @@ Phases (each raises on failure, so the script never exits 0 after one):
    by batch held to the rule;
 10. ``train_nms`` with ``NMSTrainConfig()`` (1,200 steps): the loss must
     fall (the trained factor's loss on the first block's frames below the
-    first block's loss); the factor and its 3.0 dB FER are reported.
+    first block's loss); the factor and its 3.0 dB FER are reported;
+11. the seven-stage recipe of ``runs/r4_pipeline/config.json`` through
+    ``pipeline.recipe``'s stages in ``run_recipe``'s order, in a temporary
+    run directory seeded with the JAX run's NMS factor (stage 1 reused):
+    the harvest's FER against the record's 47,140 / 262,144; DIA training
+    (2,000 steps: the last block's mean loss below the first's) and the
+    pattern sweep (the refined MRB zero-error count above the initial
+    one); stopper samples and training (the loss falls; walk decisions of
+    the trained artifacts card == CPU on refparity); the eval sweep at
+    2.0-3.0 dB (6 points, 40,000 NMS errors and 500 OSD frames each), each
+    point's ``fer_nms_detected`` and OSD failure share against
+    ``fer_curve.json``, T+2 CE/BER entries, K1, K2, GE and K5 launched;
+    the written run directory through ``convert.load_run``, its pickles
+    numpy trees in the JAX layout; ``sldpc-torch sweep`` at 3.0 dB on it;
+    then ``runs/r4_rnn1``'s RnnOne: refine card == CPU on 4,096 harvested
+    rows, its 3.0 dB OSD success share against 436 / 500, and 200 steps of
+    ``train_dia(model="model_rnn1")`` lowering the loss; each stage's
+    seconds (statistics against the records by 99.9% Wilson overlap);
+    before it, the capture step's peak bytes a frame on three routes
+    beside ``recipe.capture_frame_bytes``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -76,12 +95,15 @@ prints no result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -101,10 +123,14 @@ from short_ldpc_decoding_osd_tpu_torch.ops import (gf2_bitpack, gf2ops,
                                                    nms_dense, nms_edge,
                                                    nms_edge_padded, osd_disc)
 from short_ldpc_decoding_osd_tpu_torch.osd import engine, path, segments
-from short_ldpc_decoding_osd_tpu_torch.train import NMSTrainConfig, nms_train
+from short_ldpc_decoding_osd_tpu_torch.pipeline import recipe
+from short_ldpc_decoding_osd_tpu_torch.train import NMSTrainConfig, dia_train, nms_train
 from short_ldpc_decoding_osd_tpu_torch.utils.metrics import wilson_interval
+from short_ldpc_decoding_osd_tpu_torch.utils.profiling import Timer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+R4 = os.path.join(ROOT, "runs", "r4_pipeline")
+R4_RNN = os.path.join(ROOT, "runs", "r4_rnn1")
 # H100 SXM data-sheet peaks at 700 W (dense): HBM bytes/s; f32 instructions/s
 # outside the tensor cores (67 TFLOP/s counts an FMA as two FLOPs, so an
 # add, compare, min or FMA issues at half that rate); int8 tensor-core OP/s
@@ -1454,17 +1480,18 @@ def phase_profile(dev, cap_b: int = CAP_B, cap: int = CAP):
     profile(dev, "one phase-1 K3 step", lambda: phase1.step(1))
 
 
-def phase_card_vs_cpu(dev):
-    """Walk decisions on the committed failure set: card == CPU, frame for
-    frame."""
+def phase_card_vs_cpu(dev, run_dir=R4, label="r4_pipeline"):
+    """Walk decisions on the committed failure set with ``run_dir``'s
+    artifacts: card == CPU, frame for frame."""
     blob = np.load(os.path.join(ROOT, "runs", "refparity", "failures.npz"))
     results = []
     for d in (dev, torch.device("cpu")):
-        run = load_run(os.path.join(ROOT, "runs", "r4_pipeline"), d)
+        run = load_run(run_dir, d)
         code = run["code"]
         blocks, acc = segments.build_tep_blocks(run["path"], code.k, 6)
         teps, mask, bounds = segments.pack_tep_chunks(blocks)
-        step = engine.make_dl_osd_step_from_llr(run["dia"], code, "NMS-1", ITERS,
+        step = engine.make_dl_osd_step_from_llr(run["dia"], code, run["variant"],
+                                                run["num_iterations"],
                                                 bounds=bounds)
         out, _, det = step({k: v.cpu() for k, v in run["nms_params"].items()},
                            torch.as_tensor(blob["llr"], device=d),
@@ -1476,8 +1503,9 @@ def phase_card_vs_cpu(dev):
             "detected": det.cpu()})
     for key, val in results[0].items():
         if not torch.equal(val, results[1][key]):
-            raise AssertionError(f"{key}: card differs from CPU on refparity")
-    log(f"refparity (96 rows): card == CPU frame for frame; "
+            raise AssertionError(f"{key}: card differs from CPU on refparity "
+                                 f"({label})")
+    log(f"refparity (96 rows, {label}): card == CPU frame for frame; "
         f"{int(results[0]['success'].sum())} successes")
 
 
@@ -1528,6 +1556,248 @@ def phase_path(dev):
     torch.cuda.empty_cache()
 
 
+# the JAX package's records of the flagship recipe (runs/r4_pipeline/):
+# train_failures_meta.json, decoding_path.json, stopper_samples_summary.json
+REF_HARVEST_ERRORS, REF_HARVEST_FRAMES = 47_140, 262_144
+REF_MRB_ZERO_REFINED, REF_MRB_ZERO_INITIAL = 15_255, 6_633
+REF_SAMPLES = {"success": 19_592, "fail": 338, "undetected": 70}
+# runs/r4_rnn1/fer_curve.json at 3.0 dB: OSD successes of 500 walked failures
+REF_RNN_OSD_SUCC, REF_RNN_OSD_N = 436, 500
+# RnnOne.refine card vs CPU (tests/test_torch_dia_models.py states rtol 1e-4)
+RNN_RTOL = 1e-4
+
+
+def recipe_config(run_dir):
+    """The ``RecipeConfig`` of a run directory's ``config.json``."""
+    with open(os.path.join(run_dir, "config.json")) as fh:
+        cfg = json.load(fh)
+    cfg["frame_portions"] = tuple(cfg.get("frame_portions", ()))
+    return recipe.RecipeConfig(**cfg)
+
+
+def overlap999(name, got, want):
+    """Raise unless the 99.9% Wilson intervals of two (successes, trials)
+    pairs overlap; return both intervals."""
+    a, b = wilson_interval(*got, Z999), wilson_interval(*want, Z999)
+    if not (a[0] <= b[1] and b[0] <= a[1]):
+        raise AssertionError(f"{name}: {got} (99.9% CI {a}) misses the record "
+                             f"{want} ({b})")
+    return a, b
+
+
+def numpy_tree_layout(tree):
+    """A pickle tree's key layout with (dtype, shape) leaves; raises on a
+    leaf that is not a numpy array."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree_layout(v) for k, v in tree.items()}
+    if not isinstance(tree, np.ndarray):
+        raise AssertionError(f"parameter leaf of type {type(tree).__name__}")
+    return (str(tree.dtype), tree.shape)
+
+
+def capture_memory(dev):
+    """Peak card bytes a frame of one capture step, measured against
+    ``recipe.capture_frame_bytes`` on three routes."""
+    code = get_code("ccsds_128_64")
+    for variant, decoder, batch in (("NMS-1", "edge", CAP_B),
+                                    ("NMS-r", "edge_padded", 16_384),
+                                    ("NMS-1", "plain", 4096)):
+        params = nms.init_params(variant, code.h)
+        step = harness.build_nms_mc_step(
+            code, variant, ITERS, ChannelSpec.awgn(2.7, code.rate), batch,
+            capture_capacity=min(batch, 20_000), decoder=decoder, device=dev)
+        gen = torch.Generator(device=dev)
+        params = {k: v.to(dev) for k, v in params.items()} if variant == "NMS-r" else params
+        gen.manual_seed(5)
+        step(params, gen)  # warm-up
+        synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        gen.manual_seed(6)
+        out = step(params, gen)
+        synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        del out
+        model = recipe.capture_frame_bytes(code.h, variant, decoder)
+        log(f"capture memory {variant} {decoder} at {batch} frames: "
+            f"{peak / batch:.1f} B a frame measured, {model} B modelled")
+
+
+def phase_recipe(dev):
+    """The seven-stage recipe of ``runs/r4_pipeline/config.json`` on the
+    card through ``pipeline.recipe``'s stages, in ``run_recipe``'s order,
+    with the JAX run's NMS factor seeded so stage 1 is reused (the trainer
+    is phase 10's); then the RNN refiner of ``runs/r4_rnn1``; then the
+    ``sldpc-torch sweep`` command line on the finished run directory."""
+    torch.cuda.empty_cache()
+    capture_memory(dev)
+    torch.cuda.empty_cache()
+    cfg = recipe_config(R4)
+    seconds = {}
+    timer = Timer(dev)
+
+    def staged(name, fn):
+        with timer.measure(name):
+            out = fn()
+        seconds[name] = timer.records[name][-1]
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run = recipe.RunDir(tmp)
+        run.save_json("config.json", dataclasses.asdict(cfg))
+        shutil.copy(os.path.join(R4, "nms_params.pkl"), run.path("nms_params.pkl"))
+        nms_params = recipe.stage_train_nms(cfg, run, log, dev)
+        log(f"recipe: capture batch {recipe.capture_batch(cfg, get_code(cfg.code_name), dev)} "
+            f"frames a step")
+        fb = staged("harvest_failures",
+                    lambda: recipe.stage_harvest_failures(cfg, run, nms_params, log, dev))
+        meta = run.load_json("train_failures_meta.json")
+        overlap999("harvest FER", (meta["detected_failures"], meta["frames"]),
+                   (REF_HARVEST_ERRORS, REF_HARVEST_FRAMES))
+        log("recipe harvest: " + json.dumps(meta | {
+            "kept": len(fb.trajectories), "overflow": fb.overflow,
+            "mismatches": fb.mismatches,
+            "record": [REF_HARVEST_ERRORS, REF_HARVEST_FRAMES]}))
+
+        model, path_ = staged("train_dia_and_path",
+                              lambda: recipe.stage_train_dia_and_path(cfg, run, fb, log, dev))
+        summary = run.load_json("dia_model_cnn_train_summary.json")
+        hist = summary["history"]
+        paths = run.load_json("decoding_path.json")
+        zero_refined = paths["hist_refined"].get("0", 0)
+        zero_initial = paths["hist_initial"].get("0", 0)
+        with open(os.path.join(R4, "decoding_path.json")) as fh:
+            ref_path = json.load(fh)["path"]
+        shared = sum(p in ref_path for p in path_)
+        log("recipe dia: " + json.dumps({
+            "train_seconds": summary["elapsed_s"],
+            "first_block": hist[0], "last_block": hist[-1],
+            "mrb_zero_refined": zero_refined, "mrb_zero_initial": zero_initial,
+            "record_zero_refined": REF_MRB_ZERO_REFINED,
+            "record_zero_initial": REF_MRB_ZERO_INITIAL,
+            "path_len": len(path_), "patterns_shared_with_jax": shared,
+            "path_head": path_[:6]}))
+        if not hist[-1]["loss_mean"] < hist[0]["loss_mean"]:
+            raise AssertionError(f"DIA loss did not fall: {hist[0]} -> {hist[-1]}")
+        if not zero_refined > zero_initial:
+            raise AssertionError(f"refined MRB zero-error count {zero_refined} <= "
+                                 f"initial {zero_initial}")
+
+        fcn = staged("train_stopper", lambda: recipe.stage_train_stopper(
+            cfg, run, model, fb, path_, log, dev))
+        samples = run.load_json("stopper_samples_summary.json")
+        val = run.load_json("stopper_validation.json")
+        with open(os.path.join(R4, "stopper_validation.json")) as fh:
+            ref_val = json.load(fh)
+        log("recipe stopper: " + json.dumps({
+            "samples": {k: samples[k] for k in REF_SAMPLES},
+            "record_samples": REF_SAMPLES, "validation": val,
+            "record_validation": ref_val}))
+        if not val["final_loss"] < val["initial_loss"]:
+            raise AssertionError(f"stopper loss did not fall: {val}")
+        phase_card_vs_cpu(dev, tmp, "the port-trained recipe")
+
+        snrs = np.linspace(2.0, 3.0, 6)
+        _kernels.reset_launches()
+        curve = staged("eval_sweep", lambda: recipe.stage_eval_sweep(
+            cfg, run, nms_params, model, fcn, path_, snrs, log, dev))
+        launches = dict(_kernels.LAUNCHES)
+        with open(os.path.join(R4, "fer_curve.json")) as fh:
+            ref_points = {round(p["snr_db"], 2): p for p in json.load(fh)["points"]}
+        for point in curve["points"]:
+            ref = ref_points[round(point["snr_db"], 2)]
+            osd, ref_osd = point["osd"], ref["osd"]
+            overlap999(f"{point['snr_db']:.1f} dB fer_nms_detected",
+                       (round(point["fer_nms_detected"] * point["frames"]),
+                        point["frames"]),
+                       (round(ref["fer_nms_detected"] * ref["frames"]), ref["frames"]))
+            overlap999(f"{point['snr_db']:.1f} dB OSD failure share",
+                       (osd["fail"], osd["success"] + osd["fail"]),
+                       (ref_osd["fail"], ref_osd["success"] + ref_osd["fail"]))
+            if not len(point["ce_list"]) == len(point["ber_list"]) == ITERS + 2:
+                raise AssertionError(f"CE/BER lists of {len(point['ce_list'])}, "
+                                     f"{len(point['ber_list'])} entries")
+            log(f"recipe sweep {point['snr_db']:.1f} dB: frames {point['frames']}, "
+                f"fer_nms_detected {point['fer_nms_detected']:.6f} (record "
+                f"{ref['fer_nms_detected']:.6f}), OSD {osd['success']}/{osd['fail']} "
+                f"(record {ref_osd['success']}/{ref_osd['fail']}), unconfirmed "
+                f"{point['osd_unconfirmed']}, fer_total {point['fer_total']:.4g}")
+        log(f"recipe sweep launches: {launches}")
+        for key in ("nms_edge_final", "nms_edge_traj", "ge_packed", "lterm"):
+            if not launches[key] > 0:
+                raise AssertionError(f"the eval sweep did not launch {key}: {launches}")
+
+        written = load_run(tmp, dev)
+        pickles = ("nms_params.pkl", "dia_model_cnn.pkl", "stopper_params.pkl")
+        layouts, ref_layouts = ({name: numpy_tree_layout(load_jax_pickle(
+            os.path.join(d, name))) for name in pickles} for d in (tmp, R4))
+        if layouts != ref_layouts:
+            raise AssertionError(f"run-dir pickles {layouts} != JAX's {ref_layouts}")
+        log(f"recipe run dir: loads through convert.load_run on the card "
+            f"({type(written['dia']).__name__}, {len(written['path'])} patterns); "
+            "its pickles hold numpy float32 trees in the JAX key layout")
+
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "short_ldpc_decoding_osd_tpu_torch.cli.main",
+             "sweep", "--run-dir", tmp, "--snrs", "3.0:3.0:1",
+             "--max-frames", str(cfg.max_frames_per_snr)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        seconds["cli_sweep_3db"] = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise AssertionError(f"sldpc-torch sweep failed: {cli.stderr[-2000:]}")
+        log(f"sldpc-torch sweep (cached stages, 3.0 dB): {cli.stdout.strip().splitlines()[-1][:400]}")
+
+        rnn_seconds = phase_rnn(dev, fb)
+    seconds |= rnn_seconds
+    log(f"recipe stage seconds on {torch.cuda.get_device_name(0)}: "
+        + json.dumps(seconds))
+
+
+def phase_rnn(dev, fb):
+    """``runs/r4_rnn1``'s RnnOne on the card: refine == CPU on 4,096
+    harvested rows; its two-phase decode at 3.0 dB against the record; 200
+    steps of ``train_dia(model="model_rnn1")`` on the harvested failures."""
+    seconds = {}
+    card, cpu = load_run(R4_RNN, dev), load_run(R4_RNN, "cpu")
+    rows = np.ascontiguousarray(fb.trajectories[:4096])
+    with torch.no_grad():
+        got = card["dia"].refine(torch.as_tensor(rows, device=dev)).cpu().numpy()
+        want = cpu["dia"].refine(torch.as_tensor(rows)).numpy()
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1.0)))
+    np.testing.assert_allclose(got, want, rtol=RNN_RTOL, atol=RNN_RTOL)
+    log(f"rnn: RnnOne.refine on 4,096 rows, card == CPU (max error {err:.3g}, "
+        f"rtol {RNN_RTOL})")
+
+    cfg = recipe_config(R4_RNN)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        curve = recipe.stage_eval_sweep(
+            cfg, recipe.RunDir(tmp), {k: v.cpu() for k, v in card["nms_params"].items()},
+            card["dia"], card["fcn"], card["path"], [3.0], log, dev)
+        synchronize(dev)
+        seconds["rnn_eval_3db"] = time.perf_counter() - t0
+    osd = curve["points"][0]["osd"]
+    overlap999("RnnOne OSD success share at 3.0 dB",
+               (osd["success"], osd["success"] + osd["fail"]),
+               (REF_RNN_OSD_SUCC, REF_RNN_OSD_N))
+    log(f"rnn: 3.0 dB OSD {osd['success']} of {osd['success'] + osd['fail']} "
+        f"(record {REF_RNN_OSD_SUCC} of {REF_RNN_OSD_N})")
+
+    code = get_code("ccsds_128_64")
+    t0 = time.perf_counter()
+    _, hist = dia_train.train_dia(code, fb.trajectories, fb.labels,
+                                  dia_train.DIATrainConfig(model="model_rnn1",
+                                                           termination_step=200),
+                                  device=dev)
+    synchronize(dev)
+    seconds["rnn_train_200"] = time.perf_counter() - t0
+    log(f"rnn: train_dia(model_rnn1) 200 steps: {hist}")
+    if not hist[-1]["loss_mean"] < hist[0]["loss_mean"]:
+        raise AssertionError(f"RnnOne loss did not fall: {hist}")
+    return seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1547,6 +1817,7 @@ def main():
     phase_sweep_dense(dev, rows)
     phase_padded(dev)
     phase_train(dev)
+    phase_recipe(dev)
     rows.sort(key=lambda row: row["name"])
     if any(row["launches"] is None or row["launches"] < 1 for row in rows):
         raise AssertionError("a kernel row has no launch on its path")

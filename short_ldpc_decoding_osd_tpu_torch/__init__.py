@@ -10,12 +10,9 @@ raise when CUDA is unavailable instead of falling back to the CPU.  Tests
 pass ``device="cpu"``, where every hand-written kernel's wrapper runs its
 plain PyTorch twin.
 
-TF32 is switched off for matmuls and convolutions: the JAX package runs the
-weighted contractions at ``Precision.HIGHEST`` (``osd/engine.py``,
-``models/dia.py``), and a TF32 product flips reliability ranks near ties.
+Weighted matmuls and convolutions run in IEEE f32 under
+``_device.full_f32``, which sets cuBLAS's and cuDNN's precision only for
+the call and restores the caller's: the JAX package runs those
+contractions at ``Precision.HIGHEST``, and a TF32 product flips
+reliability ranks near ties.
 """
-
-import torch
-
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False

@@ -1,6 +1,8 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and numeric settings shared by the port's entry points."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -21,3 +23,24 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued device work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run the enclosed cuBLAS matmuls and cuDNN convolutions in IEEE f32,
+    not TF32, and restore the caller's settings on exit.
+
+    The JAX package runs its weighted contractions at ``Precision.HIGHEST``
+    (``osd/engine.py``, ``models/dia.py``): a TF32 operand keeps 10 mantissa
+    bits, enough to flip reliability ranks near ties.  cuDNN allows TF32
+    for convolutions by default, so the DIA's ``Conv1d`` needs this even
+    where matmuls are already f32.  Backward passes run where
+    ``backward()`` is called, so a training loop holds the whole step under
+    this context.  Also a decorator."""
+    matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    saved = matmul.fp32_precision, conv.fp32_precision
+    matmul.fp32_precision = conv.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        matmul.fp32_precision, conv.fp32_precision = saved

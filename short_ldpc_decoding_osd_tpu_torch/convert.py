@@ -7,8 +7,10 @@ is its ``__setstate__`` payload.  :class:`JaxArrayUnpickler` maps exactly
 that global to a numpy-only shim and refuses every other ``jax.*`` global,
 so the artifacts load on a machine without JAX.
 
-:func:`from_jax_params` turns the numpy trees into the port's objects, and
-:func:`load_run` does both for a run directory.
+:func:`from_jax_params` turns the numpy trees into the port's objects,
+:func:`to_jax_params` turns them back (the port's run directories hold
+such plain numpy pickles, no torch or JAX globals), and :func:`load_run`
+loads a run directory of either package.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ import pickle
 
 import numpy as np
 import torch
+from torch import nn
 
 from ._device import resolve_device
 from .codes import Code, get_code
-from .models.dia import ConvBitwise, StopperFcn, canonical_dia_name, make_dia
+from .models.dia import StopperFcn, canonical_dia_name, make_dia
 
 
 def _reconstruct_array(fun, args, arr_state, aval_state):
@@ -57,32 +60,97 @@ def _t(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
 
 
+def dia_state_from_jax(dia_params: dict, device) -> dict:
+    """A DIA tree of the JAX package -> the port module's state dict on
+    ``device``; the model follows from the keys (``conv1``: ``model_cnn``,
+    ``gru1``: ``model_rnn1``, ``rnn1``: ``model_rnn2``).
+
+    * A flax conv kernel (3, in, out) becomes a torch ``Conv1d`` weight
+      (out, in, 3) by ``transpose(2, 1, 0)``; both are VALID
+      cross-correlations.  The CNN head kernel (14, 1) already indexes the
+      flattened (time, channel) order that ``ConvBitwise.forward`` yields.
+    * A recurrent cell's ``wi``/``wh`` keep JAX's ``x @ w`` layout.
+    * A Dense ``kernel`` (in, out) becomes a ``Linear`` weight (out, in)."""
+    p = dia_params["params"]
+    if "conv1" in p:
+        state = {f"conv{i}.weight": np.transpose(p[f"conv{i}"]["kernel"],
+                                                 (2, 1, 0))
+                 for i in (1, 2, 3)}
+        state["head.bias"] = p["head"]["bias"]
+    else:
+        cells = ("gru1", "gru2") if "gru1" in p else ("rnn1", "rnn2")
+        state = {f"{c}.{w}": p[c][w] for c in cells for w in ("wi", "wh")}
+    state["head.weight"] = np.asarray(p["head"]["kernel"]).T
+    return {k: _t(v, device) for k, v in state.items()}
+
+
+def dia_to_jax(dia_state: dict) -> dict:
+    """Inverse of :func:`dia_state_from_jax`: a port DIA state dict (or
+    module) -> the JAX package's tree of float32 numpy arrays."""
+    if isinstance(dia_state, torch.nn.Module):
+        dia_state = dia_state.state_dict()
+    s = {k: v.detach().cpu().numpy() for k, v in dia_state.items()}
+    if "conv1.weight" in s:
+        p = {f"conv{i}": {"kernel": np.ascontiguousarray(
+            np.transpose(s[f"conv{i}.weight"], (2, 1, 0)))} for i in (1, 2, 3)}
+        p["head"] = {"kernel": np.ascontiguousarray(s["head.weight"].T),
+                     "bias": s["head.bias"]}
+    else:
+        cells = ("gru1", "gru2") if "gru1.wi" in s else ("rnn1", "rnn2")
+        p = {c: {w: s[f"{c}.{w}"] for w in ("wi", "wh")} for c in cells}
+        p["head"] = {"kernel": np.ascontiguousarray(s["head.weight"].T)}
+    return {"params": p}
+
+
+def stopper_from_jax(stopper_params: dict, device) -> dict:
+    """A JAX stopper tree -> the engine's ``{w1, w2}`` tensors on
+    ``device``: ``dense1/kernel`` (w+1, w+1) and ``dense2/kernel`` (w+1, 2)
+    in the ``x @ w`` layout."""
+    s = stopper_params["params"]
+    return {"w1": _t(s["dense1"]["kernel"], device),
+            "w2": _t(s["dense2"]["kernel"], device)}
+
+
+def stopper_to_jax(fcn: dict) -> dict:
+    """Inverse of :func:`stopper_from_jax`."""
+    return {"params": {"dense1": {"kernel": fcn["w1"].detach().cpu().numpy()},
+                       "dense2": {"kernel": fcn["w2"].detach().cpu().numpy()}}}
+
+
+def nms_to_jax(nms_params: dict) -> dict:
+    """NMS parameters (tensors or arrays) -> a dict of float32 numpy arrays."""
+    return {k: np.asarray(torch.as_tensor(v).detach().cpu().numpy(), np.float32)
+            for k, v in nms_params.items()}
+
+
 def from_jax_params(nms_params: dict, dia_params: dict, stopper_params: dict,
                     device: str | torch.device = "cuda"):
-    """numpy trees -> (nms params dict, ConvBitwise state dict, stopper
-    ``{w1, w2}`` dict) on ``device`` (the card unless ``device="cpu"``).
-
-    * NMS: each leaf (e.g. ``{"check": (1,)}``) becomes a float32 tensor.
-    * DIA (``model_cnn``): a flax conv kernel (3, in, out) becomes a torch
-      ``Conv1d`` weight (out, in, 3) by ``transpose(2, 1, 0)``; both are
-      VALID cross-correlations.  The head kernel (14, 1) already indexes the
-      flattened (time, channel) order that ``ConvBitwise.forward`` produces.
-    * Stopper: ``dense1/kernel`` (6, 6) and ``dense2/kernel`` (6, 2) in the
-      ``x @ w`` layout the OSD engine uses."""
+    """numpy trees -> (nms params dict, DIA state dict, stopper ``{w1, w2}``
+    dict) on ``device`` (the card unless ``device="cpu"``): each NMS leaf
+    (e.g. ``{"check": (1,)}``) a float32 tensor, the DIA through
+    :func:`dia_state_from_jax` (any of the three refiners), the stopper
+    through :func:`stopper_from_jax`."""
     device = resolve_device(device)
     nms_t = {k: _t(v, device) for k, v in nms_params.items()}
-    p = dia_params["params"]
-    dia_state = {
-        f"conv{i}.weight": _t(np.transpose(p[f"conv{i}"]["kernel"], (2, 1, 0)),
-                              device)
-        for i in (1, 2, 3)
-    }
-    dia_state["head.weight"] = _t(np.asarray(p["head"]["kernel"]).T, device)
-    dia_state["head.bias"] = _t(p["head"]["bias"], device)
-    s = stopper_params["params"]
-    fcn = {"w1": _t(s["dense1"]["kernel"], device),
-           "w2": _t(s["dense2"]["kernel"], device)}
-    return nms_t, dia_state, fcn
+    return (nms_t, dia_state_from_jax(dia_params, device),
+            stopper_from_jax(stopper_params, device))
+
+
+def to_jax_params(nms_params: dict, dia_state, fcn: dict):
+    """Inverse of :func:`from_jax_params`: port parameters -> the JAX
+    package's numpy trees (nms dict, DIA tree, stopper tree), float32
+    arrays in its exact key layout, so a run directory the port writes is
+    one the JAX package reads.  ``dia_state`` is a state dict or module."""
+    return nms_to_jax(nms_params), dia_to_jax(dia_state), stopper_to_jax(fcn)
+
+
+def dia_module(name: str, n: int, list_length: int, dia_state: dict) -> nn.Module:
+    """The DIA ``name`` holding ``dia_state``, on its tensors' device, in
+    eval mode."""
+    device = next(iter(dia_state.values())).device
+    dia = make_dia(name, n, list_length).to(device)
+    dia.load_state_dict(dia_state)
+    return dia.eval()
 
 
 def stopper_module(fcn: dict) -> StopperFcn:
@@ -95,11 +163,12 @@ def stopper_module(fcn: dict) -> StopperFcn:
 
 
 def load_run(run_dir: str, device: str | torch.device = "cuda") -> dict:
-    """Load a JAX-package run directory (``config.json``, the three
-    parameter pickles and ``decoding_path.json``) into port objects.
+    """Load a run directory (``config.json``, the three parameter pickles
+    and ``decoding_path.json``), written by the JAX package or by the
+    port's ``pipeline.recipe``, into port objects.
 
     Returns ``config``, ``code`` (a :class:`Code`), ``variant``,
-    ``num_iterations``, ``nms_params``, ``dia`` (a ``ConvBitwise`` on
+    ``num_iterations``, ``nms_params``, ``dia`` (the config's refiner on
     ``device``, eval mode), ``fcn`` and ``path``.  ``device`` is the card
     unless the caller passes ``"cpu"``."""
     device = resolve_device(device)
@@ -112,9 +181,7 @@ def load_run(run_dir: str, device: str | torch.device = "cuda") -> dict:
     dia_np = load_jax_pickle(os.path.join(run_dir, f"dia_{dia_name}.pkl"))
     stop_np = load_jax_pickle(os.path.join(run_dir, "stopper_params.pkl"))
     nms_t, dia_state, fcn = from_jax_params(nms_np, dia_np, stop_np, device)
-    dia: ConvBitwise = make_dia(dia_name, code.n, iters + 1).to(device)
-    dia.load_state_dict(dia_state)
-    dia.eval()
+    dia = dia_module(dia_name, code.n, iters + 1, dia_state)
     with open(os.path.join(run_dir, "decoding_path.json")) as fh:
         path = json.load(fh)["path"]
     return {

@@ -3,10 +3,11 @@
 Port of ``short_ldpc_decoding_osd_tpu/mc/harness.py``: ``build_nms_mc_step``
 (:144-292), ``FailureBatch`` (:95-116), ``trajectories_for_llrs``
 (:298-341), ``detected_failure_mask`` (:344-357), ``run_nms_mc`` (:360-592,
-without ``mesh``) and ``_write_resume`` (:595-608).  The step is factored
-into :func:`sample_batch` (channel) and :func:`count_and_capture` (counters
-+ the failures-first compaction), so the second half can be held against
-JAX on identical arrays.
+without ``mesh``), ``_write_resume`` (:595-608) and the failure set's
+per-iteration ``iteration_ce_list``/``iteration_ber_list`` (:611-625).
+The step is factored into :func:`sample_batch` (channel) and
+:func:`count_and_capture` (counters + the failures-first compaction), so
+the second half can be held against JAX on identical arrays.
 
 Capture keeps detected failures (nonzero syndrome) first, IN FRAME ORDER:
 the stable ``argsort(~flag)[:capacity]`` of ``harness.py:275-276``.  Rows
@@ -169,7 +170,9 @@ def trajectories_for_llrs(code: Code, params: dict, variant: str,
                           device: str | torch.device = "cuda") -> np.ndarray:
     """Re-decode captured failure LLRs with the dense decoder
     (``ops/nms.decode``), returning (N, T+1, n) per-iteration soft outputs;
-    ``chunk`` rows at a time, the last chunk zero-padded as in JAX."""
+    ``chunk`` rows at a time.  JAX zero-pads the last chunk to a fixed
+    compile shape; nothing is compiled here and each row decodes alone, so
+    the last chunk keeps its own size."""
     dev = resolve_device(device)
     decode_h = code.extended().h if variant == "ENMS" else code.h
     n_total = len(llrs)
@@ -177,15 +180,13 @@ def trajectories_for_llrs(code: Code, params: dict, variant: str,
         return np.zeros((0, num_iterations + 1, code.n), np.float32)
     edge_cols = nms.edge_columns(decode_h) if variant == "NMS-r" else None
     params = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
-    pad = (-n_total) % chunk
-    padded = np.concatenate([np.asarray(llrs, np.float32),
-                             np.zeros((pad, code.n), np.float32)])
+    llrs = np.asarray(llrs, np.float32)
     parts = []
-    for i in range(0, len(padded), chunk):
-        x = torch.as_tensor(padded[i:i + chunk], device=dev)
+    for i in range(0, n_total, chunk):
+        x = torch.as_tensor(llrs[i:i + chunk], device=dev)
         outs = nms.decode(params, decode_h, x, num_iterations, variant, edge_cols)
         parts.append(outs.permute(1, 0, 2).cpu().numpy())
-    return np.concatenate(parts)[:n_total]
+    return np.concatenate(parts)
 
 
 def detected_failure_mask(code: Code, variant: str,
@@ -360,3 +361,22 @@ def _write_resume(path: str, seed: int, snr_db: float, step_idx: int,
     with open(path, "wt") as fh:
         json.dump({"seed": seed, "snr_db": snr_db, "step_idx": step_idx,
                    "stats": dataclasses.asdict(stats)}, fh)
+
+
+def iteration_ce_list(trajectories: np.ndarray, labels: np.ndarray) -> list[float]:
+    """Per-iteration cross-entropy over a failure set, summed in f64 on the
+    host (``ms_test.py:251-267``; JAX ``mc/harness.py:611-616``)."""
+    logits = -trajectories.astype(np.float64)  # (N, T+1, n)
+    z = labels[:, None, :].astype(np.float64)
+    ce = np.maximum(logits, 0) - logits * z + np.log1p(np.exp(-np.abs(logits)))
+    return [float(x) for x in ce.sum(axis=(0, 2))]
+
+
+def iteration_ber_list(trajectories: np.ndarray, labels: np.ndarray) -> list[float]:
+    """Per-iteration bit error rate over a failure set (the reference's BER
+    bookkeeping beside the CE list, ``nn_testing.py:205-210``; JAX
+    ``mc/harness.py:619-625``)."""
+    hard = trajectories <= 0
+    err = hard != (labels[:, None, :] > 0)
+    denom = max(trajectories.shape[0] * trajectories.shape[2], 1)
+    return [float(x) / denom for x in err.sum(axis=(0, 2))]

@@ -1,15 +1,25 @@
 from .dia import (
+    DIA_MODELS,
     ConvBitwise,
+    RnnOne,
+    RnnTwo,
     StopperFcn,
     canonical_dia_name,
+    dia_loss,
+    init_flax_,
     make_dia,
     stopper_engine_params,
 )
 
 __all__ = [
+    "DIA_MODELS",
     "ConvBitwise",
+    "RnnOne",
+    "RnnTwo",
     "StopperFcn",
     "canonical_dia_name",
+    "dia_loss",
+    "init_flax_",
     "make_dia",
     "stopper_engine_params",
 ]

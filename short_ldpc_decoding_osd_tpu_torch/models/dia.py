@@ -1,25 +1,38 @@
-"""DIA (decoding-information-aggregation) reliability refiner + stopper.
+"""DIA (decoding-information-aggregation) reliability refiners + stopper.
 
-Port of ``short_ldpc_decoding_osd_tpu/models/dia.py:27-84,172-227`` as
-``nn.Module``s that own their weights:
+Port of ``short_ldpc_decoding_osd_tpu/models/dia.py`` as ``nn.Module``s
+that own their weights:
 
 * ``ConvBitwise`` — per-bit 1-D CNN over the (T+1)-step trajectory:
   Conv1d(1->8, k3, valid) -> Conv1d(8->4) -> Conv1d(4->2) -> flatten ->
   Linear(1), all linear, no conv biases (``DL_Training_serial/nn_net.py:173-207``).
+* ``RnnOne`` — linear GRU(n) -> linear GRU(n) -> Linear(n, no bias) over the
+  (B, T+1, n) sequence (``nn_net.py:386-418``).
+* ``RnnTwo`` — linear SimpleRNN(n) x2 -> Linear(n, no bias)
+  (``nn_net.py:420-453``).
 * ``StopperFcn`` — Linear(w+1, no bias) -> Linear(2, no bias) -> softmax
   (``nn_net.py:136-148``).
 
 Layout: flax flattens the conv output (N, time, channel); a torch
 ``Conv1d`` yields (N, channel, time), so ``ConvBitwise`` permutes before
 flattening and the head weights keep the JAX package's order
-(``convert.from_jax_params``).  The RNN refiners (``RnnOne``/``RnnTwo``) are
-not ported yet.
+(``convert.from_jax_params``).  The recurrent cells keep JAX's ``x @ w``
+kernels as they are: ``wi`` (d, 3F) and ``wh`` (F, 3F), gates split
+(z, r, c).  ``torch.nn.GRU`` cannot stand in: it applies ``tanh`` to the
+candidate, orders its gates (r, z, n) and has biases.
+
+Every forward runs in IEEE f32 (``_device.full_f32``).  :func:`init_flax_`
+draws flax's initial weights from a seeded generator.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+
+from .._device import full_f32
 
 
 class ConvBitwise(nn.Module):
@@ -34,6 +47,7 @@ class ConvBitwise(nn.Module):
         self.conv3 = nn.Conv1d(4, 2, 3, bias=False)
         self.head = nn.Linear(2 * (list_length - 6), 1)
 
+    @full_f32()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, 1, T+1) per-bit trajectories -> (N,) refined values."""
         x = self.conv3(self.conv2(self.conv1(x)))  # (N, 2, T-5)
@@ -70,6 +84,96 @@ class ConvBitwise(nn.Module):
         return (trajectories * taps[None, :, None]).sum(1) + bias
 
 
+class _LinearGRU(nn.Module):
+    """GRU with a linear candidate and no biases (JAX ``models/dia.py:87-113``):
+    z = sigmoid(x wi_z + h wh_z), r = sigmoid(x wi_r + h wh_r),
+    cand = x wi_c + r * (h wh_c), h' = z h + (1 - z) cand."""
+
+    def __init__(self, d: int, features: int):
+        super().__init__()
+        self.wi = nn.Parameter(torch.zeros(d, 3 * features))
+        self.wh = nn.Parameter(torch.zeros(features, 3 * features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, d) -> (B, T, features), the state after each step."""
+        features = self.wh.shape[0]
+        gi = x @ self.wi  # every step's input projection at once
+        h = x.new_zeros((x.shape[0], features))
+        seq = []
+        for t in range(x.shape[1]):
+            iz, ir, ic = gi[:, t].split(features, dim=-1)
+            hz, hr, hc = (h @ self.wh).split(features, dim=-1)
+            z = torch.sigmoid(iz + hz)
+            r = torch.sigmoid(ir + hr)
+            h = z * h + (1.0 - z) * (ic + r * hc)
+            seq.append(h)
+        return torch.stack(seq, 1)
+
+
+class _LinearSimpleRNN(nn.Module):
+    """SimpleRNN with linear activation and no biases (JAX
+    ``models/dia.py:116-133``): h' = x wi + h wh."""
+
+    def __init__(self, d: int, features: int):
+        super().__init__()
+        self.wi = nn.Parameter(torch.zeros(d, features))
+        self.wh = nn.Parameter(torch.zeros(features, features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gi = x @ self.wi
+        h = x.new_zeros((x.shape[0], self.wh.shape[0]))
+        seq = []
+        for t in range(x.shape[1]):
+            h = gi[:, t] + h @ self.wh
+            seq.append(h)
+        return torch.stack(seq, 1)
+
+
+class _Rnn(nn.Module):
+    """Two recurrent layers over the (B, T+1, n) sequence, then a bias-free
+    Linear(n) of the last state."""
+
+    cell = None  # the recurrent layer class
+    names = ()  # its two layers' names, the JAX package's parameter keys
+
+    def __init__(self, n: int, list_length: int):
+        super().__init__()
+        self.n = n
+        self.list_length = list_length
+        for name in self.names:
+            setattr(self, name, self.cell(n, n))
+        self.head = nn.Linear(n, n, bias=False)
+
+    @full_f32()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        first, second = (getattr(self, name) for name in self.names)
+        return self.head(second(first(x))[:, -1])
+
+    def refine(self, trajectories: torch.Tensor) -> torch.Tensor:
+        """(B, T+1, n) trajectories -> (B, n) refined reliabilities."""
+        return self.forward(trajectories)
+
+    @torch.no_grad()
+    def refine_fast(self, trajectories: torch.Tensor) -> torch.Tensor:
+        """The same map as :meth:`refine`, without autograd (JAX
+        ``refine_fast = refine``)."""
+        return self.forward(trajectories)
+
+
+class RnnOne(_Rnn):
+    """GRU x2 over the iteration sequence."""
+
+    cell = _LinearGRU
+    names = ("gru1", "gru2")
+
+
+class RnnTwo(_Rnn):
+    """SimpleRNN x2 over the iteration sequence."""
+
+    cell = _LinearSimpleRNN
+    names = ("rnn1", "rnn2")
+
+
 class StopperFcn(nn.Module):
     """Sliding-window early-termination classifier."""
 
@@ -79,11 +183,13 @@ class StopperFcn(nn.Module):
         self.dense1 = nn.Linear(input_width, input_width, bias=False)
         self.dense2 = nn.Linear(input_width, 2, bias=False)
 
+    @full_f32()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.softmax(self.dense2(self.dense1(x)), dim=-1)
 
 
-DIA_MODELS = {"model_cnn": ConvBitwise}
+DIA_MODELS = {"model_cnn": ConvBitwise, "model_rnn1": RnnOne,
+              "model_rnn2": RnnTwo}
 
 # the reference's CNN/RNN1/RNN2 spellings and the nn_net.py builder names
 DIA_ALIASES = {
@@ -93,16 +199,15 @@ DIA_ALIASES = {
     "rnn1": "model_rnn1",
     "rnn2": "model_rnn2",
 }
-_KNOWN = ("model_cnn", "model_rnn1", "model_rnn2")
 
 
 def canonical_dia_name(kind: str) -> str:
     """Resolve a DIA model name (or alias) to its registry key."""
     name = DIA_ALIASES.get(kind, kind)
-    if name not in _KNOWN:
+    if name not in DIA_MODELS:
         raise ValueError(
             f"unknown DIA model {kind!r}; expected one of "
-            f"{sorted(_KNOWN) + sorted(DIA_ALIASES)}"
+            f"{sorted(DIA_MODELS) + sorted(DIA_ALIASES)}"
         )
     return name
 
@@ -110,18 +215,59 @@ def canonical_dia_name(kind: str) -> str:
 def make_dia(kind: str, n: int, list_length: int) -> nn.Module:
     """Construct a DIA model by reference prefix name (aliases accepted)."""
     kind = canonical_dia_name(kind)
-    if kind not in DIA_MODELS:
-        raise NotImplementedError(f"{kind} is not ported yet (model_cnn is)")
-    if list_length < 7:
+    if kind == "model_cnn" and list_length < 7:
         # three valid-padding k=3 convs consume 6 steps (nn_net.py:190-196)
         raise ValueError(
             f"model_cnn needs list_length (BP iterations + 1) >= 7, got "
-            f"{list_length}; use >= 6 decoding iterations"
+            f"{list_length}; use >= 6 decoding iterations or an RNN refiner"
         )
     return DIA_MODELS[kind](n=n, list_length=list_length)
+
+
+def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator) -> None:
+    """flax ``lecun_normal``: a normal truncated at two standard deviations,
+    rescaled to variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+@torch.no_grad()
+def init_flax_(model: nn.Module, seed: int) -> nn.Module:
+    """Draw ``model``'s weights as flax initialises the JAX module (another
+    random stream, the same distributions), from a CPU generator seeded
+    ``seed``, so the card and the CPU start from the same weights: Conv and
+    Dense kernels ``lecun_normal``, biases zero, a recurrent cell's input
+    kernel ``glorot_uniform`` and its recurrent kernel ``orthogonal``.
+    PyTorch's own defaults (kaiming-uniform, nonzero biases) would train
+    another refiner.  Returns ``model``."""
+    gen = torch.Generator().manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, (nn.Conv1d, nn.Linear)):
+            w = torch.empty(module.weight.shape)
+            _lecun_normal_(w, module.weight[0].numel(), gen)
+            module.weight.copy_(w)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, (_LinearGRU, _LinearSimpleRNN)):
+            wi, wh = torch.empty(module.wi.shape), torch.empty(module.wh.shape)
+            nn.init.xavier_uniform_(wi, generator=gen)
+            nn.init.orthogonal_(wh, generator=gen)
+            module.wi.copy_(wi)
+            module.wh.copy_(wh)
+    return model
 
 
 def stopper_engine_params(stopper: StopperFcn) -> dict:
     """The plain {w1, w2} dict (x @ w layout) the OSD engine consumes."""
     return {"w1": stopper.dense1.weight.detach().T.contiguous(),
             "w2": stopper.dense2.weight.detach().T.contiguous()}
+
+
+def dia_loss(refined: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Sigmoid CE with logits = -refined, summed over every bit of the
+    batch (``nn_training.py:293-297``; a sum, not a mean)."""
+    logits = -refined
+    z = labels.to(logits.dtype)
+    return (torch.clamp(logits, min=0.0) - logits * z
+            + torch.log1p(torch.exp(-logits.abs()))).sum()

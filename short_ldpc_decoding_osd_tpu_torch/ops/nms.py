@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import full_f32
+
 VARIANTS = ("NMS-1", "NMS-2", "NMS-3", "NMS-r", "ENMS")
 
 _INIT = -0.048
@@ -145,6 +147,7 @@ def _check_update_minsum(vc, h, w_chk):
     return w_chk * edge_mag * edge_sign.detach()
 
 
+@full_f32()
 def _check_update_neural(vc, h, params, edge_cols):
     """NMS-r: per edge, the sorted magnitudes of the row's other dc-1 edges
     through a non-negative 2-layer linear NN."""

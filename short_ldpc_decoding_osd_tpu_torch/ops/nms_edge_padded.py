@@ -30,6 +30,7 @@ import functools
 import numpy as np
 import torch
 
+from .._device import full_f32
 from . import nms, nms_dense, nms_edge
 
 __all__ = ["edge_layout", "supports", "auto_select", "train_select",
@@ -148,6 +149,7 @@ def _check_update_minsum_edge(vc, real, w_chk):
     return w_chk * edge_mag * edge_sign.detach()
 
 
+@full_f32()
 def _check_update_neural_edge(vc, real, params, loo_idx):
     """``nms._check_update_neural`` on the (B, dc, m) layout: per edge, the
     sorted magnitudes of the row's other dc-1 edges (``loo_idx`` (dc, dc-1)

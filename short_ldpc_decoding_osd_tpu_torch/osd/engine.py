@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from .._device import full_f32
 from ..ops import gf2ops, nms, nms_edge, nms_edge_padded, osd_disc
 from ..ops.nms import first_argmin, first_index
 
@@ -108,6 +109,7 @@ def _discrepancy_terms(prep: PreparedBatch, k: int):
     return c0, u_l, u_m, base_mrb
 
 
+@full_f32()
 def _disc_flat_chunked(prep: PreparedBatch, teps: torch.Tensor,
                        mask: torch.Tensor, k: int) -> torch.Tensor:
     """(B, C*chunk) masked discrepancies for the dense-chunked TEP layout;
@@ -119,6 +121,7 @@ def _disc_flat_chunked(prep: PreparedBatch, teps: torch.Tensor,
     return torch.where(mask.reshape(-1)[None, :], disc, _BIG)
 
 
+@full_f32()
 def _block_disc_scan(prep: PreparedBatch, teps, mask, k: int, post=None):
     """Loop over TEP blocks -> per-block ``post(disc)``, or the stacked
     masked discrepancies (P, B, Nmax) when ``post`` is None."""
@@ -163,6 +166,7 @@ def block_discrepancy_minima(prep: PreparedBatch, teps: torch.Tensor,
     return minima, argmins
 
 
+@full_f32()
 def stopper_apply(fcn_params: dict, x: torch.Tensor) -> torch.Tensor:
     """Sliding-window stopper FCN: Dense(w+1, linear) -> Dense(2, softmax),
     no biases, full f32 (``nn_net.py:136-148``)."""
@@ -349,9 +353,45 @@ def redecode_trajectory(nms_params, decode_h, llr: torch.Tensor,
     raise ValueError(f"unknown re-decode route {route!r}")
 
 
+def make_dl_osd_step(model, h, k: int, window: int = 5,
+                     soft_margin: float = 0.9, bounds: tuple | None = None):
+    """DIA-OSD evaluation of captured trajectories: ``model.refine_fast``
+    -> :func:`prepare` (the channel slot 0 as the original metric) ->
+    :func:`sliding_osd` (JAX ``osd/engine.py:558-607``, the trajectory
+    form).
+
+    Returns ``step(traj, labels, teps, mask, acc, fcn_params) ->
+    (outputs, refined)``; ``model`` carries its own weights."""
+
+    def step(traj, labels, teps, mask, acc, fcn_params):
+        refined = model.refine_fast(traj)
+        prep = prepare(refined, traj[:, 0], labels, h, k)
+        out = sliding_osd(prep, teps, mask, acc, fcn_params, k, window=window,
+                          soft_margin=soft_margin, bounds=bounds)
+        return out, refined
+
+    return step
+
+
+def iteration_stat_rows(traj: torch.Tensor, refined: torch.Tensor,
+                        labels: torch.Tensor):
+    """Per-row CE and bit-error counts (B, T+2) over the T+1 trajectory
+    slots and the DIA-refined slot (last), in f32 on the device (JAX
+    ``osd/engine.py:708-726``; the reference's 'CE list'/'BER list',
+    ``ms_test.py:251-267``, ``nn_testing.py:205-210``)."""
+    stacked = torch.cat([traj, refined[:, None, :]], 1)
+    logits = -stacked
+    z = labels.to(torch.float32)[:, None, :]
+    ce_rows = (torch.clamp(logits, min=0.0) - logits * z
+               + torch.log1p(torch.exp(-logits.abs()))).sum(2)
+    ber_rows = ((stacked <= 0) != (z > 0)).to(torch.float32).sum(2)
+    return ce_rows, ber_rows
+
+
 def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
                               window: int = 5, soft_margin: float = 0.9,
-                              bounds: tuple | None = None):
+                              bounds: tuple | None = None,
+                              with_iteration_stats: bool = False):
     """Phase-2 step consuming RAW failure LLRs: the (T+1)-slot trajectory
     re-decode, DIA refinement (``model.refine_fast``), OSD preparation and
     the sliding walk.
@@ -360,11 +400,12 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
     (outputs, refined, detected)``; ``detected`` is the re-decode's
     detected-failure flag (``nms.frame_stats``), so rows the capture flagged
     but the re-decode does not confirm can be excluded by the caller.
-    ``model`` carries its own weights (an ``nn.Module``).
+    ``model`` carries its own weights (an ``nn.Module``).  With
+    ``with_iteration_stats`` the step also returns
+    :func:`iteration_stat_rows`' ``(ce_rows, ber_rows)`` as a fourth item.
 
     The re-decode is :func:`redecode_trajectory` on the route of
-    :func:`redecode_route`.  The JAX step's ``with_iteration_stats``
-    diagnostics are not ported."""
+    :func:`redecode_route`."""
     decode_h = code.extended().h if variant == "ENMS" else code.h
     edge_cols = nms.edge_columns(decode_h) if variant == "NMS-r" else None
     k = code.k
@@ -381,6 +422,9 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
         prep = prepare(refined, llr, labels, h_osd, k)
         out = sliding_osd(prep, teps, mask, acc, fcn_params, k, window=window,
                           soft_margin=soft_margin, bounds=bounds)
-        return out, refined, st["detected_failure"]
+        if not with_iteration_stats:
+            return out, refined, st["detected_failure"]
+        return (out, refined, st["detected_failure"],
+                iteration_stat_rows(traj, refined, labels))
 
     return step

@@ -28,7 +28,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import full_f32, resolve_device
 from ..channel.awgn import ChannelSpec, sample_batch
 from ..codes import Code
 from ..ops import nms, nms_edge_padded
@@ -134,6 +134,7 @@ def train_nms(code: Code, config: NMSTrainConfig, ckpt_dir: str | None = None,
             opt.load_state_dict(blob["opt_state"])
             start_step = saved_step + 1
 
+    @full_f32()  # the backward pass too
     def one_step(step_idx):
         opt.zero_grad()
         sums = torch.zeros(3, device=dev)

@@ -1,3 +1,4 @@
 from .metrics import DecodeStats, wilson_interval
+from .profiling import JsonlLogger, Timer
 
-__all__ = ["DecodeStats", "wilson_interval"]
+__all__ = ["DecodeStats", "wilson_interval", "JsonlLogger", "Timer"]
