@@ -86,7 +86,24 @@ Phases (each raises on failure, so the script never exits 0 after one):
     ``train_dia(model="model_rnn1")`` lowering the loss; each stage's
     seconds (statistics against the records by 99.9% Wilson overlap);
     before it, the capture step's peak bytes a frame on three routes
-    beside ``recipe.capture_frame_bytes``.
+    beside ``recipe.capture_frame_bytes``;
+12. the OSD baselines (``baselines/``): FS-OSD in both scoring modes, PB-OSD,
+    conventional OSD at order 3 and the miracle view on the 256 frames of
+    ``runs/refparity/base_failures.npz``, every per-frame field on the card
+    equal to the port's CPU run, success flags and FS TEP counts equal to
+    the record, the PB fields that differ from it printed; the GE kernel's
+    dense load on their G-domain inputs (== its plain twin == the dense
+    route) and K5 on M = P^T with the 43,744 order-3 TEPs (against the f64
+    evaluation and its twin), each timed against its bound, K5 also
+    against the fp16 einsum; the host's time to build the static TEP
+    tables, and one FS and one PB call under ``torch.profiler``; then
+    ``sldpc-torch baseline`` for every kind
+    at ``runs/r5_baselines``'s configuration (4 points, 65,536 frames a
+    step, 256 failures a point) in a temporary run directory with that
+    run's NMS factor, launch counts reset just before and read just after
+    (K1, GE and K5 only), each point's ``fer_nms``, each kind's successes
+    and the miracle view's ``floor_order3`` against the records by 99.9%
+    Wilson overlap, the seconds of every kind and point.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -95,6 +112,7 @@ prints no result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -111,9 +129,12 @@ import torch
 from torch.autograd import DeviceType
 
 from short_ldpc_decoding_osd_tpu_torch import _kernels, system
+from short_ldpc_decoding_osd_tpu_torch.baselines import (common, conventional,
+                                                         fs_osd, pb_osd)
 from short_ldpc_decoding_osd_tpu_torch._device import synchronize
 from short_ldpc_decoding_osd_tpu_torch.channel import ChannelSpec, sample_batch
 from short_ldpc_decoding_osd_tpu_torch.channel.awgn import sigma_for_snr
+from short_ldpc_decoding_osd_tpu_torch.cli.main import main as cli_main
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.convert import load_jax_pickle, load_run
 from short_ldpc_decoding_osd_tpu_torch.mc import harness
@@ -1798,6 +1819,324 @@ def phase_rnn(dev, fb):
     return seconds
 
 
+# runs/r5_baselines: the JAX package's baseline records on CCSDS (128,64),
+# NMS-1 with that directory's trained factor, 12 iterations (the key of its
+# baseline_failures_*.json); the command line that reproduces them
+R5_BASE = os.path.join(ROOT, "runs", "r5_baselines")
+BASE_KINDS = ("miracle", "fs", "pb", "conventional")  # miracle first: it captures
+BASE_SNRS = ("2.00", "2.50", "3.00", "3.50")
+BASE_ARGS = ["--snrs", "2.0:3.5:4", "--failure-budget", "128", "--batch",
+             "65536", "--seed", "0", "--order", "3", "--beta", "0.1",
+             "--d-min", "14", "--tau-psc", "30"]
+# launches of one four-kind sweep of 4 points: GE once a kind and point, K5
+# twice a point for FS and PB (uw_l + uh_l, uw_l + v_p), once for
+# conventional OSD (uw_l), never for the miracle view
+BASE_GE_LAUNCHES, BASE_K5_LAUNCHES = 16, 20
+
+
+def read_json(path):
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def baseline_runs(dev):
+    """Every baseline on ``base_failures.npz``'s 256 frames on ``dev``: FS in
+    both modes, PB at the record's ``osd_snr``, conventional OSD at order 3
+    and the miracle view; per-frame outputs on the host, and the card's
+    seconds of each (closed by a synchronisation)."""
+    code = get_code("ccsds_128_64")
+    blob = np.load(os.path.join(ROOT, "runs", "refparity", "base_failures.npz"))
+    llr = torch.as_tensor(blob["llr"], device=dev)
+    labels = torch.as_tensor(blob["labels"], device=dev)
+    fs_kw = dict(order_limit=3, beta=0.1, d_min=14, tau_psc=30, device=dev)
+    calls = {
+        "fs_intended": lambda: fs_osd.fs_osd(llr, labels, code.g, code.k,
+                                             score_tau_e_codeword=True, **fs_kw),
+        "fs_literal": lambda: fs_osd.fs_osd(llr, labels, code.g, code.k,
+                                            score_tau_e_codeword=False, **fs_kw),
+        "pb": lambda: pb_osd.pb_osd(llr, labels, code.g, code.k,
+                                    snr_db=float(blob["osd_snr"]), device=dev),
+        "conventional": lambda: conventional.conventional_osd(
+            llr, labels, code.g, code.k, order_limit=3, device=dev),
+        "miracle": lambda: {"hist": conventional.miracle_view(
+            llr, labels, code.g, code.k, device=dev)},
+    }
+    outs, seconds = {}, {}
+    for name, fn in calls.items():
+        synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(dev)
+        seconds[name] = time.perf_counter() - t0
+        outs[name] = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                      for k, v in out.items()}
+    return blob, outs, seconds
+
+
+def baselines_parity(dev, card):
+    """(a) The 256 parity frames: every per-frame field on the card equal to
+    the port's CPU run in this process; success flags and FS TEP counts
+    equal to the ``.npz``; the PB cost fields that differ from the ``.npz``
+    (a TPU record of the JAX package) printed."""
+    blob, gpu, gpu_s = baseline_runs(dev)
+    blob, cpu, cpu_s = baseline_runs(torch.device("cpu"))
+    for name, fields in gpu.items():
+        for key, val in fields.items():
+            if not np.array_equal(np.asarray(val), np.asarray(cpu[name][key])):
+                frames = (np.flatnonzero(val != cpu[name][key]).tolist()
+                          if isinstance(val, np.ndarray) and val.ndim else [])
+                raise AssertionError(f"baselines {name}.{key}: card differs from "
+                                     f"CPU at frames {frames[:20]}")
+    record = {("fs_intended", "success"): "fs_success_intended",
+              ("fs_literal", "success"): "fs_success_literal",
+              ("fs_intended", "num_teps"): "fs_num_teps",
+              ("fs_literal", "num_teps"): "fs_num_teps_literal",
+              ("pb", "success"): "pb_success"}
+    for (name, key), field in record.items():
+        if not np.array_equal(gpu[name][key], blob[field]):
+            raise AssertionError(f"baselines {name}.{key} differs from the "
+                                 f".npz's {field}")
+    pb_diff = {key: np.flatnonzero(gpu["pb"][key] != blob[field]).tolist()
+               for key, field in (("num_teps", "pb_cost"),
+                                  ("maintained_list", "pb_maintained"),
+                                  ("suc_evals", "pb_suc_evals"),
+                                  ("improvements", "pb_improvements"))}
+    log(f"baselines parity (256 frames of base_failures.npz, 3.0 dB): card == "
+        f"CPU on every field of FS (both modes), PB, conventional OSD and the "
+        f"miracle view; success flags and FS TEP counts == the .npz; PB fields "
+        f"that differ from the .npz (a TPU record): {json.dumps(pb_diff)} "
+        f"(expected num_teps/maintained_list/suc_evals at [36, 126, 128, 145, "
+        f"194], improvements at none)")
+    log("baselines parity successes: " + json.dumps({
+        name: int(out["success"].sum()) for name, out in gpu.items()
+        if "success" in out}) + f"; miracle histogram "
+        f"{dict(sorted(gpu['miracle']['hist'].items()))}")
+    log(f"baselines parity seconds on {card} (each "
+        f"closed by a synchronisation): {json.dumps(gpu_s)}; on the host's "
+        f"CPU {json.dumps(cpu_s)}")
+
+
+def baselines_kernels(dev, card):
+    """(b) GE's dense load and K5 at the baselines' shapes: the 256 frames'
+    G-domain inputs (GE == its plain twin == the dense route bit for bit)
+    and M = P^T with the order-3 TEPs (K5 against the f64 evaluation and its
+    plain twin), each timed against its bound; K5 also against the fp16
+    einsum."""
+    code = get_code("ccsds_128_64")
+    blob = np.load(os.path.join(ROOT, "runs", "refparity", "base_failures.npz"))
+    llr = torch.as_tensor(blob["llr"], device=dev)
+    labels = torch.as_tensor(blob["labels"], device=dev)
+    b, n, k = llr.shape[0], code.n, code.k
+    order = torch.sort(-llr.abs(), dim=-1, stable=True).indices
+    g_sorted = gf2ops.permute_columns(order, code.g)
+    ge_check("baselines G-domain (dense load)", h_batch=g_sorted, k=n - k)
+    plan = gf2_bitpack.ge_plan(b, k, n)
+    ge_build_lines([("baselines G-domain", k, n, plan)])
+    ge = ge_time(f"baselines G-domain on {card}", lambda: gf2_bitpack.reduce_dense(
+        g_sorted, n - k), b, k, n, n - k, "dense")
+    ge["plain_ms"] = cuda_ms(lambda: gf2_bitpack._reduce_dense_plain(
+        g_sorted, n - k), 3, warmup=1)
+    ge["dense_route_ms"] = cuda_ms(lambda: gf2ops.batched_row_reduce(g_sorted),
+                                   3, warmup=1)
+    ge["ms"] = ge.pop("wrapper_ms")
+    ge["library_ms"] = None
+    ge["shape"] = (f"G-domain ({b}, {k}, {n}) int8 -> tail ({b}, {k}, {n - k}) "
+                   f"int8 + col_order ({b}, {n}) int32")
+
+    prep = common.prepare_g_domain(llr, labels, code.g, k)
+    terms = common.candidate_distance_terms(prep, k)
+    m_mat = prep["p_matrix"].transpose(1, 2).contiguous()
+    u_l = terms["uw_l"]
+    t_flat = torch.as_tensor(fs_osd.sequential_tep_matrix(k, 3)[0], device=dev)
+    err = k5_check("baselines (M = P^T, order-3 TEPs)", m_mat, u_l, t_flat)
+    ntot = t_flat.shape[0]
+    kplan = osd_disc.lterm_plan(b, n - k, k, ntot)
+    occ = osd_disc.lterm_occupancy(kplan, torch.cuda.current_device())
+    log(f"K5 launch shape baselines ({b}, {n - k}, {k}) x {ntot}: "
+        f"{'resident' if kplan.resident else 'general'} (kch {kplan.kch}), "
+        f"{kplan.nt} TEPs x {kplan.n_tiles} tiles, {kplan.nbuf} frame "
+        f"buffer(s), grid {kplan.grid}, {occ['registers']} registers, "
+        f"{occ['blocks_per_sm']} resident block(s) per SM")
+    nbytes = m_mat.numel() + 4 * u_l.numel() + t_flat.numel() + 4 * b * ntot
+    bms, bound_by = bound_ms(nbytes, 2.0 * b * (n - k) * k * ntot / INT8_OPS,
+                             1.0 * b * (n - k) * ntot / F32_INSTR)
+
+    def library():
+        prods = torch.einsum("bmk,nk->bmn", m_mat.half(), t_flat.half()).float()
+        return torch.einsum("bm,bmn->bn", u_l, prods.remainder_(2.0))
+
+    compare("K5 baselines library yardstick", library(),
+            osd_disc.lterm(m_mat, u_l, t_flat), rel=True)
+    k5 = {"shape": f"M ({b}, {n - k}, {k}) int8 = P^T, u_l ({b}, {n - k}) f32, "
+                   f"T ({ntot}, {k}) int8 -> ({b}, {ntot}) f32",
+          "max_abs_err": err,
+          "ms": cuda_ms(lambda: osd_disc.lterm(m_mat, u_l, t_flat), 20),
+          "plain_ms": cuda_ms(lambda: osd_disc.lterm_reference(m_mat, u_l, t_flat),
+                              3, warmup=1),
+          "bound_ms": bms, "bound_by": bound_by,
+          "library_ms": cuda_ms(library, 3, warmup=1)}
+    log(f"K5 lterm baselines on {card}: kernel {k5['ms']:.4f} ms, plain "
+        f"{k5['plain_ms']:.4f} ms, library (fp16 einsum) "
+        f"{k5['library_ms']:.4f} ms, bound {bms:.4f} ms ({bound_by}), "
+        f"{k5['ms'] / bms:.2f}x the bound")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ge, k5
+
+
+def baselines_profile(dev, card):
+    """Where a baseline call's time goes: the host-built static TEP tables
+    timed alone, then one FS and one PB call on the 256 parity frames under
+    the profiler (the device's busy share of the call's wall time)."""
+    code = get_code("ccsds_128_64")
+    k = code.k
+    teps = pb_osd.weight_limited_teps(k, 3)
+    host = {}
+    for name, fn in (
+            ("fs sequential_tep_matrix", lambda: fs_osd.sequential_tep_matrix(k, 3)),
+            ("pb weight_limited_teps", lambda: pb_osd.weight_limited_teps(k, 3)),
+            ("pb _tep_push_counts", lambda: pb_osd._tep_push_counts(teps, k, 3)),
+            ("conventional full_tep_matrix",
+             lambda: conventional.full_tep_matrix(k, 3))):
+        t0 = time.perf_counter()
+        fn()
+        host[name] = time.perf_counter() - t0
+    log(f"baselines host TEP tables (s, order 3, k = 64; the host of {card}): "
+        + json.dumps(host))
+    blob = np.load(os.path.join(ROOT, "runs", "refparity", "base_failures.npz"))
+    llr = torch.as_tensor(blob["llr"], device=dev)
+    labels = torch.as_tensor(blob["labels"], device=dev)
+    watch = ("lterm_kernel", "ge_kernel")
+    profile(dev, f"one fs_osd call (256 frames) on {card}", lambda: fs_osd.fs_osd(
+        llr, labels, code.g, k, device=dev), watch=watch)
+    profile(dev, f"one pb_osd call (256 frames) on {card}", lambda: pb_osd.pb_osd(
+        llr, labels, code.g, k, snr_db=float(blob["osd_snr"]), device=dev),
+        watch=watch)
+
+
+class _PointClock:
+    """A stdout stand-in that stamps each JSON line the baseline command
+    prints (one a point, printed after the point's results were read back
+    to the host) and passes the text on."""
+
+    def __init__(self, out):
+        self.out, self.stamps, self.lines = out, [], []
+
+    def write(self, text):
+        for line in text.splitlines():
+            if line.startswith("{"):
+                self.stamps.append(time.perf_counter())
+                self.lines.append(json.loads(line))
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def baselines_cli(dev, card):
+    """(c) ``sldpc-torch baseline`` for every kind at the configuration of
+    ``runs/r5_baselines`` in a temporary run directory holding that run's
+    ``nms_params.pkl``, with every launch count reset just before and read
+    just after; each point's ``fer_nms``, each kind's success count and the
+    miracle view's ``floor_order3`` against the records by 99.9% Wilson
+    overlap; avg_teps and maintained_list printed beside the records."""
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(os.path.join(R5_BASE, "nms_params.pkl"),
+                    os.path.join(tmp, "nms_params.pkl"))
+        synchronize(dev)
+        _kernels.reset_launches()
+        for kind in BASE_KINDS:
+            clock = _PointClock(sys.stdout)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(clock):
+                rc = cli_main(["baseline", "--kind", kind, "--run-dir", tmp,
+                               "--device", str(dev)] + BASE_ARGS)
+            synchronize(dev)
+            total = time.perf_counter() - t0
+            if rc != 0 or len(clock.stamps) != 4:
+                raise AssertionError(f"sldpc-torch baseline --kind {kind}: rc "
+                                     f"{rc}, {len(clock.stamps)} points")
+            ends = [t0] + clock.stamps
+            seconds[kind] = {"total": total, "points": {
+                f"{line['snr_db']:.2f}": ends[i + 1] - ends[i]
+                for i, line in enumerate(clock.lines)}}
+        launches = dict(_kernels.LAUNCHES)
+        cache = {snr: read_json(os.path.join(tmp, f"baseline_failures_{snr}dB.json"))
+                 for snr in BASE_SNRS}
+        results = {kind: read_json(os.path.join(tmp, f"baseline_{kind}.json"))
+                   for kind in BASE_KINDS}
+    ref_key = read_json(os.path.join(R5_BASE, "baseline_failures_2.00dB.json"))["key"]
+    if cache["2.00"]["key"] != ref_key:
+        raise AssertionError(f"capture key {cache['2.00']['key']} != the "
+                             f"record's {ref_key}")
+    log(f"baselines CLI launches (4 kinds x 4 points): {launches}")
+    stray = {k: v for k, v in launches.items()
+             if k not in ("nms_edge_final", "ge_packed", "lterm") and v}
+    if (stray or launches["nms_edge_final"] < 4
+            or launches["ge_packed"] != BASE_GE_LAUNCHES
+            or launches["lterm"] != BASE_K5_LAUNCHES):
+        raise AssertionError(f"baselines CLI launches {launches}: expected K1 >= "
+                             f"4, GE {BASE_GE_LAUNCHES}, K5 {BASE_K5_LAUNCHES}, "
+                             "nothing else")
+    for snr in BASE_SNRS:
+        got = cache[snr]["stats"]
+        ref = read_json(os.path.join(R5_BASE, f"baseline_failures_{snr}dB.json"))
+        overlap999(f"baseline {snr} dB fer_nms",
+                   (got["detected_failures"], got["frames"]),
+                   (ref["stats"]["detected_failures"], ref["stats"]["frames"]))
+        log(f"baseline capture {snr} dB: fer_nms {cache[snr]['fer_nms']:.6f} of "
+            f"{got['frames']} frames (record {ref['fer_nms']:.6f} of "
+            f"{ref['stats']['frames']})")
+    for kind in BASE_KINDS:
+        ref_points = read_json(os.path.join(R5_BASE, f"baseline_{kind}.json"))["points"]
+        for point, ref in zip(results[kind]["points"], ref_points):
+            snr = f"{point['snr_db']:.2f}"
+            if kind == "miracle":
+                frames = sum(point["hist"].values())
+                ref_frames = sum(ref["hist"].values())
+                overlap999(f"miracle {snr} dB floor_order3",
+                           (round(point["floor_order3"] * frames), frames),
+                           (round(ref["floor_order3"] * ref_frames), ref_frames))
+                line = (f"floor_order3 {point['floor_order3']:.6f} (record "
+                        f"{ref['floor_order3']:.6f}), hist {point['hist']}")
+            else:
+                frames = point["success"] + point["fail"]
+                overlap999(f"{kind} {snr} dB successes",
+                           (point["success"], frames),
+                           (ref["success"], ref["success"] + ref["fail"]))
+                line = (f"success {point['success']}/{frames} (record "
+                        f"{ref['success']}/{ref['success'] + ref['fail']})")
+                for key in ("avg_teps", "maintained_list", "suc_evals", "num_teps"):
+                    if key in point:
+                        line += f", {key} {point[key]} (record {ref[key]})"
+            point_s = seconds[kind]["points"][snr]
+            log(f"baseline {kind} {snr} dB: {line}, {point_s:.3f} s")
+    log(f"baselines CLI seconds on {card} (each point "
+        f"ends where its results were read back; miracle's include the NMS "
+        f"capture): {json.dumps(seconds)}")
+    return launches
+
+
+def phase_baselines(dev, rows, card):
+    """The OSD baselines on the card: (a) the 256 parity frames card == CPU
+    and against the record, (b) GE and K5 at the baselines' shapes, (c)
+    ``sldpc-torch baseline`` for every kind at ``runs/r5_baselines``'s
+    configuration (this slice's path, its launches counted); between (b)
+    and (c), where a call's time goes (host TEP tables, device busy share)."""
+    baselines_parity(dev, card)
+    ge, k5 = baselines_kernels(dev, card)
+    baselines_profile(dev, card)
+    launches = baselines_cli(dev, card)
+    for row in rows:
+        if row["name"] == "GE ge_packed":
+            row["baselines"] = ge | {"launches": launches["ge_packed"]}
+        elif row["name"] == "K5 lterm":
+            row["baselines"] = k5 | {"launches": launches["lterm"]}
+        elif row["name"] == "K1 nms_edge_final":
+            row["baselines"] = {"launches": launches["nms_edge_final"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1818,6 +2157,7 @@ def main():
     phase_padded(dev)
     phase_train(dev)
     phase_recipe(dev)
+    phase_baselines(dev, rows, smi)
     rows.sort(key=lambda row: row["name"])
     if any(row["launches"] is None or row["launches"] < 1 for row in rows):
         raise AssertionError("a kernel row has no launch on its path")

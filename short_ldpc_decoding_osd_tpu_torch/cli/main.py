@@ -7,10 +7,11 @@ Subcommands:
   train-dia     stage 3a: DIA refiner + decoding path
   train-stopper stage 3b: sliding-window stopper
   sweep         stages 1-7 end-to-end (two-phase FER curve)
+  baseline      FS-OSD / PB-OSD / conventional OSD / miracle view
   bench         one-card throughput: phase 1 and the two-phase system
 
 Every subcommand takes ``--device`` (default ``cuda``, which raises when no
-card is present).  ``baseline`` waits for the port of ``baselines/``.
+card is present).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 # every advertised choice resolves through models.canonical_dia_name
 DIA_MODEL_CHOICES = ["model_cnn", "cnn", "model_rnn1", "rnn_one", "rnn1",
@@ -127,6 +129,18 @@ def main(argv=None):
                         "--max-frames, low -> high SNR (reference "
                         "portion_dis, Testing_data_gen_128/Main_test.py:"
                         "90-106), e.g. 0.05,0.075,0.2,0.5,0.75,1.0")
+
+    p = sub.add_parser("baseline", help="run an OSD baseline on NMS failures")
+    _add_common(p)
+    p.add_argument("--kind", choices=["fs", "pb", "conventional", "miracle"],
+                   required=True)
+    p.add_argument("--snrs", default="2.0:3.0:6")
+    p.add_argument("--order", type=int, default=3)
+    p.add_argument("--beta", type=float, default=0.1)
+    p.add_argument("--d-min", type=int, default=14)
+    p.add_argument("--tau-psc", type=int, default=30)
+    p.add_argument("--failure-budget", type=int, default=100)
+    p.add_argument("--batch", type=int, default=4096)
 
     p = sub.add_parser("bench", help="one-card phase-1 and two-phase "
                                      "throughput, one JSON line")
@@ -276,6 +290,9 @@ def _dispatch(args):
         print(json.dumps(out))
         return 0
 
+    if args.cmd == "baseline":
+        return _run_baseline(args, device)
+
     if args.cmd == "bench":
         from .. import system
 
@@ -285,6 +302,124 @@ def _dispatch(args):
         print(json.dumps(out))
         return 0
     raise SystemExit(f"unknown command {args.cmd}")
+
+
+def _baseline_failures(args, code, params, run, snr, device):
+    """One NMS failure capture per (run dir, SNR), shared across the four
+    ``baseline --kind`` invocations, under JAX's cache key and file names
+    (``baseline_failures_{snr:.2f}dB.{npz,json}``): a run directory written
+    by either package serves the other."""
+    from ..mc.harness import FailureBatch, run_nms_mc
+
+    key = {
+        "snr_db": round(float(snr), 4),
+        "seed": args.seed,
+        "batch": args.batch,
+        "failure_budget": args.failure_budget,
+        "variant": args.variant,
+        "iterations": args.iterations,
+        "code": code.name,
+        # list-of-lists (not tuples): the key must survive a JSON round trip
+        "params": [
+            [k2, np.round(np.asarray(params[k2]), 7).tolist()]
+            for k2 in sorted(params)
+        ],
+    }
+    tag = f"baseline_failures_{float(snr):.2f}dB"
+    if run.has(tag + ".json"):
+        meta = run.load_json(tag + ".json")
+        if meta.get("key") == key:
+            with np.load(run.path(tag + ".npz")) as blob:
+                fb = FailureBatch(blob["traj"], blob["labels"],
+                                  int(blob["overflow"]))
+            return meta["fer_nms"], fb
+    stats, fb = run_nms_mc(
+        code, params, args.variant, args.iterations, float(snr),
+        batch=args.batch, error_budget=args.failure_budget * 40,
+        max_frames=10**7, seed=args.seed, capture_failures=True,
+        capture_limit=args.failure_budget * 4, device=device,
+    )
+    fer_nms = stats.detected_failures / max(stats.frames, 1)
+    np.savez_compressed(
+        run.path(tag + ".npz"),
+        traj=fb.trajectories, labels=fb.labels, overflow=fb.overflow,
+    )
+    run.save_json(tag + ".json", {"key": key, "fer_nms": fer_nms,
+                                  "stats": stats.to_dict()})
+    return fer_nms, fb
+
+
+def _osd_summary(snr, res) -> dict:
+    succ = res["success"].cpu().numpy()
+    return {
+        "snr_db": float(snr),
+        "success": int(succ.sum()),
+        "fail": int((~succ).sum()),
+        "fer_osd": float((~succ).mean()),
+    }
+
+
+def _mean(t) -> float:
+    return float(t.cpu().numpy().mean())
+
+
+def _run_baseline(args, device):
+    """NMS failures -> one of the G-domain baselines, per SNR point; writes
+    ``baseline_{kind}.json`` with JAX's field names."""
+    from ..baselines import conventional, fs_osd, pb_osd
+    from ..codes import get_code
+    from ..pipeline.recipe import RunDir
+
+    code = get_code(args.code)
+    run = RunDir(args.run_dir)
+    params = _nms_params(run, args, code)
+    results = []
+    for snr in _parse_snrs(args.snrs):
+        fer_nms, fb = _baseline_failures(args, code, params, run, snr, device)
+        traj = fb.trajectories
+        if not len(traj):
+            results.append({"snr_db": float(snr), "note": "no failures"})
+            continue
+        n_use = min(len(traj), args.failure_budget * 2)
+        llr = torch.as_tensor(np.ascontiguousarray(traj[:n_use, 0]),
+                              dtype=torch.float32, device=device)
+        labels = torch.as_tensor(np.asarray(fb.labels[:n_use]), device=device)
+        if args.kind == "miracle":
+            counter = conventional.miracle_view(llr, labels, code.g, code.k,
+                                                device=device)
+            out = {
+                "snr_db": float(snr),
+                "hist": dict(sorted(counter.items())),
+                "floor_order3": conventional.miracle_fer_floor(counter, 3),
+            }
+        elif args.kind == "conventional":
+            res = conventional.conventional_osd(
+                llr, labels, code.g, code.k, order_limit=args.order,
+                device=device)
+            out = _osd_summary(snr, res) | {"num_teps": int(res["num_teps"])}
+        elif args.kind == "fs":
+            res = fs_osd.fs_osd(
+                llr, labels, code.g, code.k, order_limit=args.order,
+                beta=args.beta, d_min=args.d_min, tau_psc=args.tau_psc,
+                device=device)
+            out = _osd_summary(snr, res) | {"avg_teps": _mean(res["num_teps"])}
+        else:  # pb
+            res = pb_osd.pb_osd(
+                llr, labels, code.g, code.k, snr_db=float(snr),
+                order_limit=args.order, device=device)
+            out = _osd_summary(snr, res) | {
+                "avg_teps": _mean(res["num_teps"]),
+                "suc_evals": _mean(res["suc_evals"]),
+                # reference "Maintained_list" metric (pb_testing.py:196-209)
+                "maintained_list": _mean(res["maintained_list"]),
+            }
+        out["fer_nms"] = fer_nms
+        if "fer_osd" in out:
+            out["fer_total"] = out["fer_nms"] * out["fer_osd"]
+        results.append(out)
+        print(json.dumps(out))
+    run.save_json(f"baseline_{args.kind}.json", {"points": results})
+    return 0
 
 
 if __name__ == "__main__":

@@ -97,10 +97,13 @@ def lterm_plan(b: int, m: int, k: int, ntot: int,
 def lterm_reference(m_matrix: torch.Tensor, u_l: torch.Tensor,
                     teps_flat: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch twin: materializes the (B, m, Ntot) parity tensor.
-    f32 products of 0/1 operands are exact, and row sums <= k < 2^24."""
+    f32 products of 0/1 operands are exact, and row sums <= k < 2^24; the
+    parity is taken in place as ``2 * frac(x / 2)``, which is exact for
+    those integers (the same 0/1 values as ``x - 2 floor(x / 2)``, without
+    its temporaries)."""
     prods = torch.einsum("bmk,nk->bmn", m_matrix.to(torch.float32),
                          teps_flat.to(torch.float32))
-    a = prods - 2.0 * torch.floor(prods * 0.5)
+    a = prods.mul_(0.5).frac_().mul_(2.0)
     return torch.einsum("bm,bmn->bn", u_l.to(torch.float32), a)
 
 

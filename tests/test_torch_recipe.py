@@ -28,6 +28,7 @@ from short_ldpc_decoding_osd_tpu.osd import engine as jengine
 from short_ldpc_decoding_osd_tpu.osd import segments as jseg
 from short_ldpc_decoding_osd_tpu.pipeline.recipe import RunDir as JaxRunDir
 from short_ldpc_decoding_osd_tpu_torch import convert
+from short_ldpc_decoding_osd_tpu_torch.baselines import conventional, fs_osd, pb_osd
 from short_ldpc_decoding_osd_tpu_torch.cli.main import main as cli_main
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.mc import harness
@@ -248,14 +249,14 @@ def test_cli_help(capsys):
     assert exc.value.code == 0
     text = capsys.readouterr().out
     for cmd in ("train-nms", "eval-nms", "train-dia", "train-stopper", "sweep",
-                "bench"):
+                "baseline", "bench"):
         assert cmd in text
         with pytest.raises(SystemExit) as exc:
             cli_main([cmd, "--help"])
         assert exc.value.code == 0
         assert "--device" in capsys.readouterr().out
-    with pytest.raises(SystemExit) as exc:  # waits for the baselines slice
-        cli_main(["baseline", "--kind", "fs"])
+    with pytest.raises(SystemExit) as exc:  # --kind is required
+        cli_main(["baseline"])
     assert exc.value.code == 2
 
 
@@ -297,8 +298,21 @@ def test_cli_train_dia_round_trip(tmp_path, capsys):
                                         stopper_train.StopperTrainConfig()),
     lambda: rec.run_recipe(rec.RecipeConfig(), "/nonexistent/never-created"),
     lambda: cli_main(["train-dia", "--run-dir", "/nonexistent/never-created"]),
+    lambda: fs_osd.fs_osd(np.zeros((2, 128), np.float32), np.zeros((2, 128)),
+                          get_code("ccsds_128_64").g, 64),
+    lambda: pb_osd.pb_osd(np.zeros((2, 128), np.float32), np.zeros((2, 128)),
+                          get_code("ccsds_128_64").g, 64, snr_db=3.0),
+    lambda: conventional.conventional_osd(np.zeros((2, 128), np.float32),
+                                          np.zeros((2, 128)),
+                                          get_code("ccsds_128_64").g, 64),
+    lambda: conventional.miracle_view(np.zeros((2, 128), np.float32),
+                                      np.zeros((2, 128)),
+                                      get_code("ccsds_128_64").g, 64),
+    lambda: cli_main(["baseline", "--kind", "fs", "--run-dir",
+                      "/nonexistent/never-created"]),
 ], ids=["train_dia", "pattern_sweep", "stopper_samples", "train_stopper",
-        "run_recipe", "cli"])
+        "run_recipe", "cli", "fs_osd", "pb_osd", "conventional_osd",
+        "miracle_view", "cli_baseline"])
 def test_cuda_default_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device resolves")
