@@ -103,7 +103,19 @@ Phases (each raises on failure, so the script never exits 0 after one):
     run's NMS factor, launch counts reset just before and read just after
     (K1, GE and K5 only), each point's ``fer_nms``, each kind's successes
     and the miracle view's ``floor_order3`` against the records by 99.9%
-    Wilson overlap, the seconds of every kind and point.
+    Wilson overlap, the seconds of every kind and point;
+13. ``parallel/`` (the mesh): in a world of one on NCCL, ``run_nms_mc(mesh=)``
+    at 3.0 dB (the ``runs/r4_pipeline`` factor, 262,144 frames a step, to
+    40,000 errors) equal to ``run_nms_mc`` field for field with only K3
+    (and K4 on an overflow) launched, ``sharded_dl_osd_step_from_llr`` on
+    the main path's 32,768 captured rows equal to
+    ``engine.make_dl_osd_step_from_llr`` with K2, GE and K5 launched, and 3
+    steps of ``sharded_nms_train_step`` equal to the single-device update
+    (loss rtol 1e-6, parameters 1e-5); then ``parallel.run_multihost`` as
+    two gloo processes sharing the card, 4 steps of 262,144 frames a rank,
+    its counters exactly the sum of this process's K3 calls on
+    ``device_seeds(3000, step, 2)`` (K4 after an overflow, the ladder's
+    rule).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -118,6 +130,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -126,26 +139,30 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 
 from short_ldpc_decoding_osd_tpu_torch import _kernels, system
 from short_ldpc_decoding_osd_tpu_torch.baselines import (common, conventional,
                                                          fs_osd, pb_osd)
-from short_ldpc_decoding_osd_tpu_torch._device import synchronize
+from short_ldpc_decoding_osd_tpu_torch._device import full_f32, synchronize
 from short_ldpc_decoding_osd_tpu_torch.channel import ChannelSpec, sample_batch
 from short_ldpc_decoding_osd_tpu_torch.channel.awgn import sigma_for_snr
 from short_ldpc_decoding_osd_tpu_torch.cli.main import main as cli_main
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.convert import load_jax_pickle, load_run
-from short_ldpc_decoding_osd_tpu_torch.mc import harness
+from short_ldpc_decoding_osd_tpu_torch.mc import harness, ladder
 from short_ldpc_decoding_osd_tpu_torch.mc.harness import count_and_capture
 from short_ldpc_decoding_osd_tpu_torch.ops import (gf2_bitpack, gf2ops,
                                                    mc_cascade, mc_dense, nms,
                                                    nms_dense, nms_edge,
                                                    nms_edge_padded, osd_disc)
 from short_ldpc_decoding_osd_tpu_torch.osd import engine, path, segments
+from short_ldpc_decoding_osd_tpu_torch.parallel import (
+    device_seeds, make_mesh, sharded_dl_osd_step_from_llr, sharded_nms_train_step)
 from short_ldpc_decoding_osd_tpu_torch.pipeline import recipe
-from short_ldpc_decoding_osd_tpu_torch.train import NMSTrainConfig, dia_train, nms_train
+from short_ldpc_decoding_osd_tpu_torch.train import (NMSTrainConfig, StaircaseAdam,
+                                                     dia_train, nms_train)
 from short_ldpc_decoding_osd_tpu_torch.utils.metrics import wilson_interval
 from short_ldpc_decoding_osd_tpu_torch.utils.profiling import Timer
 
@@ -2137,6 +2154,214 @@ def phase_baselines(dev, rows, card):
             row["baselines"] = {"launches": launches["nms_edge_final"]}
 
 
+MESH_STEPS, MESH_TRAIN_B, MESH_TRAIN_STEPS = 4, 1024, 3
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_sweep_launches(launches):
+    """Raise unless the mesh sweep launched K3 and nothing but K3 and K4."""
+    others = {k: v for k, v in launches.items()
+              if k not in ("mc_compact", "mc_oneshot") and v}
+    if not launches["mc_compact"] or others:
+        raise AssertionError(f"mesh sweep launches {launches}: K3 (and K4 on "
+                             "an overflow) only")
+
+
+def mesh_world_of_one(dev):
+    """The three world-of-one checks, inside an NCCL group of one rank."""
+    out = {}
+    mesh = make_mesh()
+    probe = torch.arange(5, dtype=torch.int64, device=dev)
+    dist.all_reduce(probe)  # NCCL itself, which the mesh skips at size 1
+    if probe.tolist() != list(range(5)) or mesh.size != 1:
+        raise AssertionError(f"NCCL world of one: {probe.tolist()}, {mesh}")
+    run = load_run(R4, dev)
+    code = run["code"]
+    params = {k: v.cpu() for k, v in run["nms_params"].items()}
+    kw = dict(batch=SWEEP_B, error_budget=40_000, device=dev)
+    harness.run_nms_mc(code, params, "NMS-1", ITERS, 3.0, max_frames=SWEEP_B,
+                       **kw)  # warm-up: the timed sweeps start alike
+    sweeps = {}
+    for label, extra in (("single", {}), ("mesh", {"mesh": mesh})):
+        synchronize(dev)
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        stats, _ = harness.run_nms_mc(code, params, "NMS-1", ITERS, 3.0,
+                                      **kw, **extra)
+        seconds = time.perf_counter() - t0
+        sweeps[label] = (stats, dict(_kernels.LAUNCHES), seconds)
+    (single, _, s_single), (meshed, launches, s_mesh) = (sweeps["single"],
+                                                         sweeps["mesh"])
+    if meshed != single:
+        raise AssertionError(f"mesh sweep {meshed} != single-device {single}")
+    mesh_sweep_launches(launches)
+    steps = meshed.frames // SWEEP_B
+    out["sweep"] = {"stats": meshed.to_dict(), "steps": steps,
+                    "s_per_step_mesh": s_mesh / steps,
+                    "s_per_step_single": s_single / steps, "launches": launches}
+
+    run_, _, _, cap, *_ = main_path_inputs(dev)
+    blocks, acc = segments.build_tep_blocks(run_["path"], code.k, 6)
+    teps, mask, bounds = segments.pack_tep_chunks(blocks)
+    args = (torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev),
+            torch.as_tensor(acc, dtype=torch.int64, device=dev), run_["fcn"])
+    single_step = engine.make_dl_osd_step_from_llr(run_["dia"], code, "NMS-1",
+                                                   ITERS, bounds=bounds)
+    o, _, det = single_step(params, cap["llr"], cap["labels"], *args)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    want = torch.stack([torch.tensor(cap["llr"].shape[0], device=dev), det.sum(),
+                        (o["success"] & det).sum(),
+                        torch.where(det, o["complexity"], zero).sum(),
+                        torch.where(det, o["window_num"], zero).sum()]).tolist()
+    sharded = sharded_dl_osd_step_from_llr(run_["dia"], code, "NMS-1", ITERS,
+                                           mesh, bounds=bounds)
+    synchronize(dev)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = sharded(params, cap["llr"], cap["labels"], *args).tolist()
+    seconds = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    if got != want:
+        raise AssertionError(f"sharded OSD step {got} != single-device {want}")
+    if not all(launches[k] for k in ("nms_edge_traj", "ge_packed", "lterm")):
+        raise AssertionError(f"sharded OSD step launches {launches}: K2, GE "
+                             "and K5 each at least once")
+    out["osd_from_llr"] = {"counters": got, "seconds": seconds,
+                           "launches": launches}
+
+    spec = ChannelSpec.awgn(2.7, code.rate)
+    make_optimizer, train = sharded_nms_train_step(code, "NMS-1", ITERS, spec,
+                                                   MESH_TRAIN_B, mesh)
+    p_mesh = {k: v.to(dev).requires_grad_()
+              for k, v in nms.init_params("NMS-1").items()}
+    p_single = {k: v.detach().clone().requires_grad_() for k, v in p_mesh.items()}
+    opt_mesh, opt_single = make_optimizer(p_mesh), StaircaseAdam(
+        p_single.values(), 0.01, 500, 0.95, 5.0)
+    gen_matrix = torch.as_tensor(code.g, dtype=torch.float32, device=dev)
+    generator = torch.Generator(device=dev)
+    losses, step_s = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        generator.manual_seed(31 + i)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        loss_mesh = float(train(p_mesh, opt_mesh, generator))
+        step_s.append(time.perf_counter() - t0)
+        generator.manual_seed(31 + i)
+        llr, words = sample_batch(generator, spec, gen_matrix, MESH_TRAIN_B)
+        with full_f32():
+            opt_single.zero_grad()
+            loss = nms.multi_iteration_loss(
+                nms.decode(p_single, code.h, llr, ITERS), words)
+            loss.backward()
+            opt_single.step()
+        losses.append((loss_mesh, float(loss.detach())))
+        for k in p_mesh:
+            a, b = p_mesh[k].detach().cpu(), p_single[k].detach().cpu()
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-7):
+                raise AssertionError(f"train step {i}: {k} {a} vs {b}")
+        if not math.isclose(*losses[-1], rel_tol=1e-6):
+            raise AssertionError(f"train step {i}: loss {losses[-1]}")
+    out["train"] = {"losses_mesh_single": losses, "s_per_step": step_s,
+                    "check": p_mesh["check"].detach().cpu().tolist()}
+    return out
+
+
+def _run_two_ranks(port: int, out_json: str):
+    """Two ``run_multihost`` processes (gloo, one card): rank 0's point and
+    the wall seconds of both."""
+    cmd = [sys.executable, "-m",
+           "short_ldpc_decoding_osd_tpu_torch.parallel.run_multihost",
+           "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+           "--backend", "gloo", "--device", "cuda", "--snrs", "3.0:3.0:1",
+           "--per-device-batch", str(SWEEP_B), "--error-budget", str(10**9),
+           "--max-frames", str(MESH_STEPS * 2 * SWEEP_B),
+           "--iterations", str(ITERS), "--out", out_json]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--process-id", str(r)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for p, text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh rank failed (exit {p.returncode}):\n"
+                                 + text[-3000:])
+    with open(out_json) as fh:
+        point = json.load(fh)["points"][0]
+    return point, wall
+
+
+def mesh_two_ranks(dev, code, params, seed: int = 3000):
+    """``parallel.run_multihost`` as two gloo processes sharing the card
+    (NCCL refuses two ranks on one device) against this process's K3 calls
+    on the same seeds."""
+    port = free_port()
+    with tempfile.TemporaryDirectory(prefix="mesh_") as tmp:
+        point, wall = _run_two_ranks(port, os.path.join(tmp, "two.json"))
+    cblock, _ = ladder.ladder_blocks(SWEEP_B, ITERS)
+    rung, want = "compact", np.zeros(5, np.int64)
+    for idx in range(MESH_STEPS):
+        seeds = [int(s) for s in device_seeds(seed, idx, 2)]
+        if rung == "compact":
+            c = sum(nms_edge.fused_counters_edge_compact(
+                code, params, "NMS-1", ITERS, 3.0, SWEEP_B, seed=s,
+                block_frames=cblock, schedule=nms_edge.DEFAULT_COMPACT_SCHEDULE,
+                device=dev).cpu().numpy() for s in seeds)
+            if c[5] == 0:
+                want += c[:5]
+                continue
+            rung = "oneshot"
+        want += sum(nms_edge.fused_counters_edge(
+            code, params, "NMS-1", ITERS, 3.0, SWEEP_B, seed=s,
+            device=dev).cpu().numpy() for s in seeds)
+    got = [point[k] for k in ("frames", "frame_errors", "bit_errors",
+                              "detected_failures", "undetected_errors")]
+    if got != want.tolist() or (point["devices"], point["hosts"]) != (2, 2):
+        raise AssertionError(f"two gloo ranks {got} ({point['devices']} "
+                             f"devices) != summed K3 calls {want.tolist()}")
+    return {"counters": got, "rung_after": rung, "wall_s": wall,
+            "frames_per_s_rank0": point["frames_per_s"]}
+
+
+def phase_mesh(dev, rows, smi):
+    """``parallel/`` on the card: a world of one on NCCL (the sweep, the
+    raw-LLR OSD step and the train step, each against the single-device
+    path), then two gloo processes sharing the card.  The kernel rows of
+    the mesh path get its launches under ``mesh``."""
+    t0 = time.perf_counter()
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        out = mesh_world_of_one(dev)
+    finally:
+        dist.destroy_process_group()
+    if dist.is_initialized():
+        raise AssertionError("the NCCL group outlived the mesh phase")
+    code = get_code("ccsds_128_64")
+    out["two_gloo_ranks"] = mesh_two_ranks(dev, code, nms.init_params("NMS-1"))
+    out["seconds"] = time.perf_counter() - t0
+    log("mesh: " + json.dumps(out | {"card": smi}))
+    launches = out["sweep"]["launches"] | {
+        k: out["osd_from_llr"]["launches"][k]
+        for k in ("nms_edge_traj", "ge_packed", "lterm")}
+    for row in rows:
+        key = LAUNCH_KEY[row["name"]]
+        if launches[key]:
+            row["mesh"] = {"launches": launches[key]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2158,6 +2383,7 @@ def main():
     phase_train(dev)
     phase_recipe(dev)
     phase_baselines(dev, rows, smi)
+    phase_mesh(dev, rows, smi)
     rows.sort(key=lambda row: row["name"])
     if any(row["launches"] is None or row["launches"] < 1 for row in rows):
         raise AssertionError("a kernel row has no launch on its path")

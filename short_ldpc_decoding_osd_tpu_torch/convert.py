@@ -57,7 +57,10 @@ def load_jax_pickle(path: str):
 
 
 def _t(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+    """A float32 tensor on ``device`` that owns its memory: never a view of
+    the caller's array, which may be read-only (an unpickled leaf) and
+    must not change when the tensor is updated in place."""
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True)).to(device)
 
 
 def dia_state_from_jax(dia_params: dict, device) -> dict:

@@ -2,8 +2,8 @@
 
 Port of ``short_ldpc_decoding_osd_tpu/mc/harness.py``: ``build_nms_mc_step``
 (:144-292), ``FailureBatch`` (:95-116), ``trajectories_for_llrs``
-(:298-341), ``detected_failure_mask`` (:344-357), ``run_nms_mc`` (:360-592,
-without ``mesh``), ``_write_resume`` (:595-608) and the failure set's
+(:298-341), ``detected_failure_mask`` (:344-357), ``run_nms_mc`` (:360-592),
+``_write_resume`` (:595-608) and the failure set's
 per-iteration ``iteration_ce_list``/``iteration_ber_list`` (:611-625).
 The step is factored into :func:`sample_batch` (channel) and
 :func:`count_and_capture` (counters + the failures-first compaction), so
@@ -122,30 +122,37 @@ def build_nms_mc_step(code: Code, variant: str, num_iterations: int,
     decode_h = code.extended().h if variant == "ENMS" else code.h
     chosen = select_decoder(decode_h, variant, batch, decoder, dev)
     gen_matrix = torch.as_tensor(code.g, dtype=torch.float32, device=dev)
-    h_dev = torch.as_tensor(np.asarray(decode_h), dtype=torch.float32,
-                            device=dev)
-    edge_cols = nms.edge_columns(decode_h) if variant == "NMS-r" else None
+    decode = decode_final_fn(chosen, decode_h, variant, num_iterations, dev)
 
     def step(params: dict, generator: torch.Generator):
         llr, words = sample_batch(generator, spec, gen_matrix, batch,
                                   all_zeros=all_zeros)
-        if chosen == "edge":
-            soft_last = nms_edge.decode_final_edge(params, decode_h, llr,
-                                                   num_iterations, variant)
-        elif chosen == "dense":
-            soft_last = nms_dense.decode_final_dense(params, h_dev, llr,
-                                                     num_iterations, variant)
-        elif chosen == "edge_padded":
-            soft_last = nms_edge_padded.decode_final_edge_padded(
-                params, decode_h, llr, num_iterations, variant)
-        else:
-            soft_last = nms.decode_final(params, decode_h, llr, num_iterations,
-                                         variant, edge_cols)
-        return count_and_capture(llr, words, soft_last, decode_h,
+        return count_and_capture(llr, words, decode(params, llr), decode_h,
                                  capture_capacity)
 
     step.decoder = chosen
     return step
+
+
+def decode_final_fn(chosen: str, decode_h, variant: str, num_iterations: int,
+                    device: torch.device):
+    """``decode(params, llr) -> soft_last`` on the decoder ``chosen`` (one
+    of :data:`DECODERS`, as :func:`select_decoder` returns)."""
+    if chosen == "edge":
+        return lambda params, llr: nms_edge.decode_final_edge(
+            params, decode_h, llr, num_iterations, variant)
+    if chosen == "dense":
+        h_dev = torch.as_tensor(np.asarray(decode_h), dtype=torch.float32,
+                                device=device)
+        return lambda params, llr: nms_dense.decode_final_dense(
+            params, h_dev, llr, num_iterations, variant)
+    if chosen == "edge_padded":
+        return lambda params, llr: nms_edge_padded.decode_final_edge_padded(
+            params, decode_h, llr, num_iterations, variant)
+    edge_cols = nms.edge_columns(decode_h) if variant == "NMS-r" else None
+    return lambda params, llr: nms.decode_final(params, decode_h, llr,
+                                                num_iterations, variant,
+                                                edge_cols)
 
 
 @dataclasses.dataclass
@@ -207,7 +214,7 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
                capture_trajectories: bool = True,
                spec: ChannelSpec | None = None, progress: bool = False,
                resume_path: str | None = None, rung: str | None = None,
-               device: str | torch.device = "cuda"
+               device: str | torch.device = "cuda", mesh=None
                ) -> tuple[DecodeStats, FailureBatch | None]:
     """Monte-Carlo FER sweep at one SNR point with error-budget early stop:
     steps of ``batch`` frames until the frame errors exceed
@@ -237,8 +244,22 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
     * ``capture_failures``: the detected failures' LLRs (at most
       ``capture_limit``), re-decoded by the dense decoder into a
       :class:`FailureBatch` of confirmed failures (or raw LLR rows when
-      ``capture_trajectories`` is False)."""
-    dev = resolve_device(device)
+      ``capture_trajectories`` is False).
+    * ``mesh``: a ``parallel.Mesh``; frames split over its ranks and
+      ``batch`` counts each rank's frames, on the mesh's device.  The fused
+      branch, and ``rung="xla"``, run ``parallel.sharded_fused_mc_step``
+      (K3 on every rank on ``device_seeds(seed, step, size)``; ``rung``
+      "compact", "oneshot" or "xla"), every other branch
+      ``parallel.sharded_nms_mc_step`` with the generator seeded as above.  The counters are summed over the ranks,
+      so the early stop is the same on every rank; only rank 0 writes
+      ``resume_path``.  Capture raises.  With a world of one the sweep
+      equals the sweep without a mesh."""
+    if mesh is not None:
+        if capture_failures:
+            raise ValueError("failure capture requires the single-device path")
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     rung = ladder.apply_pinned_rung(rung)
     spec = spec or ChannelSpec.awgn(snr_db, code.rate)
     capacity = min(batch, capture_limit) if capture_failures else 0
@@ -263,7 +284,10 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
     if rung == "dense" and not nms_dense.holds(code.m, code.n, code.k):
         raise ValueError(f"rung 'dense': kernel K7 does not hold the "
                          f"({code.m}, {code.n}) code {code.name}")
-    if fused_ok and rung != "xla":
+    if mesh is not None:
+        step = _mesh_step(code, params, variant, num_iterations, snr_db, batch,
+                          seed, spec, rung, fused_ok, mesh)
+    elif fused_ok and rung != "xla":
         state = {"rung": rung or ("compact" if compact_enabled else "oneshot")}
 
         def _kseed(idx):
@@ -300,6 +324,7 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
             counters, capture = built(step_params, generator)
             return counters.cpu().numpy(), capture
 
+    writes_resume = resume_path is not None and (mesh is None or mesh.rank == 0)
     stats = DecodeStats(bits_per_frame=code.n)
     llr_list: list[np.ndarray] = []
     label_list: list[np.ndarray] = []
@@ -329,9 +354,9 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
             print(f"  snr={snr_db:.2f} frames={stats.frames} "
                   f"FER={stats.fer:.3e} failures={stats.detected_failures}",
                   flush=True)
-        if resume_path is not None and step_idx % 50 == 0:
+        if writes_resume and step_idx % 50 == 0:
             _write_resume(resume_path, seed, snr_db, step_idx, stats)
-    if resume_path is not None:
+    if writes_resume:
         _write_resume(resume_path, seed, snr_db, step_idx, stats)
     if not capture_failures:
         return stats, None
@@ -354,6 +379,30 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
         traj, labels = traj[keep], labels[keep]
     return stats, FailureBatch(trajectories=traj, labels=labels,
                                overflow=overflow, mismatches=mismatches)
+
+
+def _mesh_step(code, params, variant, num_iterations, snr_db, batch, seed,
+               spec, rung, fused_ok, mesh):
+    """``run_nms_mc``'s step over a mesh: ``step(idx) -> (counters as
+    numpy, None)``, the counters summed over the ranks."""
+    from ..parallel import sharded_fused_mc_step, sharded_nms_mc_step
+
+    step_params = ({k: v.to(mesh.device) for k, v in params.items()}
+                   if variant == "NMS-r" else params)
+    if fused_ok or rung == "xla":
+        fused = sharded_fused_mc_step(code, variant, num_iterations, snr_db,
+                                      batch, mesh, base_seed=seed, spec=spec,
+                                      rung=rung)
+        return lambda idx: (fused(step_params, idx)[0].cpu().numpy(), None)
+    sharded = sharded_nms_mc_step(code, variant, num_iterations, spec, batch,
+                                  mesh)
+    generator = torch.Generator(device=mesh.device)
+
+    def step(idx):
+        generator.manual_seed(seed * 1_000_003 + idx)
+        return sharded(step_params, generator).cpu().numpy(), None
+
+    return step
 
 
 def _write_resume(path: str, seed: int, snr_db: float, step_idx: int,

@@ -391,7 +391,8 @@ def iteration_stat_rows(traj: torch.Tensor, refined: torch.Tensor,
 def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
                               window: int = 5, soft_margin: float = 0.9,
                               bounds: tuple | None = None,
-                              with_iteration_stats: bool = False):
+                              with_iteration_stats: bool = False,
+                              route: str | None = None):
     """Phase-2 step consuming RAW failure LLRs: the (T+1)-slot trajectory
     re-decode, DIA refinement (``model.refine_fast``), OSD preparation and
     the sliding walk.
@@ -405,7 +406,8 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
     :func:`iteration_stat_rows`' ``(ce_rows, ber_rows)`` as a fourth item.
 
     The re-decode is :func:`redecode_trajectory` on the route of
-    :func:`redecode_route`."""
+    :func:`redecode_route` for the step's rows, or on ``route`` when the
+    caller pins one (the mesh pins the route of the global batch)."""
     decode_h = code.extended().h if variant == "ENMS" else code.h
     edge_cols = nms.edge_columns(decode_h) if variant == "NMS-r" else None
     k = code.k
@@ -414,7 +416,8 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
     def step(nms_params, llr, labels, teps, mask, acc, fcn_params):
         outs = redecode_trajectory(
             nms_params, decode_h, llr, num_iterations, variant,
-            redecode_route(decode_h, variant, llr.device, llr.shape[0]),
+            route or redecode_route(decode_h, variant, llr.device,
+                                    llr.shape[0]),
             edge_cols)
         traj = outs.permute(1, 0, 2)  # (B, T+1, n)
         st = nms.frame_stats(traj[:, -1], labels, decode_h)

@@ -1,9 +1,9 @@
-"""Wall-clock timers and a structured metrics log.
+"""Tracing, wall-clock timers, a FLOP count and a structured metrics log.
 
-Port of ``short_ldpc_decoding_osd_tpu/utils/profiling.py``: ``Timer``
-(:26-51) and ``JsonlLogger`` (:68-77).  ``trace`` and ``flops_estimate``
-are ``jax.profiler`` / XLA cost-analysis tools and have no counterpart
-here; ``torch.profiler`` traces the card directly (``chip_smoke.py``).
+Port of ``short_ldpc_decoding_osd_tpu/utils/profiling.py``: ``trace``
+(:16-23) over ``torch.profiler`` in place of ``jax.profiler``, ``Timer``
+(:26-51), ``flops_estimate`` (:51-63) over PyTorch's flop counter in place
+of XLA's cost analysis, and ``JsonlLogger`` (:68-77).
 """
 
 from __future__ import annotations
@@ -13,8 +13,25 @@ import json
 import time
 
 import torch
+from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+from torch.utils.flop_counter import FlopCounterMode
 
 from .._device import synchronize
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the enclosed code with ``torch.profiler`` (the CPU, and the
+    card's kernels when CUDA is available) and write a Chrome/Perfetto
+    trace, ``<worker>.<timestamp>.pt.trace.json``, into ``log_dir`` on exit
+    (TensorBoard's profiler plugin reads the directory).  Yields the
+    profiler, whose ``key_averages()`` summarise the same events."""
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
 
 
 class Timer:
@@ -42,6 +59,25 @@ class Timer:
             }
             for name, vals in self.records.items()
         }
+
+
+def flops_estimate(fn, *args) -> float | None:
+    """Floating-point operations of ``fn(*args)`` as PyTorch's
+    ``FlopCounterMode`` counts them while the call runs; None when the
+    call or the count fails, as the JAX package returns None when XLA has
+    no cost analysis.
+
+    The count differs from XLA's: it covers only the operations the flop
+    counter has formulas for (matrix products, convolutions and attention,
+    2 FLOPs a multiply-add), and counts no elementwise operation or
+    reduction, which XLA's cost analysis also counts.  A matmul-only
+    function gives the same number under both (2 m n k)."""
+    try:
+        with FlopCounterMode(display=False) as counter:
+            fn(*args)
+        return float(counter.get_total_flops())
+    except Exception:
+        return None
 
 
 class JsonlLogger:

@@ -85,6 +85,31 @@ def test_nms_params_convert(r4):
                                   np.asarray(ref["check"]))
 
 
+def test_converted_nms_leaves_own_their_memory():
+    """An in-place update of a converted leaf leaves its source alone, and
+    a read-only source (as unpickled arrays are) converts without torch's
+    non-writable warning."""
+    import warnings
+
+    source = np.array([0.25, -1.0], np.float32)
+    source.flags.writeable = False
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        nms_t, _, _ = convert.from_jax_params(
+            {"check": source}, *_tiny_dia_and_stopper(), device="cpu")
+    nms_t["check"].add_(1.0)
+    np.testing.assert_array_equal(source, [0.25, -1.0])
+    np.testing.assert_array_equal(nms_t["check"].numpy(), [1.25, 0.0])
+
+
+def _tiny_dia_and_stopper():
+    with open(os.path.join(R4, "dia_model_cnn.pkl"), "rb") as fh:
+        dia = pickle.load(fh)
+    with open(os.path.join(R4, "stopper_params.pkl"), "rb") as fh:
+        stop = pickle.load(fh)
+    return dia, stop
+
+
 def test_unpickler_loads_r4_without_jax():
     """The chip machine has no jax: every r4 artifact must load with jax
     blocked from import."""
