@@ -115,7 +115,25 @@ Phases (each raises on failure, so the script never exits 0 after one):
     two gloo processes sharing the card, 4 steps of 262,144 frames a rank,
     its counters exactly the sum of this process's K3 calls on
     ``device_seeds(3000, step, 2)`` (K4 after an overflow, the ladder's
-    rule).
+    rule);
+14. the reference's experimental modules on the main path's 32,768
+    captured rows: ``engine.pruned_batch_osd`` unpruned and pruned
+    (``threshold_sum`` 3) and ``experimental.best_estimation_counts`` over
+    the path's 1,439 TEPs, counts reset just before and read just after (K5
+    alone, exactly 4 launches); the first 1,024 rows against the port's CPU
+    run (candidates, successes and the pruning mask equal, the argmin equal
+    off near-ties, minima within 1e-5), ``candidate_matrix`` on 256 rows
+    equal; ``best_estimation_counts`` equal to the unpruned successes,
+    every pruned minimum at or above the unpruned one; K5 at this shape
+    against its twin and the f64 evaluation, timed against its bound and
+    the fp16 einsum; ``swap_statistics(n_s=0)`` and ``updated_mrb_indices``
+    on the refined rows (the GE kernel's dense load alone, 2 launches),
+    4,096 rows equal to the CPU's dense route, the dense load timed;
+    ``RnnThree.refine`` and ``CnvNn.refine`` on 4,096 captured K2
+    trajectories, ``TransformerLayer(64, 8)``, ``PredictOutlier(6)`` and
+    the four ``PredictPhase`` versions (flax's initial weights from
+    ``init_flax_``), card == CPU within rtol 1e-4, atol 1e-5, each timed,
+    softmax rows summing to 1; the phase's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -125,6 +143,7 @@ prints no result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -153,11 +172,13 @@ from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.convert import load_jax_pickle, load_run
 from short_ldpc_decoding_osd_tpu_torch.mc import harness, ladder
 from short_ldpc_decoding_osd_tpu_torch.mc.harness import count_and_capture
+from short_ldpc_decoding_osd_tpu_torch.models import extras, init_flax_
 from short_ldpc_decoding_osd_tpu_torch.ops import (gf2_bitpack, gf2ops,
                                                    mc_cascade, mc_dense, nms,
                                                    nms_dense, nms_edge,
                                                    nms_edge_padded, osd_disc)
-from short_ldpc_decoding_osd_tpu_torch.osd import engine, path, segments
+from short_ldpc_decoding_osd_tpu_torch.osd import (engine, experimental, path,
+                                                   segments)
 from short_ldpc_decoding_osd_tpu_torch.parallel import (
     device_seeds, make_mesh, sharded_dl_osd_step_from_llr, sharded_nms_train_step)
 from short_ldpc_decoding_osd_tpu_torch.pipeline import recipe
@@ -2362,6 +2383,291 @@ def phase_mesh(dev, rows, smi):
             row["mesh"] = {"launches": launches[key]}
 
 
+# phase 14: rows held card == CPU (pruned OSD, candidates), swap statistics
+# and extras models
+EXP_CPU_ROWS, EXP_CAND_ROWS, EXP_ROWS = 1024, 256, 4096
+EXP_TOL = dict(rtol=1e-4, atol=1e-5)  # the extras models, card vs CPU
+
+
+def prep_rows(prep, rows: int, device):
+    """The first ``rows`` frames of a PreparedBatch on ``device``."""
+    return engine.PreparedBatch(**{f.name: getattr(prep, f.name)[:rows].to(device)
+                                   for f in dataclasses.fields(prep)})
+
+
+def host_ms(dev, fn):
+    """(result, host ms of one call closed by a synchronisation)."""
+    synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def only_launched(label, want: dict):
+    """Raise unless the launch counts since the last reset are ``want``
+    (and 0 for every other kernel)."""
+    got = {key: n for key, n in _kernels.LAUNCHES.items() if n}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def experimental_pruned(dev, prep, t_path, k, ts):
+    """(2)-(5): ``pruned_batch_osd`` unpruned and pruned (``threshold_sum``
+    ``ts``) and ``best_estimation_counts`` on every captured row, after one
+    warm-up of each, K5 alone launched 4 times; the first rows against the
+    port's CPU run; the consistency gates; the statistics."""
+    b, ntot = prep.m_matrix.shape[0], t_path.shape[0]
+    for prune in (False, True):  # first-call costs stay out of the timed calls
+        engine.pruned_batch_osd(prep, t_path, k, ts, prune=prune)
+    experimental.best_estimation_counts(prep, t_path, k)
+    synchronize(dev)
+    _kernels.reset_launches()
+    full, ms_full = host_ms(dev, lambda: engine.pruned_batch_osd(
+        prep, t_path, k, ts, prune=False))
+    pruned, ms_pruned = host_ms(dev, lambda: engine.pruned_batch_osd(
+        prep, t_path, k, ts, prune=True))
+    (correct, failed), ms_bec = host_ms(
+        dev, lambda: experimental.best_estimation_counts(prep, t_path, k))
+    launches = _kernels.LAUNCHES["lterm"]
+    only_launched("pruned OSD + best_estimation_counts", {"lterm": 4})
+
+    keep, fell = engine._prune_keep(prep, t_path, ts)
+    if correct != int(full["success"].sum()) or correct + failed != b:
+        raise AssertionError(f"best_estimation_counts {correct}/{failed} vs the "
+                             f"unpruned successes {int(full['success'].sum())}")
+    if not (pruned["min_discrepancy"] >= full["min_discrepancy"]).all():
+        raise AssertionError("a pruned minimum lies below the unpruned one")
+    if not ((pruned["num_candidates"] <= ntot).all()
+            and (full["num_candidates"] == ntot).all()):
+        raise AssertionError("num_candidates beyond the TEP count")
+    if not torch.equal(pruned["num_candidates"], keep.sum(1)):
+        raise AssertionError("num_candidates differs from the pruning mask")
+
+    n = EXP_CPU_ROWS
+    cpu, t_cpu = prep_rows(prep, n, "cpu"), t_path.cpu()
+    keep_cpu, _ = engine._prune_keep(cpu, t_cpu, ts)
+    if not torch.equal(keep[:n].cpu(), keep_cpu):
+        raise AssertionError("pruning mask: card differs from CPU")
+    disc_cpu = engine._tep_discrepancies(cpu, t_cpu, k)
+    ties = 0
+    for name, out, mask in (("unpruned", full, None), ("pruned", pruned, keep_cpu)):
+        want = engine.pruned_batch_osd(cpu, t_cpu, k, ts, prune=mask is not None)
+        got = {key: v[:n].cpu() for key, v in out.items()}
+        for key in ("success", "num_candidates"):
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"pruned_batch_osd {name} {key}: card "
+                                     "differs from CPU")
+        np.testing.assert_allclose(got["min_discrepancy"].numpy(),
+                                   want["min_discrepancy"].numpy(), rtol=1e-5)
+        d = disc_cpu if mask is None else torch.where(mask, disc_cpu, engine._BIG)
+        two = torch.topk(d, 2, dim=1, largest=False).values
+        clear = (two[:, 1] - two[:, 0]) > 1e-5 * two[:, 0].abs().clamp(min=1.0)
+        if not torch.equal(got["best_index"][clear], want["best_index"][clear]):
+            raise AssertionError(f"pruned_batch_osd {name} best_index: card "
+                                 "differs from CPU off the ties")
+        ties += int((~clear).sum())
+    c = EXP_CAND_ROWS
+    cand = experimental.candidate_matrix(prep_rows(prep, c, dev), t_path, k)
+    if not torch.equal(cand.cpu(), experimental.candidate_matrix(
+            prep_rows(prep, c, "cpu"), t_cpu, k)):
+        raise AssertionError("candidate_matrix: card differs from CPU")
+    stats = {
+        "rows": b, "teps": ntot, "threshold_sum": ts,
+        "strict_success_unpruned": int(full["success"].sum()),
+        "strict_success_pruned": int(pruned["success"].sum()),
+        "best_estimation_counts": [correct, failed],
+        "mean_candidates_kept": float(pruned["num_candidates"].double().mean()),
+        "fell_back_to_first_4": int(fell.sum()),
+        "ms": {"unpruned": ms_full, "pruned": ms_pruned,
+               "best_estimation_counts": ms_bec},
+        "k5_launches": launches,
+        "card_vs_cpu_rows": n, "near_ties_not_held": ties,
+        "candidate_matrix_rows": c}
+    log("experimental pruned OSD: " + json.dumps(stats))
+    return stats
+
+
+def experimental_k5(dev, prep, t_path, card):
+    """K5 at the pruned OSD's shape (M (B, 64, 64) x the path's 1,439 TEPs)
+    against its twin and the f64 evaluation, timed against its bound and
+    the fp16 einsum."""
+    _, u_l, _, _ = engine._discrepancy_terms(prep, prep.m_matrix.shape[2])
+    m_mat, u_l = prep.m_matrix.contiguous(), u_l.contiguous()
+    b, m, k = m_mat.shape
+    ntot = t_path.shape[0]
+    err = k5_check("experimental (the path's TEPs, unchunked)", m_mat, u_l, t_path)
+    nbytes = m_mat.numel() + 4 * u_l.numel() + t_path.numel() + 4 * b * ntot
+    bms, bound_by = bound_ms(nbytes, 2.0 * b * m * k * ntot / INT8_OPS,
+                             1.0 * b * m * ntot / F32_INSTR)
+
+    def library():
+        prods = torch.einsum("bmk,nk->bmn", m_mat.half(), t_path.half()).float()
+        return torch.einsum("bm,bmn->bn", u_l, prods.remainder_(2.0))
+
+    compare("K5 experimental library yardstick", library(),
+            osd_disc.lterm(m_mat, u_l, t_path), rel=True)
+    row = {"shape": f"M ({b}, {m}, {k}) int8, u_l ({b}, {m}) f32, T ({ntot}, "
+                    f"{k}) int8 -> ({b}, {ntot}) f32",
+           "max_abs_err": err,
+           "ms": cuda_ms(lambda: osd_disc.lterm(m_mat, u_l, t_path), 20),
+           "plain_ms": cuda_ms(lambda: osd_disc.lterm_reference(m_mat, u_l, t_path),
+                               3, warmup=1),
+           "bound_ms": bms, "bound_by": bound_by,
+           "library_ms": cuda_ms(library, 3, warmup=1)}
+    log(f"K5 lterm experimental on {card}: kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, library (fp16 einsum) "
+        f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({bound_by}), "
+        f"{row['ms'] / bms:.2f}x the bound")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return row
+
+
+def experimental_swaps(dev, refined, code, card):
+    """(6): ``swap_statistics(n_s=0)`` and ``updated_mrb_indices`` on every
+    refined row, the GE kernel's dense load alone launched (twice); 4,096
+    rows against the CPU's dense route; the dense load at this shape
+    against its twin and the dense route, timed against its bound."""
+    k, b = code.k, refined.shape[0]
+    experimental.swap_statistics(refined, code.h_osd, k, n_s=0)  # warm-up
+    synchronize(dev)
+    _kernels.reset_launches()
+    (hist, initial), ms_swap = host_ms(
+        dev, lambda: experimental.swap_statistics(refined, code.h_osd, k, n_s=0))
+    mrb, ms_mrb = host_ms(
+        dev, lambda: experimental.updated_mrb_indices(refined, code.h_osd, k))
+    launches = _kernels.LAUNCHES["ge_packed"]
+    only_launched("swap statistics", {"ge_packed": 2})
+    if sum(hist.values()) != b:
+        raise AssertionError(f"swap histogram sums to {sum(hist.values())} != {b}")
+    n = EXP_ROWS
+    few = refined[:n]
+    hist_n, initial_n = experimental.swap_statistics(few, code.h_osd, k, n_s=0)
+    hist_c, initial_c = experimental.swap_statistics(few.cpu(), code.h_osd, k, n_s=0)
+    mrb_c = experimental.updated_mrb_indices(few.cpu(), code.h_osd, k)
+    if (hist_n != hist_c or not np.array_equal(initial_n, initial_c)
+            or not np.array_equal(initial[:n], initial_c)
+            or not np.array_equal(mrb[:n], mrb_c)):
+        raise AssertionError("swap statistics: card differs from the CPU's "
+                             "dense route")
+
+    _, h_p = gf2ops.reliability_sort(refined, code.h_osd)
+    ge_check(f"experimental swap statistics ({b} rows, dense load)",
+             h_batch=h_p, k=k)
+    m, nn = h_p.shape[1:]
+    ge = ge_time(f"experimental dense load on {card}",
+                 lambda: gf2_bitpack.reduce_dense(h_p, k), b, m, nn, k, "dense")
+    ge["ms"] = ge.pop("wrapper_ms")
+    ge["plain_ms"] = cuda_ms(lambda: gf2_bitpack._reduce_dense_plain(h_p, k),
+                             3, warmup=1)
+    ge["library_ms"] = None
+    ge["shape"] = (f"reliability-permuted H ({b}, {m}, {nn}) int8 -> tail ({b}, "
+                   f"{m}, {k}) int8 + col_order ({b}, {nn}) int32")
+    stats = {"rows": b, "histogram": {str(key): v for key, v in sorted(hist.items())},
+             "pulled_frames": int((initial >= 0).sum()),
+             "ms": {"swap_statistics": ms_swap, "updated_mrb_indices": ms_mrb},
+             "ge_launches": launches, "card_vs_cpu_rows": n}
+    log("experimental swap statistics: " + json.dumps(stats))
+    return ge | {"launches": launches}
+
+
+def extras_pair(dev, module, seed, **extra):
+    """``module`` with flax's initial weights (``init_flax_``, ``seed``) on
+    the CPU, and a copy of it on the card."""
+    cpu = init_flax_(module, seed).eval()
+    with torch.no_grad():
+        for name, val in extra.items():
+            getattr(cpu, name).copy_(val)
+    return cpu, copy.deepcopy(cpu).to(dev)
+
+
+def held(label, card_fn, cpu_fn, chunk: int | None = None):
+    """Card == CPU within EXP_TOL on the first EXP_ROWS rows (the CPU side
+    ``chunk`` rows at a time); returns the card's output and its ms a call."""
+    rows = EXP_ROWS
+    with torch.no_grad():
+        got = card_fn(slice(0, rows)).cpu()
+        step = chunk or rows
+        want = torch.cat([cpu_fn(slice(s, min(s + step, rows)))
+                          for s in range(0, rows, step)])
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **EXP_TOL,
+                                   err_msg=label)
+        ms = cuda_ms(lambda: card_fn(slice(0, rows)), 5)
+    err = float((got - want).abs().max())
+    log(f"extras {label}: card == CPU on {rows} rows (max abs error {err:.3g}), "
+        f"{ms:.4f} ms a call on the card")
+    return got, ms
+
+
+def experimental_extras(dev, params, cap, code):
+    """(7): ``RnnThree.refine`` and ``CnvNn.refine`` on 4,096 captured K2
+    trajectories, then TransformerLayer(64, 8), PredictOutlier(6) and the
+    four PredictPhase versions, card == CPU, softmax rows summing to 1."""
+    traj = nms_edge.decode_traj_edge(params, code.h, cap["llr"][:EXP_ROWS].contiguous(),
+                                     ITERS).permute(1, 0, 2).contiguous()
+    traj_cpu = traj.cpu()
+    dv, dc = extras.neighborhood_degrees(code.h)
+    ll = traj.shape[1]
+    gen = torch.Generator().manual_seed(7)
+    ms = {}
+    # flax's zero coefficients would hide RnnThree's first LSTM: draw them
+    rnn = extras_pair(dev, extras.RnnThree(code.n, ll, dc=dc), 7,
+                      coefficients=torch.randn(ll, generator=gen))
+    cnv = extras_pair(dev, extras.CnvNn(code.n, ll, dv=dv, dc=dc), 8)
+    for label, (cpu, card) in (("RnnThree.refine", rnn), ("CnvNn.refine", cnv)):
+        _, ms[label] = held(f"{label} ((13, 128) trajectories, dv {dv}, dc {dc})",
+                            lambda s, m=card: m.refine(code.h, traj[s]),
+                            lambda s, m=cpu: m.refine(code.h, traj_cpu[s]),
+                            chunk=1024)
+    x = torch.randn((EXP_ROWS, ll, 64), generator=gen)
+    cpu, card = extras_pair(dev, extras.TransformerLayer(64, 8), 9)
+    xd = x.to(dev)
+    _, ms["TransformerLayer(64, 8)"] = held(
+        "TransformerLayer(64, 8) (4,096 x 13 x 64)", lambda s: card(xd[s]),
+        lambda s: cpu(x[s]))
+    heads = [("PredictOutlier(6)", extras.PredictOutlier(6), 6)] + [
+        (f"PredictPhase(30, 31, version {v})", extras.PredictPhase(30, 31, v), 59)
+        for v in range(4)]
+    for i, (label, module, width) in enumerate(heads):
+        x = torch.randn((EXP_ROWS, width), generator=gen) * 2.0
+        xd = x.to(dev)
+        cpu, card = extras_pair(dev, module, 10 + i)
+        got, ms[label] = held(label, lambda s, m=card, a=xd: m(a[s]),
+                              lambda s, m=cpu, a=x: m(a[s]))
+        worst = float((got.double().sum(-1) - 1.0).abs().max())
+        if worst > 1e-5:
+            raise AssertionError(f"{label}: a softmax row sums {worst:.3g} from 1")
+    return ms
+
+
+def phase_experimental(dev, rows, smi):
+    """14: ``engine.pruned_batch_osd`` and ``osd/experimental.py`` on the main
+    path's 32,768 captured rows and the path's 1,439 TEPs (K5 and the GE
+    kernel's dense load), and ``models/extras.py`` on the card against the
+    CPU.  The K5 and GE rows get the phase's shapes under ``experimental``."""
+    t0 = time.perf_counter()
+    run, params, _, cap, refined, prep, _, _, _ = main_path_inputs(dev)
+    code = run["code"]
+    blocks, _ = segments.build_tep_blocks(run["path"], code.k, 6)
+    t_path = torch.as_tensor(np.concatenate(blocks), device=dev).to(torch.int8)
+    stats = experimental_pruned(dev, prep, t_path, code.k,
+                                int(run["config"]["threshold_sum"]))
+    k5 = experimental_k5(dev, prep, t_path, smi) | {"launches": stats["k5_launches"]}
+    ge = experimental_swaps(dev, refined, code, smi)
+    extras_ms = experimental_extras(dev, params, cap, code)
+    for row in rows:
+        if row["name"] == "K5 lterm":
+            row["experimental"] = k5
+        elif row["name"] == "GE ge_packed":
+            row["experimental"] = ge
+    seconds = time.perf_counter() - t0
+    log("experimental: " + json.dumps({"seconds": seconds, "extras_ms": extras_ms,
+                                       "card": smi}))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2384,6 +2690,7 @@ def main():
     phase_recipe(dev)
     phase_baselines(dev, rows, smi)
     phase_mesh(dev, rows, smi)
+    phase_experimental(dev, rows, smi)
     rows.sort(key=lambda row: row["name"])
     if any(row["launches"] is None or row["launches"] < 1 for row in rows):
         raise AssertionError("a kernel row has no launch on its path")

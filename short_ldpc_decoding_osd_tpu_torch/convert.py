@@ -25,6 +25,7 @@ from torch import nn
 
 from ._device import resolve_device
 from .codes import Code, get_code
+from .models import extras
 from .models.dia import StopperFcn, canonical_dia_name, make_dia
 
 
@@ -118,6 +119,88 @@ def stopper_to_jax(fcn: dict) -> dict:
     """Inverse of :func:`stopper_from_jax`."""
     return {"params": {"dense1": {"kernel": fcn["w1"].detach().cpu().numpy()},
                        "dense2": {"kernel": fcn["w2"].detach().cpu().numpy()}}}
+
+
+EXTRAS = ("SelfAttention", "MultiHeadAttention", "TransformerLayer",
+          "TemperatureLayer", "PredictOutlier", "PredictPhase", "ModelRnn2nd",
+          "RnnThree", "CnvNn")
+_LSTM_KEY = "OptimizedLSTMCell_0"  # where flax's nn.RNN puts its cell
+_GATES = ("i", "f", "g", "o")
+
+
+def extras_state_from_jax(name: str, params: dict, device) -> dict:
+    """A flax tree of ``models.extras`` class ``name`` (one of
+    :data:`EXTRAS`) -> the port module's state dict on ``device``.
+
+    * A Dense ``kernel`` (in, out) becomes a ``Linear`` weight (out, in),
+      its transpose; a Conv ``kernel`` (kh, kw, in, out) a ``Conv2d``
+      weight (out, in, kh, kw).  Biases as they are.
+    * A LayerNorm's ``scale`` and ``bias``, ``coefficients`` and
+      ``temperature`` as they are.
+    * An ``OptimizedLSTMCell_0`` (where ``nn.RNN`` puts the cell, whatever
+      the RNN's name) becomes ``lstm``: ``wi`` the input kernels ``ii, if,
+      ig, io`` side by side (d, 4F), ``wh`` the recurrent ``hi, hf, hg, ho``
+      (F, 4F), ``bh`` their biases (4F,), all in the ``x @ w`` layout."""
+    if name not in EXTRAS:
+        raise ValueError(f"unknown extras model {name!r}; expected one of {EXTRAS}")
+    state = {}
+
+    def walk(tree, prefix):
+        for key, val in tree.items():
+            if key == _LSTM_KEY:
+                path = prefix + "lstm."
+                state[path + "wi"] = np.concatenate(
+                    [val["i" + g]["kernel"] for g in _GATES], 1)
+                state[path + "wh"] = np.concatenate(
+                    [val["h" + g]["kernel"] for g in _GATES], 1)
+                state[path + "bh"] = np.concatenate(
+                    [val["h" + g]["bias"] for g in _GATES])
+            elif not isinstance(val, dict):
+                state[prefix + key] = val
+            elif "kernel" in val:
+                w = np.asarray(val["kernel"])
+                state[prefix + key + ".weight"] = (
+                    np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else w.T)
+                if "bias" in val:
+                    state[prefix + key + ".bias"] = val["bias"]
+            else:
+                walk(val, prefix + key + ".")
+
+    walk(params["params"], "")
+    return {k: _t(v, device) for k, v in state.items()}
+
+
+def extras_to_jax(module: nn.Module) -> dict:
+    """Inverse of :func:`extras_state_from_jax`: a ``models.extras`` module
+    -> the flax tree of float32 numpy arrays in its exact key layout."""
+
+    def arr(t):
+        return np.ascontiguousarray(t.detach().cpu().numpy())
+
+    def tree(mod):
+        out = {name: arr(p) for name, p in mod.named_parameters(recurse=False)}
+        for name, child in mod.named_children():
+            if isinstance(child, extras._LSTM):
+                f = child.features
+                cell = {}
+                for j, g in enumerate(_GATES):
+                    cols = slice(j * f, (j + 1) * f)
+                    cell["i" + g] = {"kernel": arr(child.wi[:, cols])}
+                    cell["h" + g] = {"kernel": arr(child.wh[:, cols]),
+                                     "bias": arr(child.bh[cols])}
+                out[_LSTM_KEY] = cell
+            elif isinstance(child, (nn.Linear, nn.Conv2d)):
+                w = arr(child.weight)
+                leaf = {"kernel": np.ascontiguousarray(
+                    np.transpose(w, (2, 3, 1, 0)) if w.ndim == 4 else w.T)}
+                if child.bias is not None:
+                    leaf["bias"] = arr(child.bias)
+                out[name] = leaf
+            else:
+                out[name] = tree(child)
+        return out
+
+    return {"params": tree(module)}
 
 
 def nms_to_jax(nms_params: dict) -> dict:

@@ -1,4 +1,6 @@
+from . import extras
 from .dia import (
+    DIA_ALIASES,
     DIA_MODELS,
     ConvBitwise,
     RnnOne,
@@ -12,6 +14,8 @@ from .dia import (
 )
 
 __all__ = [
+    "extras",
+    "DIA_ALIASES",
     "DIA_MODELS",
     "ConvBitwise",
     "RnnOne",

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from .._device import full_f32
+from .extras import _LSTM, RnnThree, TemperatureLayer, _LayerNorm
 
 
 class ConvBitwise(nn.Module):
@@ -238,12 +239,15 @@ def init_flax_(model: nn.Module, seed: int) -> nn.Module:
     random stream, the same distributions), from a CPU generator seeded
     ``seed``, so the card and the CPU start from the same weights: Conv and
     Dense kernels ``lecun_normal``, biases zero, a recurrent cell's input
-    kernel ``glorot_uniform`` and its recurrent kernel ``orthogonal``.
+    kernel ``glorot_uniform`` and its recurrent kernel ``orthogonal``;
+    the extras' ``OptimizedLSTMCell`` gate by gate, input kernels
+    ``lecun_normal`` and recurrent kernels ``orthogonal``, biases zero;
+    LayerNorm scale 1 and bias 0, ``coefficients`` 0, ``temperature`` 1.
     PyTorch's own defaults (kaiming-uniform, nonzero biases) would train
     another refiner.  Returns ``model``."""
     gen = torch.Generator().manual_seed(seed)
     for module in model.modules():
-        if isinstance(module, (nn.Conv1d, nn.Linear)):
+        if isinstance(module, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             w = torch.empty(module.weight.shape)
             _lecun_normal_(w, module.weight[0].numel(), gen)
             module.weight.copy_(w)
@@ -255,6 +259,22 @@ def init_flax_(model: nn.Module, seed: int) -> nn.Module:
             nn.init.orthogonal_(wh, generator=gen)
             module.wi.copy_(wi)
             module.wh.copy_(wh)
+        elif isinstance(module, _LSTM):
+            d, f = module.wi.shape[0], module.features
+            for g in range(4):
+                wi, wh = torch.empty(d, f), torch.empty(f, f)
+                _lecun_normal_(wi, d, gen)
+                nn.init.orthogonal_(wh, generator=gen)
+                module.wi[:, g * f:(g + 1) * f] = wi
+                module.wh[:, g * f:(g + 1) * f] = wh
+            module.bh.zero_()
+        elif isinstance(module, _LayerNorm):
+            module.scale.fill_(1.0)
+            module.bias.zero_()
+        elif isinstance(module, RnnThree):
+            module.coefficients.zero_()
+        elif isinstance(module, TemperatureLayer):
+            module.temperature.fill_(1.0)
     return model
 
 

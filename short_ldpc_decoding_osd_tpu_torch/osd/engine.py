@@ -110,15 +110,35 @@ def _discrepancy_terms(prep: PreparedBatch, k: int):
 
 
 @full_f32()
+def _tep_discrepancies(prep: PreparedBatch, t_flat: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """(B, N) weighted discrepancies ``c0 + u_l @ mod2(M @ T^T) + u_m @ T^T``
+    of every TEP row of ``t_flat`` (N, k) int8; the ``u_l``-weighted parity
+    term is kernel K5 on CUDA, the rest IEEE f32."""
+    c0, u_l, u_m, _ = _discrepancy_terms(prep, k)
+    lterm = osd_disc.lterm(prep.m_matrix.contiguous(), u_l.contiguous(), t_flat)
+    return c0[:, None] + lterm + u_m @ t_flat.T.to(torch.float32)
+
+
 def _disc_flat_chunked(prep: PreparedBatch, teps: torch.Tensor,
                        mask: torch.Tensor, k: int) -> torch.Tensor:
-    """(B, C*chunk) masked discrepancies for the dense-chunked TEP layout;
-    the ``u_l``-weighted parity term is kernel K5 on CUDA."""
-    c0, u_l, u_m, _ = _discrepancy_terms(prep, k)
+    """(B, C*chunk) masked discrepancies for the dense-chunked TEP layout."""
     t_flat = teps.reshape(-1, teps.shape[-1]).to(torch.int8).contiguous()
-    lterm = osd_disc.lterm(prep.m_matrix.contiguous(), u_l.contiguous(), t_flat)
-    disc = c0[:, None] + lterm + u_m @ t_flat.T.to(torch.float32)
+    disc = _tep_discrepancies(prep, t_flat, k)
     return torch.where(mask.reshape(-1)[None, :], disc, _BIG)
+
+
+def _selected_is_label(prep: PreparedBatch, tep_sel: torch.Tensor,
+                       k: int) -> torch.Tensor:
+    """(B,) strict success: the codeword of each frame's selected TEP (B, k)
+    -- MRB ``base xor t``, LRB ``mod2(M @ (base xor t))`` -- equals the
+    transmitted word in the final column order."""
+    base_mrb = prep.hard_updated[:, -k:].to(torch.float32)
+    mrb_c = (base_mrb - tep_sel.to(torch.float32)).abs()
+    prods = torch.einsum("bmk,bk->bm", prep.m_matrix.to(torch.float32), mrb_c)
+    lrb_c = prods - 2.0 * torch.floor(prods * 0.5)
+    cand = torch.cat([lrb_c, mrb_c], 1)
+    return (cand == prep.order_labels.to(torch.float32)).all(1)
 
 
 @full_f32()
@@ -269,6 +289,68 @@ def _sliding_walk_scan(block_minima: torch.Tensor, fcn_params: dict,
     }
 
 
+@full_f32()
+def _prune_keep(prep: PreparedBatch, t_flat: torch.Tensor, threshold_sum: int):
+    """``pruned_batch_osd``'s candidate mask (B, N) and the frames (B,) that
+    fell back to the first 4 TEPs.
+
+    The divergence of each TEP's estimated LRB from the *updated* hard
+    LRB, ``e0 = mod2(M @ base) xor hard_updated[:, :m]``, counted on the
+    focus slots ``lrb_ranks >= m - 4 * threshold_sum``, is ``sum(focus *
+    e0) + sum_m focus * (1 - 2 e0) * mod2(M @ t)``: the second sum is K5
+    with that weight in place of ``u_l``.  It is an integer, exact in f32
+    and f64 alike, so ``keep = div <= 2 * threshold_sum`` is bit for bit
+    JAX's.  The reference keeps the first 4 TEPs where fewer than 2
+    survive (JAX ``osd/engine.py:464-467``)."""
+    m = prep.m_matrix.shape[1]
+    m_mat = prep.m_matrix.contiguous()
+    focus = (prep.lrb_ranks >= m - 4 * threshold_sum).to(torch.float32)
+    init_lrb = prep.hard_updated[:, :m].to(torch.float32)
+    base_mrb = prep.hard_updated[:, m:].to(torch.float32)
+    v = gf2ops.mod2_matmul(m_mat, base_mrb[..., None])[..., 0].to(torch.float32)
+    e0 = v + init_lrb - 2.0 * v * init_lrb
+    div = ((focus * e0).sum(1)[:, None]
+           + osd_disc.lterm(m_mat, (focus * (1.0 - 2.0 * e0)).contiguous(),
+                            t_flat))
+    keep = div <= 2.0 * threshold_sum
+    too_few = keep.sum(1) < 2
+    first4 = torch.arange(t_flat.shape[0], device=keep.device) < 4
+    return torch.where(too_few[:, None], first4[None, :], keep), too_few
+
+
+def pruned_batch_osd(prep: PreparedBatch, teps_all: torch.Tensor, k: int,
+                     threshold_sum: int = 3, prune: bool = True) -> dict:
+    """Batch OSD over every TEP of ``teps_all`` (N, k) at once, with the
+    reference's LRB-divergence pruning (JAX ``osd/engine.py:421-488``,
+    reference ``execute_osd`` + ``best_estimating``,
+    ``ordered_statistics_decoding.py:259-308,121-139``).
+
+    The discrepancies are :func:`_tep_discrepancies` (K5 for the
+    ``u_l`` term); with ``prune``, TEPs outside :func:`_prune_keep` take
+    ``_BIG`` (a second K5 launch).  The argmin takes the first index on
+    ties.  ``success`` is strict: the argmin candidate equals the
+    transmitted word.  No (B, m, N) tensor is built on the card.  Returns
+    ``success``, ``best_index``, ``num_candidates`` and
+    ``min_discrepancy``."""
+    t_flat = teps_all.to(torch.int8).contiguous()
+    disc = _tep_discrepancies(prep, t_flat, k)
+    batch, ntot = disc.shape
+    if prune:
+        keep, _ = _prune_keep(prep, t_flat, threshold_sum)
+        disc = torch.where(keep, disc, _BIG)
+        num_candidates = keep.sum(1)
+    else:
+        num_candidates = torch.full((batch,), ntot, dtype=torch.int64,
+                                    device=disc.device)
+    best = first_argmin(disc, 1)
+    return {
+        "success": _selected_is_label(prep, t_flat[best], k),
+        "best_index": best,
+        "num_candidates": num_candidates,
+        "min_discrepancy": disc.amin(1),
+    }
+
+
 def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
                 acc_block_sizes, fcn_params: dict, k: int, window: int = 5,
                 soft_margin: float = 0.9, rel_tol: float = 1e-3,
@@ -300,15 +382,9 @@ def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
     else:
         starts = torch.as_tensor([s for s, _ in bounds], device=dev)
         tep_sel = teps.reshape(-1, teps.shape[-1])[starts[best_block] + best_inner]
-    base_mrb = prep.hard_updated[:, -k:].to(torch.float32)
-    mrb_c = (base_mrb - tep_sel.to(torch.float32)).abs()
-    prods = torch.einsum("bmk,bk->bm", prep.m_matrix.to(torch.float32), mrb_c)
-    lrb_c = prods - 2.0 * torch.floor(prods * 0.5)
-    cand = torch.cat([lrb_c, mrb_c], 1)
-    strict = (cand == prep.order_labels.to(torch.float32)).all(1)
     return {
         "success": success,
-        "strict_success": strict,
+        "strict_success": _selected_is_label(prep, tep_sel, k),
         "complexity": complexity,
         "window_num": walk["window_num"],
         "windows_evaluated": walk["windows_evaluated"],
