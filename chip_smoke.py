@@ -133,7 +133,23 @@ Phases (each raises on failure, so the script never exits 0 after one):
     trajectories, ``TransformerLayer(64, 8)``, ``PredictOutlier(6)`` and
     the four ``PredictPhase`` versions (flax's initial weights from
     ``init_flax_``), card == CPU within rtol 1e-4, atol 1e-5, each timed,
-    softmax rows summing to 1; the phase's seconds.
+    softmax rows summing to 1; the phase's seconds;
+15. the WiMAX (1056,880) two-phase system of
+    ``runs/r5_multicode/wimax_1056_880`` through ``system.TwoPhase`` at the
+    JAX package's two records (``runs/r5_wimax_system``): 64 rounds of
+    4,096 frames at 3.5 dB and 16 of 32,768 at 4.0 dB, 1,024 capture rows
+    a round, counts reset after the warm-up round and required to be
+    exactly K1 2R, K2, GE and K5 R; the NMS FER and the OSD success share
+    against the record by 99.9% Wilson overlap, the rows walked R x 1,024,
+    the stage split and the peak memory; K1 and K2 timed at the path's
+    shapes; on one 3.5 dB round's 1,024 prepared rows K5 (the whole path's
+    102,912 TEPs in one launch) against its twin 64 rows a call and the
+    f64 evaluation, the block minima and walk from K5 against those from
+    the twin, its launch shape, its time against its bound and the fp16
+    yardstick chained over TEP chunks, the GE kernel against its twin and
+    the dense route, timed; walk decisions card == CPU on 32 captured rows
+    over the full path (a frame that differs passes only where its two
+    best f64 discrepancies tie at f32 precision).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -222,6 +238,8 @@ LAUNCH_KEY = {"K1 nms_edge_final": "nms_edge_final", "K2 nms_edge_traj": "nms_ed
               "K8b cascade_p2": "cascade_p2", "GE ge_packed": "ge_packed"}
 # the JAX run's learned NMS-1 factor (runs/r4_pipeline/nms_train_summary.json)
 REF_TRAINED_CHECK = 0.16855433583259583
+# the phase-2 step's per-frame walk decisions, held card == CPU
+WALK_FIELDS = ("success", "strict_success", "complexity", "window_num")
 
 
 def log(*args):
@@ -378,15 +396,27 @@ def lterm_f64(m_mat, u_l, t_flat, chunk: int = 1024):
     return torch.cat(outs)
 
 
-def k5_check(label, m_mat, u_l, t_flat):
+def lterm_twin(m_mat, u_l, t_flat, rows: int | None = None):
+    """``osd_disc.lterm_reference``, ``rows`` frames at a time where its
+    (B, m, N) f32 parity tensor would not fit the card whole."""
+    if rows is None:
+        return osd_disc.lterm_reference(m_mat, u_l, t_flat)
+    return torch.cat([osd_disc.lterm_reference(m_mat[s:s + rows], u_l[s:s + rows],
+                                               t_flat)
+                      for s in range(0, m_mat.shape[0], rows)])
+
+
+def k5_check(label, m_mat, u_l, t_flat, twin_rows: int | None = None,
+             f64_rows: int = 1024):
     """K5 against its plain twin (1e-5 relative, the gate) and against the
-    f64 evaluation (1e-6 relative); returns the max abs error vs the twin."""
+    f64 evaluation (1e-6 relative), each ``twin_rows`` / ``f64_rows`` frames
+    at a time; returns the max abs error vs the twin."""
     b, m, k = m_mat.shape
     shape = f"M ({b}, {m}, {k}) x T ({t_flat.shape[0]}, {k})"
     got = osd_disc.lterm(m_mat, u_l, t_flat)
-    want = osd_disc.lterm_reference(m_mat, u_l, t_flat)
+    want = lterm_twin(m_mat, u_l, t_flat, twin_rows)
     err = compare(f"K5 lterm {label} {shape}", got, want, rel=True)
-    exact = lterm_f64(m_mat, u_l, t_flat)
+    exact = lterm_f64(m_mat, u_l, t_flat, f64_rows)
     twin_exact = float(((want.double() - exact).abs()
                         / exact.abs().clamp(min=1.0)).max())
     del want
@@ -441,18 +471,21 @@ def k5_minima(prep, lterm_vals, layout, k):
     return minima, argmins
 
 
-def k5_walk(run, prep, u_l, layout):
-    """The main path's block minima through K5 (``block_discrepancy_minima``)
-    against those from ``lterm_reference`` (1e-5 relative, the gate), and the
-    frames whose walk differs: stop_k, success, chosen TEP (logged)."""
+def k5_walk(run, prep, u_l, layout, label="main path",
+            twin_rows: int | None = None):
+    """A batch's block minima through K5 (``block_discrepancy_minima``)
+    against those from ``lterm_reference`` (``twin_rows`` frames at a time;
+    1e-5 relative, the gate), and the frames whose walk differs: stop_k,
+    success, chosen TEP (logged).  Returns the (B,) mask of those frames
+    and each frame's deeper ``deep_limit`` of the two walks."""
     k = run["code"].k
     teps, mask, bounds = layout
     m_mat = prep.m_matrix.contiguous()
     t_flat = teps.reshape(-1, k).to(torch.int8).contiguous()
     got_min, got_arg = engine.block_discrepancy_minima(prep, teps, mask, k, bounds)
     ref_min, ref_arg = k5_minima(
-        prep, osd_disc.lterm_reference(m_mat, u_l, t_flat), layout, k)
-    err = compare("K5 block minima (main path)", got_min, ref_min, rel=True)
+        prep, lterm_twin(m_mat, u_l, t_flat, twin_rows), layout, k)
+    err = compare(f"K5 block minima ({label})", got_min, ref_min, rel=True)
     cfg = run["config"]
     walk = dict(window=int(cfg.get("window", 5)),
                 soft_margin=float(cfg.get("soft_margin", 0.9)))
@@ -466,15 +499,73 @@ def k5_walk(run, prep, u_l, layout):
                    < w["deep_limit"][:, None])
         best = engine.first_argmin(torch.where(in_walk, minima, engine._BIG), 1)
         inner = torch.gather(argmins, 1, best[:, None])[:, 0]
-        picks.append((w["stop_k"], success, starts[best] + inner))
-    (sk, sk_ref), (su, su_ref), (tp, tp_ref) = zip(*picks)
+        picks.append((w["stop_k"], success, starts[best] + inner,
+                      w["deep_limit"]))
+    (sk, sk_ref), (su, su_ref), (tp, tp_ref), (dl, dl_ref) = zip(*picks)
     diffs = {"stop_k": int((sk != sk_ref).sum()),
              "success": int((su != su_ref).sum()),
              "chosen_tep": int((tp != tp_ref).sum())}
-    log(f"K5 walk on the main path's {m_mat.shape[0]} captured rows: block "
+    log(f"K5 walk on the {label}'s {m_mat.shape[0]} captured rows: block "
         f"minima vs lterm_reference's max_abs_err {err:.3g}; frames that differ "
         f"{json.dumps(diffs)} (0 expected; a flipped tie is reported here); "
         f"successes {int(su.sum())} (K5) / {int(su_ref.sum())} (plain)")
+    return (sk != sk_ref) | (su != su_ref) | (tp != tp_ref), torch.maximum(dl, dl_ref)
+
+
+def k5_launch_shape(b, m, k, ntot, label=""):
+    """Log K5's plan at M (b, m, k) x T (ntot, k) and what the card makes of
+    it (registers, local bytes, resident blocks per SM)."""
+    plan = osd_disc.lterm_plan(b, m, k, ntot)
+    occ = osd_disc.lterm_occupancy(plan, torch.cuda.current_device())
+    log(f"K5 launch shape {label}({b}, {m}, {k}) x {ntot}: "
+        f"{'resident' if plan.resident else 'general'} (kch {plan.kch}, tn "
+        f"{plan.tn}), {plan.nt} TEPs a tile x {plan.n_tiles} tiles, "
+        f"{plan.nbuf} frame buffer(s), {occ['threads']} threads, "
+        f"{occ['registers']} registers and {occ['local_bytes']} local bytes a "
+        f"thread, {plan.smem_bytes} dynamic shared bytes a block, "
+        f"{occ['blocks_per_sm']} resident block(s) per SM on {occ['sms']} SMs, "
+        f"grid {plan.grid}")
+
+
+def k5_library(m_mat, u_l, t_flat, teps_a_call: int | None = None):
+    """The yardstick, never used by the port: one einsum on the fp16 tensor
+    cores (0/1 sums <= k < 2,048 are exact in fp16), mod 2, then the u_l
+    reduction; chained over ``teps_a_call`` TEPs at a time where the (B, m,
+    N) intermediate would not fit the card whole."""
+    m_half = m_mat.half()
+    step = teps_a_call or t_flat.shape[0]
+    outs = []
+    for s in range(0, t_flat.shape[0], step):
+        prods = torch.einsum("bmk,nk->bmn", m_half, t_flat[s:s + step].half())
+        outs.append(torch.einsum("bm,bmn->bn", u_l, prods.float().remainder_(2.0)))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+
+
+def k5_timed(label, m_mat, u_l, t_flat, twin_rows: int | None = None,
+             lib_teps: int | None = None) -> dict:
+    """K5's timed entry at one shape: ms through the wrapper, its plain twin
+    (``twin_rows`` frames at a time) and the library yardstick (held to K5
+    first; ``lib_teps`` TEPs a call), against the bound of 2 B m k N int8
+    operations, B m N f32 adds and the compulsory bytes."""
+    b, m, k = m_mat.shape
+    ntot = t_flat.shape[0]
+    compare(f"K5 {label} library yardstick", k5_library(m_mat, u_l, t_flat, lib_teps),
+            osd_disc.lterm(m_mat, u_l, t_flat), rel=True)
+    nbytes = m_mat.numel() + 4 * u_l.numel() + t_flat.numel() + 4 * b * ntot
+    # binary MACs on the int8 tensor cores; one f32 FMA per (frame, row, TEP)
+    # for the u_l-weighted parity sum
+    bms, bound_by = bound_ms(nbytes, 2.0 * b * m * k * ntot / INT8_OPS,
+                             1.0 * b * m * ntot / F32_INSTR)
+    return {
+        "ms": cuda_ms(lambda: osd_disc.lterm(m_mat, u_l, t_flat), 20),
+        "plain_ms": cuda_ms(lambda: lterm_twin(m_mat, u_l, t_flat, twin_rows),
+                            3, warmup=1),
+        "bound_ms": bms, "bound_by": bound_by,
+        "library_ms": cuda_ms(lambda: k5_library(m_mat, u_l, t_flat, lib_teps),
+                              3, warmup=1),
+        "shape": f"M ({b}, {m}, {k}) int8, u_l ({b}, {m}) f32, T ({ntot}, {k}) "
+                 f"int8 -> ({b}, {ntot}) f32",
+    }
 
 
 def k5_row(dev, run, prep, u_l, t_flat, layout):
@@ -501,49 +592,17 @@ def k5_row(dev, run, prep, u_l, t_flat, layout):
     k5_walk(run, prep, u_l, layout)
     for b_, m_, k_, n_ in ((*m_mat.shape, t_flat.shape[0]),
                            *(s[1:] for s in K5_SHAPES)):
-        plan = osd_disc.lterm_plan(b_, m_, k_, n_)
-        occ = osd_disc.lterm_occupancy(plan, torch.cuda.current_device())
-        log(f"K5 launch shape ({b_}, {m_}, {k_}) x {n_}: "
-            f"{'resident' if plan.resident else 'general'} (kch {plan.kch}, tn "
-            f"{plan.tn}), {occ['threads']} threads, {occ['registers']} registers"
-            f" and {occ['local_bytes']} local bytes a thread, "
-            f"{plan.smem_bytes} dynamic shared bytes a block, "
-            f"{occ['blocks_per_sm']} resident block(s) per SM on {occ['sms']} "
-            f"SMs, grid {plan.grid}")
+        k5_launch_shape(b_, m_, k_, n_)
 
-    b, m, k = m_mat.shape
-    ntot = t_flat.shape[0]
-    nbytes = m_mat.numel() + 4 * u_l.numel() + t_flat.numel() + 4 * b * ntot
-    # binary MACs on the int8 tensor cores; one f32 FMA per (frame, row, TEP)
-    # for the u_l-weighted parity sum
-    bms, bound_by = bound_ms(nbytes, 2.0 * b * m * k * ntot / INT8_OPS,
-                             1.0 * b * m * ntot / F32_INSTR)
-
-    def library():
-        # one einsum on the fp16 tensor cores (0/1 sums <= 64 are exact in
-        # fp16), mod 2, then the u_l reduction: the yardstick, never used
-        # by the port
-        prods = torch.einsum("bmk,nk->bmn", m_mat.half(), t_flat.half()).float()
-        return torch.einsum("bm,bmn->bn", u_l, prods.remainder_(2.0))
-
-    compare("K5 library yardstick", library(), osd_disc.lterm(m_mat, u_l, t_flat),
-            rel=True)
     row = {
         "name": "K5 lterm", "route": "cuda",
         "source": "short_ldpc_decoding_osd_tpu_torch/csrc/osd_disc.cu",
         "replaces": "short_ldpc_decoding_osd_tpu/ops/osd_disc_pallas.py:40",
         "launches": None, "max_abs_err": err,
-        "ms": cuda_ms(lambda: osd_disc.lterm(m_mat, u_l, t_flat), 20),
-        "plain_ms": cuda_ms(lambda: osd_disc.lterm_reference(m_mat, u_l, t_flat),
-                            3, warmup=1),
-        "bound_ms": bms, "bound_by": bound_by,
-        "library_ms": cuda_ms(library, 3, warmup=1),
-        "shape": f"M ({b}, {m}, {k}) int8, u_l ({b}, {m}) f32, T ({ntot}, {k}) "
-                 f"int8 -> ({b}, {ntot}) f32",
-    }
+    } | k5_timed("main path", m_mat, u_l, t_flat)
     log(f"K5 lterm: max_abs_err {err:.3g}, kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
-        f"{bms:.4f} ms ({bound_by})")
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
     for name, b_, m_, k_, n_ in K5_SHAPES:
         inputs = k5_inputs(dev, b_, m_, k_, n_, 30, u_pool)
         log(f"K5 lterm {name} M ({b_}, {m_}, {k_}) x T ({n_}, {k_}): kernel "
@@ -1557,8 +1616,7 @@ def phase_card_vs_cpu(dev, run_dir=R4, label="r4_pipeline"):
                            torch.as_tensor(blob["labels"], device=d),
                            torch.as_tensor(teps, device=d),
                            torch.as_tensor(mask, device=d), acc, run["fcn"])
-        results.append({k: out[k].cpu() for k in (
-            "success", "strict_success", "complexity", "window_num")} | {
+        results.append({k: out[k].cpu() for k in WALK_FIELDS} | {
             "detected": det.cpu()})
     for key, val in results[0].items():
         if not torch.equal(val, results[1][key]):
@@ -1988,35 +2046,14 @@ def baselines_kernels(dev, card):
     t_flat = torch.as_tensor(fs_osd.sequential_tep_matrix(k, 3)[0], device=dev)
     err = k5_check("baselines (M = P^T, order-3 TEPs)", m_mat, u_l, t_flat)
     ntot = t_flat.shape[0]
-    kplan = osd_disc.lterm_plan(b, n - k, k, ntot)
-    occ = osd_disc.lterm_occupancy(kplan, torch.cuda.current_device())
-    log(f"K5 launch shape baselines ({b}, {n - k}, {k}) x {ntot}: "
-        f"{'resident' if kplan.resident else 'general'} (kch {kplan.kch}), "
-        f"{kplan.nt} TEPs x {kplan.n_tiles} tiles, {kplan.nbuf} frame "
-        f"buffer(s), grid {kplan.grid}, {occ['registers']} registers, "
-        f"{occ['blocks_per_sm']} resident block(s) per SM")
-    nbytes = m_mat.numel() + 4 * u_l.numel() + t_flat.numel() + 4 * b * ntot
-    bms, bound_by = bound_ms(nbytes, 2.0 * b * (n - k) * k * ntot / INT8_OPS,
-                             1.0 * b * (n - k) * ntot / F32_INSTR)
-
-    def library():
-        prods = torch.einsum("bmk,nk->bmn", m_mat.half(), t_flat.half()).float()
-        return torch.einsum("bm,bmn->bn", u_l, prods.remainder_(2.0))
-
-    compare("K5 baselines library yardstick", library(),
-            osd_disc.lterm(m_mat, u_l, t_flat), rel=True)
-    k5 = {"shape": f"M ({b}, {n - k}, {k}) int8 = P^T, u_l ({b}, {n - k}) f32, "
-                   f"T ({ntot}, {k}) int8 -> ({b}, {ntot}) f32",
-          "max_abs_err": err,
-          "ms": cuda_ms(lambda: osd_disc.lterm(m_mat, u_l, t_flat), 20),
-          "plain_ms": cuda_ms(lambda: osd_disc.lterm_reference(m_mat, u_l, t_flat),
-                              3, warmup=1),
-          "bound_ms": bms, "bound_by": bound_by,
-          "library_ms": cuda_ms(library, 3, warmup=1)}
+    k5_launch_shape(b, n - k, k, ntot, "baselines ")
+    k5 = {"max_abs_err": err} | k5_timed("baselines", m_mat, u_l, t_flat)
+    k5["shape"] = (f"M ({b}, {n - k}, {k}) int8 = P^T, u_l ({b}, {n - k}) f32, "
+                   f"T ({ntot}, {k}) int8 -> ({b}, {ntot}) f32")
     log(f"K5 lterm baselines on {card}: kernel {k5['ms']:.4f} ms, plain "
         f"{k5['plain_ms']:.4f} ms, library (fp16 einsum) "
-        f"{k5['library_ms']:.4f} ms, bound {bms:.4f} ms ({bound_by}), "
-        f"{k5['ms'] / bms:.2f}x the bound")
+        f"{k5['library_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms "
+        f"({k5['bound_by']}), {k5['ms'] / k5['bound_ms']:.2f}x the bound")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return ge, k5
@@ -2494,31 +2531,12 @@ def experimental_k5(dev, prep, t_path, card):
     the fp16 einsum."""
     _, u_l, _, _ = engine._discrepancy_terms(prep, prep.m_matrix.shape[2])
     m_mat, u_l = prep.m_matrix.contiguous(), u_l.contiguous()
-    b, m, k = m_mat.shape
-    ntot = t_path.shape[0]
     err = k5_check("experimental (the path's TEPs, unchunked)", m_mat, u_l, t_path)
-    nbytes = m_mat.numel() + 4 * u_l.numel() + t_path.numel() + 4 * b * ntot
-    bms, bound_by = bound_ms(nbytes, 2.0 * b * m * k * ntot / INT8_OPS,
-                             1.0 * b * m * ntot / F32_INSTR)
-
-    def library():
-        prods = torch.einsum("bmk,nk->bmn", m_mat.half(), t_path.half()).float()
-        return torch.einsum("bm,bmn->bn", u_l, prods.remainder_(2.0))
-
-    compare("K5 experimental library yardstick", library(),
-            osd_disc.lterm(m_mat, u_l, t_path), rel=True)
-    row = {"shape": f"M ({b}, {m}, {k}) int8, u_l ({b}, {m}) f32, T ({ntot}, "
-                    f"{k}) int8 -> ({b}, {ntot}) f32",
-           "max_abs_err": err,
-           "ms": cuda_ms(lambda: osd_disc.lterm(m_mat, u_l, t_path), 20),
-           "plain_ms": cuda_ms(lambda: osd_disc.lterm_reference(m_mat, u_l, t_path),
-                               3, warmup=1),
-           "bound_ms": bms, "bound_by": bound_by,
-           "library_ms": cuda_ms(library, 3, warmup=1)}
+    row = {"max_abs_err": err} | k5_timed("experimental", m_mat, u_l, t_path)
     log(f"K5 lterm experimental on {card}: kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, library (fp16 einsum) "
-        f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({bound_by}), "
-        f"{row['ms'] / bms:.2f}x the bound")
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}), {row['ms'] / row['bound_ms']:.2f}x the bound")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return row
@@ -2668,6 +2686,311 @@ def phase_experimental(dev, rows, smi):
     torch.cuda.empty_cache()
 
 
+# phase 15: the WiMAX (1056,880) two-phase system at the JAX package's two
+# records (runs/r5_wimax_system/bench_{3.5,4.0}dB.json), which name no cap:
+# cap = 1,024 rows a round at both points; cap_b = 32,768 at 4.0 dB (the
+# bench's documented setting) and 262,144 / 64 = 4,096 at 3.5 dB, whose
+# record walked 65,536 rows (64 rounds of 1,024)
+WIMAX_RUN = os.path.join(ROOT, "runs", "r5_multicode", "wimax_1056_880")
+# (snr, cap_b, cap, TwoPhase seeds): the 3.5 dB point also on a second
+# seed, an independent reading of its statistics
+WIMAX_POINTS = ((3.5, 4_096, 1_024, (77, 78)), (4.0, 32_768, 1_024, (77,)))
+# where a (B, m, N) tensor would not fit the card whole: the twin's f32
+# parities 64 rows at a time (4.6 GB), the f64 evaluation 16 (2.3 GB), the
+# fp16 yardstick 8,192 TEPs a call (8.9 GB with its f32 copy)
+WIMAX_TWIN_ROWS, WIMAX_F64_ROWS, WIMAX_LIB_TEPS = 64, 16, 8_192
+WIMAX_CPU_ROWS = 32  # captured rows walked on the card and on the CPU
+# two best discrepancies whose f64 values lie within this relative gap tie
+# at f32 precision (K5's gate against its twin)
+NEAR_TIE = 1e-5
+
+
+def wimax_step(tp, llr, labels):
+    """A ``TwoPhase``'s own phase-2 step on captured rows, as ``measure``
+    runs it: (walk outputs, refined reliabilities, detected)."""
+    with torch.no_grad():
+        return tp.phase2(tp.nms_params, llr, labels, tp.teps, tp.mask, tp.acc,
+                         tp.fcn)
+
+
+def gap_sigma(got, want) -> float:
+    """How many standard errors apart two (successes, trials) shares lie."""
+    (a, n), (b, m) = got, want
+    p, q = a / n, b / m
+    return (p - q) / math.sqrt(p * (1 - p) / n + q * (1 - q) / m)
+
+
+def ties_only(label, prep, differ, deep, t_flat, bounds, k) -> int:
+    """Raise unless each frame of the (B,) mask ``differ`` has its two best
+    discrepancies over the blocks below its ``deep`` limit within NEAR_TIE
+    of each other, evaluated in f64; return the count of such frames."""
+    rows = differ.nonzero()[:, 0].tolist()
+    if not rows:
+        return 0
+    c0, u_l, u_m, _ = engine._discrepancy_terms(prep, k)
+    gaps = []
+    for r, d in zip(rows, deep[differ].tolist()):
+        t = t_flat[:bounds[d - 1][1]]
+        disc = (c0[r].double() + t.double() @ u_m[r].double()
+                + lterm_f64(prep.m_matrix[r:r + 1], u_l[r:r + 1], t)[0])
+        two = torch.topk(disc, 2, largest=False).values
+        gaps.append(float((two[1] - two[0]) / two[0].abs().clamp(min=1.0)))
+    log(f"{label}: frames that differ {rows}, relative f64 gaps of their two "
+        f"best discrepancies {gaps}")
+    if max(gaps) > NEAR_TIE:
+        raise AssertionError(f"{label}: frames differ off an f32 tie")
+    return len(rows)
+
+
+def wimax_record(snr):
+    return read_json(os.path.join(ROOT, "runs", "r5_wimax_system",
+                                  f"bench_{snr:.1f}dB.json"))
+
+
+def wimax_vs_record(label, rec, errors, frames, succ, failures) -> str:
+    """The NMS FER and the OSD success share against the record: each
+    99.9% Wilson interval must overlap the record's; both gaps in standard
+    errors, as text."""
+    rec_errors = round(rec["system_fer_nms"] * rec["system_frames"])
+    fer_ci, _ = overlap999(f"{label} NMS FER", (errors, frames),
+                           (rec_errors, rec["system_frames"]))
+    share_ci, _ = overlap999(f"{label} OSD success share", (succ, failures),
+                             (rec["system_osd_success"], rec["system_failures"]))
+    return (f"NMS FER {errors / frames:.6f} (99.9% CI {fer_ci[0]:.6f}-"
+            f"{fer_ci[1]:.6f}; record {rec['system_fer_nms']}; "
+            f"{gap_sigma((errors, frames), (rec_errors, rec['system_frames'])):+.2f}"
+            f" sigma), OSD {succ} of {failures} ({succ / failures:.5f}, 99.9% CI "
+            f"{share_ci[0]:.5f}-{share_ci[1]:.5f}; record "
+            f"{rec['system_osd_success']} of {rec['system_failures']}; "
+            f"{gap_sigma((succ, failures), (rec['system_osd_success'], rec['system_failures'])):+.2f}"
+            f" sigma)")
+
+
+def wimax_point(dev, snr, cap_b, cap, seed):
+    """One record point through ``TwoPhase`` as ``run_two_phase`` drives
+    it: a warm-up round, then ``measure`` with the launch counts reset just
+    before and read just after (K1 2R, K2, GE and K5 R each, nothing
+    else), ``stage_times``, the peak memory; the statistics against the
+    record by 99.9% Wilson overlap, the rows walked R x cap."""
+    rec = wimax_record(snr)
+    rounds = rec["system_frames"] // cap_b
+    if rounds * cap != rec["system_osd_rows_walked"]:
+        raise AssertionError(f"wimax {snr} dB: {rounds} rounds of {cap} rows do "
+                             f"not make the record's rows walked")
+    tp = system.TwoPhase(WIMAX_RUN, cap_b, cap, snr, dev, seed)
+    decode = (tp.capture_step.decoder,
+              engine.redecode_route(tp.code.h, tp.variant, dev, cap))
+    if decode != ("edge", "edge"):
+        raise AssertionError(f"wimax capture / re-decode routes {decode}")
+    tp.full_round(10**6)  # warm-up
+    synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    out = tp.measure(rounds)
+    launches = {"nms_edge_final": 2 * rounds, "nms_edge_traj": rounds,
+                "ge_packed": rounds, "lterm": rounds}
+    only_launched(f"wimax system {snr} dB", launches)
+    out["system_stage_s"] = tp.stage_times(rounds)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["launches"] = launches
+    out["seed"] = seed
+    log(f"wimax system {snr:.1f} dB: " + json.dumps(out))
+    label = f"wimax {snr} dB seed {seed}"
+    versus = wimax_vs_record(label, rec, out["system_frame_errors"],
+                             out["system_frames"], out["system_osd_success"],
+                             out["system_failures"])
+    if out["system_osd_rows_walked"] != rounds * cap:
+        raise AssertionError(f"wimax {snr} dB: rows walked "
+                             f"{out['system_osd_rows_walked']}")
+    stages = out["system_stage_s"]
+    staged = sum(v for key, v in stages.items() if key != "sliding_osd_total")
+    log(f"wimax system {snr:.1f} dB seed {seed} vs its record: {versus}, capture "
+        f"overflow {out['system_capture_overflow']} (record "
+        f"{rec['system_capture_overflow']}), {rounds} rounds, staged round "
+        f"{1e3 * staged:.2f} ms (K5 stage {1e3 * stages['disc_minima_k5']:.2f}),"
+        f" peak memory {out['peak_memory_bytes'] / 2**30:.2f} GiB, "
+        f"{torch.cuda.get_device_name(0)}")
+    return tp, rounds, out
+
+
+def wimax_edge_times(dev, tp, buf, rounds):
+    """K1 at the point's capture shape (cap_b, 1,056) and K2 at the
+    re-decode's (cap, 1,056), each == its plain twin bit for bit on the
+    trained factor (as ``edge_row``), timed against their bounds; returns
+    each kernel's entry for its row."""
+    code = tp.code
+    gen = torch.Generator(device=dev).manual_seed(5)
+    llr, _ = sample_batch(gen, ChannelSpec.awgn(tp.snr_db, code.rate),
+                          torch.as_tensor(code.g, device=dev), tp.cap_b)
+    weights = nms.scalar_weights(tp.nms_params, tp.variant)
+    plan = nms_edge.launch_plan(*code.h.shape, *nms_edge._degrees(code.h))
+    entries = {}
+    for name, fn, x, traj, launches in (
+            ("K1 nms_edge_final", nms_edge.decode_final_edge, llr, False,
+             2 * rounds),
+            ("K2 nms_edge_traj", nms_edge.decode_traj_edge,
+             buf["llr"].contiguous(), True, rounds)):
+        b = x.shape[0]
+        got = fn(tp.nms_params, code.h, x, ITERS, tp.variant)
+        want = nms_edge._decode_edge_plain(x, code.h, ITERS, weights, traj)
+        err = compare(f"wimax {name}", got, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"wimax {name}: kernel differs from its plain twin")
+        del got, want
+        slots = ITERS + 1 if traj else 1
+        bms, by = bound_ms(4 * b * code.n * (1 + slots),
+                           nms_edge_ops(code.h, b, ITERS) / F32_INSTR)
+        ms = cuda_ms(lambda: fn(tp.nms_params, code.h, x, ITERS, tp.variant), 10)
+        plain_ms = cuda_ms(lambda: nms_edge._decode_edge_plain(
+            x, code.h, ITERS, weights, traj), 3, warmup=0)
+        entries[name] = {
+            "shape": (f"llr ({b}, {code.n}) f32 -> "
+                      + (f"({slots}, {b}, {code.n})" if traj else f"({b}, {code.n})")
+                      + f", T={ITERS}, bucket {plan.bucket}, {plan.warps} warps a frame"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "launches": launches}
+        log(f"wimax system {tp.snr_db:.1f} dB {name} ({b}, {code.n}), bucket "
+            f"{plan.bucket}, {plan.warps} warps a frame, trained factor: == its "
+            f"plain twin bit for bit, {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by}), {ms / bms:.2f}x the bound")
+    torch.cuda.empty_cache()
+    return entries
+
+
+def wimax_kernels(dev, tp, buf, card):
+    """K5 and GE on one round's prepared rows at the point: K5 against its
+    twin (in row chunks) and the f64 evaluation, the block minima and walk
+    from K5 against those from the twin, its launch shape, timed against
+    its bound and the chunked fp16 yardstick; the GE kernel == its twin ==
+    the dense route on the round's perm load, timed."""
+    code = tp.code
+    k = code.k
+    llr, labels = buf["llr"], buf["labels"]
+    refined = wimax_step(tp, llr, labels)[1]
+    prep = engine.prepare(refined, llr, labels, code.h_osd, k)
+    m_mat = prep.m_matrix.contiguous()
+    u_l = engine._discrepancy_terms(prep, k)[1].contiguous()
+    t_flat = tp.teps.reshape(-1, k)
+    err = k5_check("wimax system", m_mat, u_l, t_flat, WIMAX_TWIN_ROWS,
+                   WIMAX_F64_ROWS)
+    run = {"code": code, "fcn": tp.fcn,
+           "config": {"window": tp.window, "soft_margin": tp.soft_margin}}
+    differ, deep = k5_walk(run, prep, u_l, (tp.teps, tp.mask, tp.bounds),
+                           "wimax system", WIMAX_TWIN_ROWS)
+    ties = ties_only("K5 vs its twin, wimax walk", prep, differ, deep, t_flat,
+                     tp.bounds, k)
+    k5_launch_shape(*m_mat.shape, t_flat.shape[0], "wimax system ")
+    k5 = {"max_abs_err": err, "walk_ties": ties} | k5_timed(
+        "wimax system", m_mat, u_l, t_flat, WIMAX_TWIN_ROWS, WIMAX_LIB_TEPS)
+    k5["library"] = (f"fp16 einsum + mod 2 + einsum chained over "
+                     f"{WIMAX_LIB_TEPS} TEPs a call")
+    log(f"K5 lterm wimax system on {card}: kernel {k5['ms']:.4f} ms, plain "
+        f"{k5['plain_ms']:.4f} ms ({WIMAX_TWIN_ROWS} rows a call), library "
+        f"(chunked fp16 einsum) {k5['library_ms']:.4f} ms, bound "
+        f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}), "
+        f"{k5['ms'] / k5['bound_ms']:.2f}x the bound")
+    del u_l, m_mat
+    torch.cuda.empty_cache()
+
+    h, n = code.h_osd, code.n
+    perm = torch.sort(refined.abs(), dim=1, stable=True).indices
+    ge_check("wimax system (perm load, one round's rows)", perm, h, k)
+    b, m = perm.shape[0], h.shape[0]
+    ge = ge_time(f"wimax system on {card}",
+                 lambda: gf2_bitpack.reduce_from_perm(perm, h, k),
+                 b, m, n, k, "perm")
+    ge["ms"] = ge.pop("wrapper_ms")
+    ge["plain_ms"] = cuda_ms(lambda: gf2_bitpack._reduce_perm_plain(perm, h, k),
+                             3, warmup=1)
+    ge["library_ms"] = None
+    ge["shape"] = (f"perm ({b}, {n}) int64 over h_osd ({m}, {n}) -> tail ({b}, "
+                   f"{m}, {k}) int8 + col_order ({b}, {n}) int32")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return k5, ge
+
+
+def wimax_card_vs_cpu(tp, buf, rows: int):
+    """Walk decisions on the first ``rows`` captured rows through the
+    phase-2 step, the card against the port's CPU run (its plain route:
+    K2's and K5's twins, the dense GE route) over the full path: equal, or
+    the frames that differ tie at f32 (``ties_only``); returns the count
+    of those."""
+    cpu = system.TwoPhase(WIMAX_RUN, tp.cap_b, tp.cap, tp.snr_db, "cpu")
+    llr, labels = buf["llr"][:rows], buf["labels"][:rows]
+    outs = []
+    for side in (tp, cpu):
+        out, refined, det = wimax_step(side, llr.to(side.device),
+                                       labels.to(side.device))
+        outs.append({key: out[key].cpu() for key in WALK_FIELDS + ("deep_limit",)}
+                    | {"detected": det.cpu()})
+    card, host = outs
+    differ = torch.zeros(rows, dtype=torch.bool)
+    for key in WALK_FIELDS + ("detected",):
+        differ |= card[key] != host[key]
+    k = cpu.code.k
+    if differ.any():  # the CPU step's own refined values, prepared
+        prep = engine.prepare(refined, llr.cpu(), labels.cpu(), cpu.code.h_osd, k)
+        ties = ties_only("wimax card vs CPU walk", prep, differ, torch.maximum(
+            card["deep_limit"], host["deep_limit"]), cpu.teps.reshape(-1, k),
+            cpu.bounds, k)
+    else:
+        ties = 0
+    log(f"wimax card vs CPU ({tp.snr_db:.1f} dB, the first {rows} captured rows "
+        f"of a round, {int(card['detected'].sum())} detected, the full path's "
+        f"{int(tp.mask.sum())} TEPs): walk decisions equal on "
+        f"{rows - ties} rows, {ties} rows differing at an f32 tie; successes "
+        f"{int(card['success'].sum())} (card) / {int(host['success'].sum())} "
+        f"(CPU)")
+    return ties
+
+
+def phase_wimax_system(dev, rows, smi):
+    """15: the WiMAX (1056,880) system of ``runs/r5_multicode/wimax_1056_880``
+    at both records (``wimax_point``; 3.5 dB on two seeds, each and pooled
+    against the record); at each point K1/K2 at the path's shapes == their
+    plain twins; at 3.5 dB K5 and GE on one round's rows against their
+    plain versions, and card == CPU walk decisions.  The K1, K2, K5 and GE
+    rows get the phase's entries under ``wimax_system``."""
+    t0 = time.perf_counter()
+    launches, edge = {}, {}
+    for snr, cap_b, cap, seeds in WIMAX_POINTS:
+        point = f"{snr:.1f} dB"
+        tp, runs = None, []
+        for seed in seeds:  # the first seed's system goes on to the checks
+            got, rounds, out = wimax_point(dev, snr, cap_b, cap, seed)
+            tp = tp or got
+            runs.append(out)
+        del got
+        if len(runs) > 1:  # the seeds' readings pooled
+            total = {key: sum(out[key] for out in runs) for key in (
+                "system_frame_errors", "system_frames", "system_osd_success",
+                "system_failures")}
+            log(f"wimax system {point} seeds {list(seeds)} pooled vs its record: "
+                + wimax_vs_record(f"wimax {snr} dB pooled", wimax_record(snr),
+                                  *total.values()))
+        launches[point] = rounds
+        _, buf = tp.capture_round(rounds + 1)
+        for name, entry in wimax_edge_times(dev, tp, buf, rounds).items():
+            edge.setdefault(name, {})[point] = entry
+        if snr == WIMAX_POINTS[0][0]:
+            k5, ge = wimax_kernels(dev, tp, buf, smi)
+            ties = wimax_card_vs_cpu(tp, buf, WIMAX_CPU_ROWS)
+        del tp, buf
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    for row in rows:
+        if row["name"] == "K5 lterm":
+            row["wimax_system"] = k5 | {"launches": launches}
+        elif row["name"] == "GE ge_packed":
+            row["wimax_system"] = ge | {"launches": launches}
+        elif row["name"] in edge:
+            row["wimax_system"] = edge[row["name"]]
+    log("wimax system: " + json.dumps({
+        "seconds": time.perf_counter() - t0, "card_vs_cpu_rows": WIMAX_CPU_ROWS,
+        "card_vs_cpu_ties": ties, "card": smi}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2691,6 +3014,7 @@ def main():
     phase_baselines(dev, rows, smi)
     phase_mesh(dev, rows, smi)
     phase_experimental(dev, rows, smi)
+    phase_wimax_system(dev, rows, smi)
     rows.sort(key=lambda row: row["name"])
     if any(row["launches"] is None or row["launches"] < 1 for row in rows):
         raise AssertionError("a kernel row has no launch on its path")
