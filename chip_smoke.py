@@ -149,7 +149,34 @@ Phases (each raises on failure, so the script never exits 0 after one):
     yardstick chained over TEP chunks, the GE kernel against its twin and
     the dense route, timed; walk decisions card == CPU on 32 captured rows
     over the full path (a frame that differs passes only where its two
-    best f64 discrepancies tie at f32 precision).
+    best f64 discrepancies tie at f32 precision);
+16. the multi-code recipe (``pipeline/multicode.py``) for ``qc_96_48``,
+    ``array_121_60`` (rank-deficient H, OSD on its 61-row basis),
+    ``wimaxlike_384_192`` and ``regular_256_128``: (a) the eval sweep on the
+    record's own artifacts (``runs/r5_multicode/<code>``) at its points and
+    budgets, each point's ``fer_nms_detected`` and OSD failure share against
+    ``fer_curve.json`` by 99.9% Wilson overlap (gaps in sigma, the mean
+    complexity beside the record's), launches exactly K1 one a capture
+    step and K2, GE and K5 one a point; K1 at the capture shape and K2 at
+    the re-decode's == their plain twins bit for bit (degree buckets 0 and
+    1), the GE kernel == its twin == the dense route and K5 against its
+    twin and the f64 evaluation (walk from K5 == from the twin) on the
+    code's captured rows, each timed; (b) ``multicode.main`` in a temporary
+    out-root seeded with the record's ``config.json`` and ``nms_params.pkl``
+    (stage 1 reused): the harvest FER and the initial MRB zero-error share
+    against the record, the refined count above the initial one, the DIA's
+    and the stopper's losses falling, every eval point against the record
+    with its launches counted, the run directory through ``load_run``;
+17. the Rayleigh two-phase system (``pipeline/rayleigh.py`` at its
+    defaults: ``runs/r4_pipeline``, 16-bit fade blocks, 2,097,152 frames and
+    500 walked rows a point at 6, 8 and 10 dB): each point's NMS FER and OSD
+    successes against ``runs/r5_rayleigh/two_phase_rayleigh.json`` by 99.9%
+    Wilson overlap, launches K1 one a capture step and K2, GE and K5 one a
+    point (no fused counter kernel); ``sldpc-torch eval-nms --channel
+    rayleigh`` in a new process against ``nms_fer.json``; K1 on a Rayleigh
+    capture step == its twin bit for bit, K2, GE and K5 on its walked rows
+    against their plain versions, each timed; walk decisions card == CPU
+    on 64 walked rows.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -161,6 +188,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import filecmp
 import json
 import math
 import os
@@ -197,7 +225,7 @@ from short_ldpc_decoding_osd_tpu_torch.osd import (engine, experimental, path,
                                                    segments)
 from short_ldpc_decoding_osd_tpu_torch.parallel import (
     device_seeds, make_mesh, sharded_dl_osd_step_from_llr, sharded_nms_train_step)
-from short_ldpc_decoding_osd_tpu_torch.pipeline import recipe
+from short_ldpc_decoding_osd_tpu_torch.pipeline import multicode, rayleigh, recipe
 from short_ldpc_decoding_osd_tpu_torch.train import (NMSTrainConfig, StaircaseAdam,
                                                      dia_train, nms_train)
 from short_ldpc_decoding_osd_tpu_torch.utils.metrics import wilson_interval
@@ -1598,10 +1626,13 @@ def phase_profile(dev, cap_b: int = CAP_B, cap: int = CAP):
     profile(dev, "one phase-1 K3 step", lambda: phase1.step(1))
 
 
-def phase_card_vs_cpu(dev, run_dir=R4, label="r4_pipeline"):
-    """Walk decisions on the committed failure set with ``run_dir``'s
-    artifacts: card == CPU, frame for frame."""
-    blob = np.load(os.path.join(ROOT, "runs", "refparity", "failures.npz"))
+def phase_card_vs_cpu(dev, run_dir=R4, label="r4_pipeline", rows=None):
+    """Walk decisions on the committed failure set (or on ``rows``, an
+    (llr, labels) pair) with ``run_dir``'s artifacts: card == CPU, frame
+    for frame."""
+    if rows is None:
+        blob = np.load(os.path.join(ROOT, "runs", "refparity", "failures.npz"))
+        rows, label = (blob["llr"], blob["labels"]), f"refparity, {label}"
     results = []
     for d in (dev, torch.device("cpu")):
         run = load_run(run_dir, d)
@@ -1612,18 +1643,17 @@ def phase_card_vs_cpu(dev, run_dir=R4, label="r4_pipeline"):
                                                 run["num_iterations"],
                                                 bounds=bounds)
         out, _, det = step({k: v.cpu() for k, v in run["nms_params"].items()},
-                           torch.as_tensor(blob["llr"], device=d),
-                           torch.as_tensor(blob["labels"], device=d),
+                           torch.as_tensor(rows[0], device=d),
+                           torch.as_tensor(rows[1], device=d),
                            torch.as_tensor(teps, device=d),
                            torch.as_tensor(mask, device=d), acc, run["fcn"])
         results.append({k: out[k].cpu() for k in WALK_FIELDS} | {
             "detected": det.cpu()})
     for key, val in results[0].items():
         if not torch.equal(val, results[1][key]):
-            raise AssertionError(f"{key}: card differs from CPU on refparity "
-                                 f"({label})")
-    log(f"refparity (96 rows, {label}): card == CPU frame for frame; "
-        f"{int(results[0]['success'].sum())} successes")
+            raise AssertionError(f"{key}: card differs from CPU ({label})")
+    log(f"card vs CPU walk ({len(rows[0])} rows, {label}): card == CPU frame "
+        f"for frame; {int(results[0]['success'].sum())} successes")
 
 
 def phase_path(dev):
@@ -1702,6 +1732,59 @@ def overlap999(name, got, want):
     return a, b
 
 
+# the eval sweep's kernels that launch once a point (fewer rows than
+# recipe.OSD_CHUNK a point)
+SWEEP_ONCE = ("nms_edge_traj", "ge_packed", "lterm")
+
+
+def share_text(label, got, want):
+    """99.9% Wilson overlap of two (events, trials) pairs (raises on a miss)
+    and the gap in standard errors, as text."""
+    overlap999(label, got, want)
+    (a, n), (b, m) = got, want
+    return (f"{a}/{n} = {a / n:.5f} (record {b}/{m} = {b / m:.5f}, "
+            f"{gap_sigma(got, want):+.2f} sigma)")
+
+
+def sweep_vs_record(label, curve, rec) -> list[str]:
+    """Each eval point's ``fer_nms_detected`` and OSD failure share held to
+    the record's by 99.9% Wilson overlap; one text a point, with the mean
+    complexity beside the record's."""
+    texts = []
+    for point in curve["points"]:
+        snr = round(point["snr_db"], 2)
+        ref = rec["curve"][snr]
+        osd, ref_osd = point["osd"], ref["osd"]
+        nms_text = share_text(
+            f"{label} {snr} dB fer_nms_detected",
+            (round(point["fer_nms_detected"] * point["frames"]), point["frames"]),
+            (round(ref["fer_nms_detected"] * ref["frames"]), ref["frames"]))
+        osd_text = share_text(
+            f"{label} {snr} dB OSD failure share",
+            (osd["fail"], osd["success"] + osd["fail"]),
+            (ref_osd["fail"], ref_osd["success"] + ref_osd["fail"]))
+        texts.append(f"{snr:.1f} dB: fer_nms_detected {nms_text}; OSD failures "
+                     f"{osd_text}; unconfirmed {point['osd_unconfirmed']}; mean "
+                     f"complexity {osd['complexity']:.1f} (record "
+                     f"{ref_osd['complexity']:.1f})")
+    return texts
+
+
+def sweep_launches(label, launches, curve, cap_b) -> dict:
+    """An eval sweep's launches: K1 one a capture step, K2, GE and K5 one a
+    point (each point walks fewer than ``recipe.OSD_CHUNK`` rows), nothing
+    else; returns them."""
+    points = curve["points"]
+    if any(p["frames"] % cap_b for p in points):
+        raise AssertionError(f"{label}: frames not whole steps of {cap_b}")
+    want = {"nms_edge_final": sum(p["frames"] // cap_b for p in points)}
+    want |= {key: len(points) for key in SWEEP_ONCE}
+    got = {key: n for key, n in launches.items() if n}
+    if got != want:
+        raise AssertionError(f"{label} eval sweep: launches {got}, expected {want}")
+    return want
+
+
 def numpy_tree_layout(tree):
     """A pickle tree's key layout with (dtype, shape) leaves; raises on a
     leaf that is not a numpy array."""
@@ -1710,6 +1793,13 @@ def numpy_tree_layout(tree):
     if not isinstance(tree, np.ndarray):
         raise AssertionError(f"parameter leaf of type {type(tree).__name__}")
     return (str(tree.dtype), tree.shape)
+
+
+def numpy_layouts(run_dir):
+    """A run directory's three parameter pickles as ``numpy_tree_layout``s."""
+    return {name: numpy_tree_layout(load_jax_pickle(os.path.join(run_dir, name)))
+            for name in ("nms_params.pkl", "dia_model_cnn.pkl",
+                         "stopper_params.pkl")}
 
 
 def capture_memory(dev):
@@ -1764,8 +1854,8 @@ def phase_recipe(dev):
         run.save_json("config.json", dataclasses.asdict(cfg))
         shutil.copy(os.path.join(R4, "nms_params.pkl"), run.path("nms_params.pkl"))
         nms_params = recipe.stage_train_nms(cfg, run, log, dev)
-        log(f"recipe: capture batch {recipe.capture_batch(cfg, get_code(cfg.code_name), dev)} "
-            f"frames a step")
+        cap_b = recipe.capture_batch(cfg, get_code(cfg.code_name), dev)
+        log(f"recipe: capture batch {cap_b} frames a step")
         fb = staged("harvest_failures",
                     lambda: recipe.stage_harvest_failures(cfg, run, nms_params, log, dev))
         meta = run.load_json("train_failures_meta.json")
@@ -1818,36 +1908,19 @@ def phase_recipe(dev):
         _kernels.reset_launches()
         curve = staged("eval_sweep", lambda: recipe.stage_eval_sweep(
             cfg, run, nms_params, model, fcn, path_, snrs, log, dev))
-        launches = dict(_kernels.LAUNCHES)
-        with open(os.path.join(R4, "fer_curve.json")) as fh:
-            ref_points = {round(p["snr_db"], 2): p for p in json.load(fh)["points"]}
-        for point in curve["points"]:
-            ref = ref_points[round(point["snr_db"], 2)]
-            osd, ref_osd = point["osd"], ref["osd"]
-            overlap999(f"{point['snr_db']:.1f} dB fer_nms_detected",
-                       (round(point["fer_nms_detected"] * point["frames"]),
-                        point["frames"]),
-                       (round(ref["fer_nms_detected"] * ref["frames"]), ref["frames"]))
-            overlap999(f"{point['snr_db']:.1f} dB OSD failure share",
-                       (osd["fail"], osd["success"] + osd["fail"]),
-                       (ref_osd["fail"], ref_osd["success"] + ref_osd["fail"]))
+        launches = sweep_launches("recipe", dict(_kernels.LAUNCHES), curve, cap_b)
+        ref = {"curve": {round(p["snr_db"], 2): p for p in read_json(
+            os.path.join(R4, "fer_curve.json"))["points"]}}
+        for point, text in zip(curve["points"], sweep_vs_record("recipe", curve, ref)):
             if not len(point["ce_list"]) == len(point["ber_list"]) == ITERS + 2:
                 raise AssertionError(f"CE/BER lists of {len(point['ce_list'])}, "
                                      f"{len(point['ber_list'])} entries")
-            log(f"recipe sweep {point['snr_db']:.1f} dB: frames {point['frames']}, "
-                f"fer_nms_detected {point['fer_nms_detected']:.6f} (record "
-                f"{ref['fer_nms_detected']:.6f}), OSD {osd['success']}/{osd['fail']} "
-                f"(record {ref_osd['success']}/{ref_osd['fail']}), unconfirmed "
-                f"{point['osd_unconfirmed']}, fer_total {point['fer_total']:.4g}")
+            log(f"recipe sweep {text}, frames {point['frames']}, fer_total "
+                f"{point['fer_total']:.4g}")
         log(f"recipe sweep launches: {launches}")
-        for key in ("nms_edge_final", "nms_edge_traj", "ge_packed", "lterm"):
-            if not launches[key] > 0:
-                raise AssertionError(f"the eval sweep did not launch {key}: {launches}")
 
         written = load_run(tmp, dev)
-        pickles = ("nms_params.pkl", "dia_model_cnn.pkl", "stopper_params.pkl")
-        layouts, ref_layouts = ({name: numpy_tree_layout(load_jax_pickle(
-            os.path.join(d, name))) for name in pickles} for d in (tmp, R4))
+        layouts, ref_layouts = numpy_layouts(tmp), numpy_layouts(R4)
         if layouts != ref_layouts:
             raise AssertionError(f"run-dir pickles {layouts} != JAX's {ref_layouts}")
         log(f"recipe run dir: loads through convert.load_run on the card "
@@ -2717,7 +2790,8 @@ def gap_sigma(got, want) -> float:
     """How many standard errors apart two (successes, trials) shares lie."""
     (a, n), (b, m) = got, want
     p, q = a / n, b / m
-    return (p - q) / math.sqrt(p * (1 - p) / n + q * (1 - q) / m)
+    var = p * (1 - p) / n + q * (1 - q) / m
+    return (p - q) / math.sqrt(var) if var else 0.0
 
 
 def ties_only(label, prep, differ, deep, t_flat, bounds, k) -> int:
@@ -2813,90 +2887,112 @@ def wimax_point(dev, snr, cap_b, cap, seed):
     return tp, rounds, out
 
 
+def edge_entry(label, name, params, variant, h, x, traj, launches):
+    """K1 (``traj`` False) or K2 on the rows ``x`` == its plain twin
+    (``_decode_edge_plain``) bit for bit (``torch.equal``, as ``edge_row``),
+    timed against its bound: the kernel row's entry for one path."""
+    fn = nms_edge.decode_traj_edge if traj else nms_edge.decode_final_edge
+    weights = nms.scalar_weights(params, variant)
+    plan = nms_edge.launch_plan(*h.shape, *nms_edge._degrees(h))
+    b, n = x.shape
+    got = fn(params, h, x, ITERS, variant)
+    want = nms_edge._decode_edge_plain(x, h, ITERS, weights, traj)
+    err = compare(f"{label} {name}", got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label} {name}: kernel differs from its plain twin")
+    del got, want
+    slots = ITERS + 1 if traj else 1
+    bms, by = bound_ms(4 * b * n * (1 + slots), nms_edge_ops(h, b, ITERS) / F32_INSTR)
+    ms = cuda_ms(lambda: fn(params, h, x, ITERS, variant), 10)
+    plain_ms = cuda_ms(lambda: nms_edge._decode_edge_plain(
+        x, h, ITERS, weights, traj), 3, warmup=0)
+    log(f"{label} {name} ({b}, {n}), bucket {plan.bucket}, {plan.warps} warps a "
+        f"frame: == its plain twin bit for bit, {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), {ms / bms:.2f}x the bound")
+    torch.cuda.empty_cache()
+    return {
+        "shape": (f"llr ({b}, {n}) f32 -> "
+                  + (f"({slots}, {b}, {n})" if traj else f"({b}, {n})")
+                  + f", T={ITERS}, bucket {plan.bucket}, {plan.warps} warps a frame"),
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+        "bound_by": by, "library_ms": None, "launches": launches}
+
+
 def wimax_edge_times(dev, tp, buf, rounds):
     """K1 at the point's capture shape (cap_b, 1,056) and K2 at the
     re-decode's (cap, 1,056), each == its plain twin bit for bit on the
-    trained factor (as ``edge_row``), timed against their bounds; returns
-    each kernel's entry for its row."""
+    trained factor (``edge_entry``); returns each kernel's entry for its
+    row."""
     code = tp.code
     gen = torch.Generator(device=dev).manual_seed(5)
     llr, _ = sample_batch(gen, ChannelSpec.awgn(tp.snr_db, code.rate),
                           torch.as_tensor(code.g, device=dev), tp.cap_b)
-    weights = nms.scalar_weights(tp.nms_params, tp.variant)
-    plan = nms_edge.launch_plan(*code.h.shape, *nms_edge._degrees(code.h))
-    entries = {}
-    for name, fn, x, traj, launches in (
-            ("K1 nms_edge_final", nms_edge.decode_final_edge, llr, False,
-             2 * rounds),
-            ("K2 nms_edge_traj", nms_edge.decode_traj_edge,
-             buf["llr"].contiguous(), True, rounds)):
-        b = x.shape[0]
-        got = fn(tp.nms_params, code.h, x, ITERS, tp.variant)
-        want = nms_edge._decode_edge_plain(x, code.h, ITERS, weights, traj)
-        err = compare(f"wimax {name}", got, want)
-        if not torch.equal(got, want):
-            raise AssertionError(f"wimax {name}: kernel differs from its plain twin")
-        del got, want
-        slots = ITERS + 1 if traj else 1
-        bms, by = bound_ms(4 * b * code.n * (1 + slots),
-                           nms_edge_ops(code.h, b, ITERS) / F32_INSTR)
-        ms = cuda_ms(lambda: fn(tp.nms_params, code.h, x, ITERS, tp.variant), 10)
-        plain_ms = cuda_ms(lambda: nms_edge._decode_edge_plain(
-            x, code.h, ITERS, weights, traj), 3, warmup=0)
-        entries[name] = {
-            "shape": (f"llr ({b}, {code.n}) f32 -> "
-                      + (f"({slots}, {b}, {code.n})" if traj else f"({b}, {code.n})")
-                      + f", T={ITERS}, bucket {plan.bucket}, {plan.warps} warps a frame"),
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None, "launches": launches}
-        log(f"wimax system {tp.snr_db:.1f} dB {name} ({b}, {code.n}), bucket "
-            f"{plan.bucket}, {plan.warps} warps a frame, trained factor: == its "
-            f"plain twin bit for bit, {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bms:.4f} ms ({by}), {ms / bms:.2f}x the bound")
-    torch.cuda.empty_cache()
-    return entries
+    label = f"wimax system {tp.snr_db:.1f} dB"
+    return {
+        "K1 nms_edge_final": edge_entry(label, "K1 nms_edge_final", tp.nms_params,
+                                        tp.variant, code.h, llr, False,
+                                        2 * rounds),
+        "K2 nms_edge_traj": edge_entry(label, "K2 nms_edge_traj", tp.nms_params,
+                                       tp.variant, code.h,
+                                       buf["llr"].contiguous(), True, rounds)}
 
 
-def wimax_kernels(dev, tp, buf, card):
-    """K5 and GE on one round's prepared rows at the point: K5 against its
-    twin (in row chunks) and the f64 evaluation, the block minima and walk
-    from K5 against those from the twin, its launch shape, timed against
-    its bound and the chunked fp16 yardstick; the GE kernel == its twin ==
-    the dense route on the round's perm load, timed."""
-    code = tp.code
-    k = code.k
-    llr, labels = buf["llr"], buf["labels"]
-    refined = wimax_step(tp, llr, labels)[1]
-    prep = engine.prepare(refined, llr, labels, code.h_osd, k)
+# bytes one call of K5's plain twin, its f64 evaluation or the fp16
+# yardstick may build on the card: past it they run in chunks
+K5_CHUNK_BYTES = 2**31
+
+
+def k5_chunks(b, m, ntot):
+    """(twin rows, f64 rows, yardstick TEPs) a call for M (b, m, .) x T
+    (ntot, .) under :data:`K5_CHUNK_BYTES`: the twin's f32 parities and
+    their copy, the f64 products (8 B each), the yardstick's fp16 products
+    and their f32 copy (6 B); None where the whole fits."""
+    rows = max(1, K5_CHUNK_BYTES // (8 * m * ntot))
+    teps = max(256, K5_CHUNK_BYTES // (6 * b * m))
+    return (None if rows >= b else rows, min(b, rows),
+            None if teps >= ntot else teps)
+
+
+def k5_entry(label, run, prep, layout, card, twin_rows=None, f64_rows=1024,
+             lib_teps=None):
+    """K5 on a batch's prepared rows over its path's TEPs: against its twin
+    and the f64 evaluation, the block minima and walk from K5 against those
+    from the twin (a differing frame passes only at an f64 tie,
+    ``ties_only``), its launch shape, timed against its bound and the fp16
+    yardstick; the kernel row's entry for one path."""
+    k = run["code"].k
+    teps, _, bounds = layout
     m_mat = prep.m_matrix.contiguous()
     u_l = engine._discrepancy_terms(prep, k)[1].contiguous()
-    t_flat = tp.teps.reshape(-1, k)
-    err = k5_check("wimax system", m_mat, u_l, t_flat, WIMAX_TWIN_ROWS,
-                   WIMAX_F64_ROWS)
-    run = {"code": code, "fcn": tp.fcn,
-           "config": {"window": tp.window, "soft_margin": tp.soft_margin}}
-    differ, deep = k5_walk(run, prep, u_l, (tp.teps, tp.mask, tp.bounds),
-                           "wimax system", WIMAX_TWIN_ROWS)
-    ties = ties_only("K5 vs its twin, wimax walk", prep, differ, deep, t_flat,
-                     tp.bounds, k)
-    k5_launch_shape(*m_mat.shape, t_flat.shape[0], "wimax system ")
+    t_flat = teps.reshape(-1, k).to(torch.int8).contiguous()
+    err = k5_check(label, m_mat, u_l, t_flat, twin_rows, f64_rows)
+    differ, deep = k5_walk(run, prep, u_l, layout, label, twin_rows)
+    ties = ties_only(f"K5 vs its twin, {label} walk", prep, differ, deep, t_flat,
+                     bounds, k)
+    k5_launch_shape(*m_mat.shape, t_flat.shape[0], f"{label} ")
     k5 = {"max_abs_err": err, "walk_ties": ties} | k5_timed(
-        "wimax system", m_mat, u_l, t_flat, WIMAX_TWIN_ROWS, WIMAX_LIB_TEPS)
-    k5["library"] = (f"fp16 einsum + mod 2 + einsum chained over "
-                     f"{WIMAX_LIB_TEPS} TEPs a call")
-    log(f"K5 lterm wimax system on {card}: kernel {k5['ms']:.4f} ms, plain "
-        f"{k5['plain_ms']:.4f} ms ({WIMAX_TWIN_ROWS} rows a call), library "
-        f"(chunked fp16 einsum) {k5['library_ms']:.4f} ms, bound "
-        f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}), "
+        label, m_mat, u_l, t_flat, twin_rows, lib_teps)
+    if lib_teps:
+        k5["library"] = (f"fp16 einsum + mod 2 + einsum chained over "
+                         f"{lib_teps} TEPs a call")
+    log(f"K5 lterm {label} on {card}: kernel {k5['ms']:.4f} ms, plain "
+        f"{k5['plain_ms']:.4f} ms ({twin_rows or m_mat.shape[0]} rows a call), "
+        f"library {k5['library_ms']:.4f} ms ({lib_teps or t_flat.shape[0]} TEPs "
+        f"a call), bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}), "
         f"{k5['ms'] / k5['bound_ms']:.2f}x the bound")
     del u_l, m_mat
     torch.cuda.empty_cache()
+    return k5
 
-    h, n = code.h_osd, code.n
-    perm = torch.sort(refined.abs(), dim=1, stable=True).indices
-    ge_check("wimax system (perm load, one round's rows)", perm, h, k)
-    b, m = perm.shape[0], h.shape[0]
-    ge = ge_time(f"wimax system on {card}",
+
+def ge_entry(label, perm, h, k, card):
+    """The GE kernel's perm load of ``perm`` over ``h`` == its plain packed
+    twin == the dense route, timed against its bound; the kernel row's
+    entry for one path."""
+    ge_check(f"{label} (perm load)", perm, h, k)
+    b, n = perm.shape
+    m = h.shape[0]
+    ge = ge_time(f"{label} on {card}",
                  lambda: gf2_bitpack.reduce_from_perm(perm, h, k),
                  b, m, n, k, "perm")
     ge["ms"] = ge.pop("wrapper_ms")
@@ -2907,6 +3003,27 @@ def wimax_kernels(dev, tp, buf, card):
                    f"{m}, {k}) int8 + col_order ({b}, {n}) int32")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return ge
+
+
+def wimax_kernels(dev, tp, buf, card):
+    """K5 and GE on one round's prepared rows at the point: K5 against its
+    twin (in row chunks) and the f64 evaluation, the block minima and walk
+    from K5 against those from the twin, its launch shape, timed against
+    its bound and the chunked fp16 yardstick (``k5_entry``); the GE kernel
+    == its twin == the dense route on the round's perm load, timed
+    (``ge_entry``)."""
+    code = tp.code
+    k = code.k
+    llr, labels = buf["llr"], buf["labels"]
+    refined = wimax_step(tp, llr, labels)[1]
+    prep = engine.prepare(refined, llr, labels, code.h_osd, k)
+    run = {"code": code, "fcn": tp.fcn,
+           "config": {"window": tp.window, "soft_margin": tp.soft_margin}}
+    k5 = k5_entry("wimax system", run, prep, (tp.teps, tp.mask, tp.bounds), card,
+                  WIMAX_TWIN_ROWS, WIMAX_F64_ROWS, WIMAX_LIB_TEPS)
+    perm = torch.sort(refined.abs(), dim=1, stable=True).indices
+    ge = ge_entry("wimax system, one round's rows", perm, code.h_osd, k, card)
     return k5, ge
 
 
@@ -2991,6 +3108,360 @@ def phase_wimax_system(dev, rows, smi):
         "card_vs_cpu_ties": ties, "card": smi}))
 
 
+# runs/r5_multicode: the JAX package's multi-code records (NMS-1, 12
+# iterations, model_cnn, (3, 30, 6), window 5, soft margin 0.9), in the
+# phase's order; the SNR of each code's kernel checks (2.5 dB, or
+# MC_KERNEL_SNR's), an eval point where a step captures its OSD budget
+MC_ROOT = os.path.join(ROOT, "runs", "r5_multicode")
+MULTICODE = ("qc_96_48", "array_121_60", "wimaxlike_384_192", "regular_256_128")
+MC_KERNEL_SNR = {"wimaxlike_384_192": 2.0}
+
+
+def multicode_record(name):
+    """One code's record directory: its ``RecipeConfig`` (== the port's
+    ``multicode.code_plan``), SNR points, harvest meta, fer curve by SNR and
+    decoding-path histograms."""
+    d = os.path.join(MC_ROOT, name)
+    cfg = recipe_config(d)
+    plan_cfg, snrs = multicode.code_plan(name)
+    if dataclasses.asdict(plan_cfg) != dataclasses.asdict(cfg):
+        raise AssertionError(f"{name}: the record's config.json is not the plan's")
+    curve = {round(p["snr_db"], 2): p
+             for p in read_json(os.path.join(d, "fer_curve.json"))["points"]}
+    if sorted(curve) != [round(float(x), 2) for x in snrs]:
+        raise AssertionError(f"{name}: record points {sorted(curve)} != plan {snrs}")
+    return {"dir": d, "config": cfg, "snrs": snrs, "curve": curve,
+            "harvest": read_json(os.path.join(d, "train_failures_meta.json")),
+            "path": read_json(os.path.join(d, "decoding_path.json"))}
+
+
+@contextlib.contextmanager
+def patched(module, name, wrap):
+    """While open, ``module.<name>`` is ``wrap(the original)``."""
+    plain = getattr(module, name)
+    setattr(module, name, wrap(plain))
+    try:
+        yield
+    finally:
+        setattr(module, name, plain)
+
+
+def counted_eval_sweeps(seen: list):
+    """While open, each ``recipe.stage_eval_sweep`` call runs with the launch
+    counts reset just before it and appends them, read just after, to
+    ``seen``."""
+    def wrap(plain):
+        def counted(*args, **kwargs):
+            _kernels.reset_launches()
+            out = plain(*args, **kwargs)
+            seen.append(dict(_kernels.LAUNCHES))
+            return out
+        return counted
+    return patched(recipe, "stage_eval_sweep", wrap)
+
+
+def multicode_records_sweep(dev, name, rec):
+    """(a) The record's own artifacts (``load_run``, numpy-only) through
+    ``recipe.stage_eval_sweep`` at its points and budgets; the statistics
+    against ``fer_curve.json``, the launches counted.  Returns the run, the
+    capture batch and the sweep's summary."""
+    run = load_run(rec["dir"], dev)
+    cfg, code = rec["config"], run["code"]
+    params = {k: v.cpu() for k, v in run["nms_params"].items()}
+    cap_b = recipe.capture_batch(cfg, code, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        curve = recipe.stage_eval_sweep(cfg, recipe.RunDir(tmp), params, run["dia"],
+                                        run["fcn"], run["path"], rec["snrs"], log,
+                                        dev)
+        synchronize(dev)
+        seconds = time.perf_counter() - t0
+    launches = sweep_launches(f"multicode {name} (record artifacts)",
+                              dict(_kernels.LAUNCHES), curve, cap_b)
+    texts = sweep_vs_record(f"multicode {name} (record artifacts)", curve, rec)
+    return run, cap_b, {"seconds": seconds, "launches": launches,
+                        "points": texts}
+
+
+def path_kernels(dev, label, run, spec, batch, rows, launches, card, seed):
+    """K1 at a path's capture shape (``batch``, n) on one step drawn from
+    ``spec``, K2 at its re-decode shape on that step's first ``rows``
+    failures, then the GE kernel and K5 on those rows refined and prepared
+    over ``h_osd`` with the run's path: each against its plain versions and
+    timed (``edge_entry``, ``ge_entry``, ``k5_entry``; K5's checks chunked
+    by ``k5_chunks``).  ``launches`` holds the path's counts.  Returns each
+    kernel's entry and the rows (llr, labels)."""
+    code = run["code"]
+    params = {k: v.cpu() for k, v in run["nms_params"].items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    llr, words = sample_batch(gen, spec, torch.as_tensor(code.g, device=dev), batch)
+    entries = {"K1 nms_edge_final": edge_entry(
+        label, "K1 nms_edge_final", params, "NMS-1", code.h, llr, False,
+        launches["nms_edge_final"])}
+    soft = nms_edge.decode_final_edge(params, code.h, llr, ITERS)
+    _, cap = count_and_capture(llr, words, soft, code.h, rows)
+    rows = min(int(cap["count"]), rows)
+    x, labels = cap["llr"][:rows].contiguous(), cap["labels"][:rows]
+    del llr, words, soft, cap
+    entries["K2 nms_edge_traj"] = edge_entry(
+        label, "K2 nms_edge_traj", params, "NMS-1", code.h, x, True,
+        launches["nms_edge_traj"])
+    with torch.no_grad():
+        traj = nms_edge.decode_traj_edge(params, code.h, x, ITERS)
+        refined = run["dia"].refine_fast(traj.permute(1, 0, 2))
+    del traj
+    perm = torch.sort(refined.abs(), dim=1, stable=True).indices
+    entries["GE ge_packed"] = ge_entry(f"{label}, {rows} captured rows", perm,
+                                       code.h_osd, code.k, card) | {
+        "launches": launches["ge_packed"]}
+    prep = engine.prepare(refined, x, labels, code.h_osd, code.k)
+    blocks, _ = segments.build_tep_blocks(run["path"], code.k,
+                                          int(run["config"].get("num_segments", 6)))
+    teps, mask, bounds = segments.pack_tep_chunks(blocks)
+    layout = (torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev),
+              bounds)
+    entries["K5 lterm"] = k5_entry(
+        label, run, prep, layout, card,
+        *k5_chunks(rows, code.h_osd.shape[0], teps.shape[0] * teps.shape[1])) | {
+        "launches": launches["lterm"], "teps": int(mask.sum())}
+    del prep, layout
+    torch.cuda.empty_cache()
+    return entries, (x, labels)
+
+
+def multicode_retrain(dev, name, rec):
+    """(b) ``pipeline.multicode`` for the code in a temporary out-root whose
+    run directory holds only the record's ``config.json`` and
+    ``nms_params.pkl`` (stage 1 reused): the harvest FER and the initial MRB
+    zero-error share against the record, the refined count above the
+    initial one, the DIA's and the stopper's losses falling, every eval
+    point against ``fer_curve.json`` with its launches counted, the run
+    directory through ``load_run``; returns the summary."""
+    with tempfile.TemporaryDirectory() as root:
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        for artifact in ("config.json", "nms_params.pkl"):
+            shutil.copy(os.path.join(rec["dir"], artifact), d)
+        seen = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with counted_eval_sweeps(seen):
+            multicode.main(["--codes", name, "--out-root", root, "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        pickle_ref = os.path.join(rec["dir"], "nms_params.pkl")
+        if (os.path.exists(os.path.join(d, "nms_train_summary.json"))
+                or not filecmp.cmp(os.path.join(d, "nms_params.pkl"), pickle_ref,
+                                   shallow=False)):
+            raise AssertionError(f"multicode {name}: stage 1 was retrained")
+        summary = read_json(os.path.join(root, "summary.json"))
+        if list(summary) != [name]:
+            raise AssertionError(f"multicode {name}: summary.json holds {list(summary)}")
+
+        meta, ref_meta = read_json(os.path.join(d, "train_failures_meta.json")), rec["harvest"]
+        harvest = share_text(f"multicode {name} harvest FER",
+                             (meta["detected_failures"], meta["frames"]),
+                             (ref_meta["detected_failures"], ref_meta["frames"]))
+        paths, ref_paths = read_json(os.path.join(d, "decoding_path.json")), rec["path"]
+        initial, refined = paths["hist_initial"], paths["hist_refined"]
+        ref_initial = ref_paths["hist_initial"]
+        zero = share_text(f"multicode {name} initial MRB zero-error share",
+                          (initial.get("0", 0), sum(initial.values())),
+                          (ref_initial.get("0", 0), sum(ref_initial.values())))
+        if not refined.get("0", 0) > initial.get("0", 0):
+            raise AssertionError(f"multicode {name}: refined MRB zero-error count "
+                                 f"{refined.get('0', 0)} <= initial {initial.get('0', 0)}")
+        hist = read_json(os.path.join(d, "dia_model_cnn_train_summary.json"))["history"]
+        if not hist[-1]["loss_mean"] < hist[0]["loss_mean"]:
+            raise AssertionError(f"multicode {name}: DIA loss did not fall: "
+                                 f"{hist[0]} -> {hist[-1]}")
+        val = read_json(os.path.join(d, "stopper_validation.json"))
+        if not val["final_loss"] < val["initial_loss"]:
+            raise AssertionError(f"multicode {name}: stopper loss did not fall: {val}")
+
+        curve = read_json(os.path.join(d, "fer_curve.json"))
+        cfg = recipe_config(d)
+        cap_b = recipe.capture_batch(cfg, get_code(name), dev)
+        if len(seen) != 1:
+            raise AssertionError(f"multicode {name}: {len(seen)} eval sweeps")
+        launches = sweep_launches(f"multicode {name} (retrained)", seen[0], curve,
+                                  cap_b)
+        texts = sweep_vs_record(f"multicode {name} (retrained)", curve, rec)
+        written = load_run(d, dev)
+        if numpy_layouts(d) != numpy_layouts(rec["dir"]):
+            raise AssertionError(f"multicode {name}: run-dir pickles differ from "
+                                 "the JAX layout")
+        stages = read_json(os.path.join(d, "stage_seconds.json"))
+        out = {
+            "seconds": seconds, "stage_seconds": stages, "peak_memory_bytes": peak,
+            "capture_batch": cap_b, "launches": launches, "harvest": harvest,
+            "harvested": sum(initial.values()),
+            "mrb_zero_initial": zero,
+            "mrb_zero_refined": [refined.get("0", 0),
+                                 ref_paths["hist_refined"].get("0", 0)],
+            "dia_loss": [hist[0]["loss_mean"], hist[-1]["loss_mean"]],
+            "stopper_loss": [val["initial_loss"], val["final_loss"]],
+            "path_len": len(written["path"]), "points": texts}
+    return out
+
+
+def phase_multicode(dev, rows, smi):
+    """16: the multi-code recipe of ``runs/r5_multicode`` for each code of
+    :data:`MULTICODE`: (a) its eval sweep on the record's artifacts, (b)
+    ``pipeline.multicode`` retrained with stage 1 reused, each held to the
+    record; K1, K2, GE and K5 at the code's shapes on its real rows against
+    their plain versions, timed; the kernel rows get ``multicode_<code>``
+    entries."""
+    t0 = time.perf_counter()
+    for name in MULTICODE:
+        rec = multicode_record(name)
+        run, cap_b, sweep = multicode_records_sweep(dev, name, rec)
+        snr = MC_KERNEL_SNR.get(name, 2.5)
+        entries, _ = path_kernels(
+            dev, f"multicode {name} {snr:.1f} dB", run,
+            ChannelSpec.awgn(snr, run["code"].rate), cap_b,
+            rec["config"].osd_failure_budget, sweep["launches"], smi, 16)
+        del run
+        torch.cuda.empty_cache()
+        retrained = multicode_retrain(dev, name, rec)
+        for row in rows:
+            if row["name"] in entries:
+                row[f"multicode_{name}"] = entries[row["name"]]
+        log(f"multicode {name}: " + json.dumps({
+            "capture_batch": cap_b, "record_artifacts": sweep,
+            "retrained": retrained, "card": smi}))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    log(f"multicode: {time.perf_counter() - t0:.1f} s")
+
+
+R5_RAYLEIGH = os.path.join(ROOT, "runs", "r5_rayleigh")
+RAYLEIGH_CPU_ROWS = 64  # walked rows whose decisions are held card == CPU
+# the eval-nms record's command line (docs/ROUND5.md §5)
+RAYLEIGH_CLI = ["eval-nms", "--channel", "rayleigh", "--snrs", "4.0:8.0:3",
+                "--max-frames", "65536"]
+
+
+def counted_rayleigh_points(seen: list):
+    """While open, ``rayleigh.run_points`` reads the launch counts at the
+    end of each point (its log call) into ``seen`` with the point, then
+    resets them."""
+    def wrap(plain):
+        def counted(*args, log=print, **kwargs):
+            def log_point(line):
+                seen.append((json.loads(line), dict(_kernels.LAUNCHES)))
+                _kernels.reset_launches()
+                log(line)
+            return plain(*args, log=log_point, **kwargs)
+        return counted
+    return patched(rayleigh, "run_points", wrap)
+
+
+def rayleigh_points(dev):
+    """``pipeline.rayleigh`` at its defaults: each point's NMS FER and OSD
+    successes of walked against ``two_phase_rayleigh.json`` by 99.9% Wilson
+    overlap; each point's launches K1 one a capture step, K2, GE and K5 one,
+    no fused counter kernel.  Returns the launches summed over the points."""
+    rec = {round(p["snr_db"], 1): p for p in read_json(
+        os.path.join(R5_RAYLEIGH, "two_phase_rayleigh.json"))["points"]}
+    seen = []
+    with tempfile.TemporaryDirectory() as tmp, counted_rayleigh_points(seen):
+        _kernels.reset_launches()
+        rayleigh.main(["--run", R4, "--out", tmp])
+        written = read_json(os.path.join(tmp, "two_phase_rayleigh.json"))["points"]
+    if [p for p, _ in seen] != written or len(written) != len(rec):
+        raise AssertionError("rayleigh: the written points are not the run's")
+    total = {}
+    for point, launches in seen:
+        ref = rec[round(point["snr_db"], 1)]
+        want = {"nms_edge_final": point["frames"] // rayleigh.BATCH}
+        want |= {key: 1 for key in SWEEP_ONCE}
+        got = {key: n for key, n in launches.items() if n}
+        if got != want or point["frames"] != ref["frames"]:
+            raise AssertionError(f"rayleigh {point['snr_db']} dB: launches {got} "
+                                 f"(expected {want}), frames {point['frames']}")
+        fer = share_text(f"rayleigh {point['snr_db']} dB fer_nms_detected",
+                         (round(point["fer_nms_detected"] * point["frames"]),
+                          point["frames"]),
+                         (round(ref["fer_nms_detected"] * ref["frames"]),
+                          ref["frames"]))
+        osd = share_text(f"rayleigh {point['snr_db']} dB OSD successes of walked",
+                         (point["osd_success"], point["osd_walked"]),
+                         (ref["osd_success"], ref["osd_walked"]))
+        log(f"rayleigh {point['snr_db']:.1f} dB: {point['time_s']} s, frames "
+            f"{point['frames']}, launches {got}, fer_nms_detected {fer}, OSD "
+            f"successes {osd}, fer_total {point['fer_total']:.5g} (record "
+            f"{ref['fer_total']:.5g}), {torch.cuda.get_device_name(0)}")
+        for key, n in got.items():
+            total[key] = total.get(key, 0) + n
+    return total
+
+
+def rayleigh_cli():
+    """``sldpc-torch eval-nms --channel rayleigh`` in a new process on a run
+    directory holding ``runs/r4_pipeline``'s NMS factor: each point's frame
+    errors against ``nms_fer.json``; returns its seconds."""
+    rec = {round(p["snr_db"], 1): p for p in read_json(
+        os.path.join(R5_RAYLEIGH, "nms_fer.json"))["points"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copy(os.path.join(R4, "nms_params.pkl"), tmp)
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "short_ldpc_decoding_osd_tpu_torch.cli.main",
+             *RAYLEIGH_CLI, "--run-dir", tmp],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise AssertionError(f"sldpc-torch eval-nms failed: {cli.stderr[-2000:]}")
+        points = read_json(os.path.join(tmp, "nms_fer.json"))["points"]
+    if sorted(round(p["snr_db"], 1) for p in points) != sorted(rec):
+        raise AssertionError(f"eval-nms rayleigh points {points}")
+    for point in points:
+        ref = rec[round(point["snr_db"], 1)]
+        text = share_text(f"eval-nms rayleigh {point['snr_db']} dB frame errors",
+                          (point["frame_errors"], point["frames"]),
+                          (ref["frame_errors"], ref["frames"]))
+        log(f"rayleigh eval-nms {point['snr_db']:.1f} dB: frame errors {text}")
+    log(f"rayleigh eval-nms: {seconds:.1f} s in a new process")
+    return seconds
+
+
+def rayleigh_kernels(dev, launches, card):
+    """K1 on one 6 dB Rayleigh capture step's frames (65,536) == its plain
+    twin bit for bit; K2, the GE kernel and K5 on that step's first 500
+    failures (the walked rows) against their plain versions, each timed
+    (``path_kernels``); walk decisions card == CPU on 64 of them.  Returns
+    each kernel's entry."""
+    run = load_run(R4, dev)
+    spec = ChannelSpec.rayleigh_spec(6.0, run["code"].rate, duration=1)
+    entries, (x, labels) = path_kernels(dev, "rayleigh 6.0 dB", run, spec,
+                                        rayleigh.BATCH, 500, launches, card,
+                                        rayleigh.SEED)
+    phase_card_vs_cpu(dev, R4, "rayleigh 6.0 dB walked rows",
+                      (x[:RAYLEIGH_CPU_ROWS], labels[:RAYLEIGH_CPU_ROWS]))
+    return entries
+
+
+def phase_rayleigh(dev, rows, smi):
+    """17: the Rayleigh two-phase system (``pipeline.rayleigh`` at its
+    defaults on ``runs/r4_pipeline``, 16-bit fade blocks) against
+    ``runs/r5_rayleigh``'s records, ``sldpc-torch eval-nms --channel
+    rayleigh`` in a new process, and K1, K2, GE and K5 on Rayleigh rows; the
+    kernel rows get ``rayleigh`` entries."""
+    t0 = time.perf_counter()
+    launches = rayleigh_points(dev)
+    cli_seconds = rayleigh_cli()
+    entries = rayleigh_kernels(dev, launches, smi)
+    for row in rows:
+        if row["name"] in entries:
+            row["rayleigh"] = entries[row["name"]]
+    log("rayleigh: " + json.dumps({
+        "seconds": time.perf_counter() - t0, "launches": launches,
+        "eval_nms_seconds": cli_seconds, "card_vs_cpu_rows": RAYLEIGH_CPU_ROWS,
+        "card": smi}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3015,6 +3486,8 @@ def main():
     phase_mesh(dev, rows, smi)
     phase_experimental(dev, rows, smi)
     phase_wimax_system(dev, rows, smi)
+    phase_multicode(dev, rows, smi)
+    phase_rayleigh(dev, rows, smi)
     rows.sort(key=lambda row: row["name"])
     if any(row["launches"] is None or row["launches"] < 1 for row in rows):
         raise AssertionError("a kernel row has no launch on its path")

@@ -100,7 +100,8 @@ def main(argv=None):
                    help="rayleigh = block fading (reference stage-4 option, "
                         "Testing_data_gen_128/data_generating.py:21-38)")
     p.add_argument("--fade-duration", type=int, default=1,
-                   help="fading block length in bits (rayleigh only)")
+                   help="fading blocks of 16 x this many bits (rayleigh "
+                        "only)")
 
     for name, hlp in (
         ("train-dia", "stage 3a: DIA refiner + learned decoding path"),

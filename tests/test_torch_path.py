@@ -90,13 +90,21 @@ def test_pattern_counter_matches_jax_and_round_trips(tmp_path):
     assert back.decoding_path(3, 30) == pc.decoding_path(3, 30)
 
 
-@pytest.mark.parametrize("run", ["r4_pipeline",
-                                 os.path.join("r5_multicode", "wimax_1056_880")])
+# run directory -> patterns of its committed decoding path
+PATH_LENGTHS = {"r4_pipeline": 30,
+                os.path.join("r5_multicode", "wimax_1056_880"): 15,
+                **{os.path.join("r5_multicode", name): 30
+                   for name in ("qc_96_48", "array_121_60", "regular_256_128",
+                                "wimaxlike_384_192")}}
+
+
+@pytest.mark.parametrize("run", list(PATH_LENGTHS))
 def test_decoding_path_oracle(run):
     """``PatternCounter.load`` of a run's ``pattern_counts.json`` and
     ``decoding_path`` at the run's ``threshold_sum`` / ``decoding_length``
-    give the run's committed ``decoding_path.json`` (r4_pipeline: (3, 30),
-    30 patterns; WiMAX: (2, 16), 15 patterns)."""
+    give the run's committed ``decoding_path.json`` (r4_pipeline and the
+    four rate-1/2 multi-code runs: (3, 30), 30 patterns; WiMAX: (2, 16),
+    15 patterns)."""
     run_dir = os.path.join(_ROOT, "runs", run)
     with open(os.path.join(run_dir, "config.json")) as fh:
         cfg = json.load(fh)
@@ -105,4 +113,4 @@ def test_decoding_path_oracle(run):
     pc = path.PatternCounter.load(os.path.join(run_dir, "pattern_counts.json"))
     got = pc.decoding_path(cfg["threshold_sum"], cfg["decoding_length"])
     assert got == want
-    assert len(got) == {"r4_pipeline": 30}.get(run, 15)
+    assert len(got) == PATH_LENGTHS[run]

@@ -33,6 +33,7 @@ from short_ldpc_decoding_osd_tpu_torch.cli.main import main as cli_main
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.mc import harness
 from short_ldpc_decoding_osd_tpu_torch.osd import engine
+from short_ldpc_decoding_osd_tpu_torch.pipeline import multicode, rayleigh
 from short_ldpc_decoding_osd_tpu_torch.pipeline import recipe as rec
 from short_ldpc_decoding_osd_tpu_torch.train import dia_train, stopper_train
 from short_ldpc_decoding_osd_tpu_torch.utils.profiling import JsonlLogger, Timer
@@ -310,9 +311,14 @@ def test_cli_train_dia_round_trip(tmp_path, capsys):
                                       get_code("ccsds_128_64").g, 64),
     lambda: cli_main(["baseline", "--kind", "fs", "--run-dir",
                       "/nonexistent/never-created"]),
+    lambda: multicode.main(["--codes", "qc_96_48", "--out-root",
+                            "/nonexistent/never-created"]),
+    lambda: rayleigh.main(["--run", R4, "--out", "/nonexistent/never-created"]),
+    lambda: rayleigh.run_points(R4, [6.0]),
 ], ids=["train_dia", "pattern_sweep", "stopper_samples", "train_stopper",
         "run_recipe", "cli", "fs_osd", "pb_osd", "conventional_osd",
-        "miracle_view", "cli_baseline"])
+        "miracle_view", "cli_baseline", "multicode", "rayleigh",
+        "rayleigh_run_points"])
 def test_cuda_default_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device resolves")
@@ -329,6 +335,8 @@ def test_port_and_chip_smoke_import_no_jax():
     for root, _, names in os.walk(port.__path__[0]):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 30
+    for entry in ("multicode.py", "rayleigh.py"):
+        assert os.path.join(port.__path__[0], "pipeline", entry) in files
     for name in files:
         with open(name) as fh:
             hits = pattern.findall(fh.read())
