@@ -176,7 +176,37 @@ Phases (each raises on failure, so the script never exits 0 after one):
     rayleigh`` in a new process against ``nms_fer.json``; K1 on a Rayleigh
     capture step == its twin bit for bit, K2, GE and K5 on its walked rows
     against their plain versions, each timed; walk decisions card == CPU
-    on 64 walked rows.
+    on 64 walked rows;
+18. the NMS variants (``runs/r5_variants``) through the port's entry
+    points: ``sldpc-torch train-nms --variant NMS-3`` and ``--variant
+    NMS-r`` (``NMSTrainConfig``'s defaults) and ``eval-nms --variant NMS-r``
+    on the record's trained weights, in new processes at once, then
+    ``eval-nms`` at 3.0 dB on each trained directory: each training's loss
+    on the first block's ring frames below the initial parameters', NMS-r's
+    NN weights non-negative and its FER under 0.2 (its gap to the record
+    reported), the record's weights inside ``nms_r_trained.json``'s 99.9%
+    interval on the padded layout; K1, K2 and K6 == their plain twins bit
+    for bit and K4, K3, K7 at 2,097,152 frames with counters equal to their
+    twins' at NMS-2's initial weights and at NMS-3's trained ones (w_vc !=
+    w_marg, printed), one ``cascade_counters`` call (K8a, K8b) == its twin,
+    each timed; ``run_nms_mc`` at 3.0 dB: NMS-2 and NMS-3 (K3) and NMS-2 at
+    ``rung="dense"`` (K7) to 2,097,152 frames, ENMS on its capture route
+    (K1), the untrained NMS-r (padded layout, 65,536 frames), each against
+    ``variant_fer.json`` by 99.9% Wilson overlap, NMS-2 == NMS-3 and CCSDS
+    ENMS == NMS-1 counter for counter and row for row, the decoders and
+    launches of each route; ENMS on ``qc_96_48`` (K1 on the 240 x 96
+    extended matrix, reported); the capture step pinned to K6 == the K1
+    step and the raw-LLR phase-2 step (K2) at both weight sets; then
+    NMS-r's two-phase system: ``recipe.run_recipe`` on
+    ``runs/r4_pipeline``'s config with ``"variant": "NMS-r"`` and the
+    record's weights (stage 1 reused; the DIA's and the stopper's losses
+    falling, the MRB zero-error count rising, GE and K5 one launch a point
+    and nothing else, the 3.0 dB ``fer_nms_detected`` inside
+    ``nms_r_trained.json``'s interval), ``system.TwoPhase`` on it at 3.0 dB
+    (4 rounds; GE and K5 R launches, nothing else; the NMS FER inside the
+    record's interval; cw/s, OSD failures/s, stages, peak memory, the OSD
+    success share reported), GE and K5 on one round's rows against their
+    plain versions, and the walk card == CPU on 64 of them.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -499,6 +529,23 @@ def k5_minima(prep, lterm_vals, layout, k):
     return minima, argmins
 
 
+def walk_picks(run, prep, minima, argmins, bounds):
+    """The walk's decisions from a batch's block minima and first argmins
+    (``sliding_osd``'s rule with the run's stopper, window and margin):
+    (stop_k, success, chosen TEP's flat index, deep_limit), each (B,)."""
+    cfg = run["config"]
+    w = engine.sliding_walk(minima, run["fcn"], window=int(cfg.get("window", 5)),
+                            soft_margin=float(cfg.get("soft_margin", 0.9)))
+    scale = torch.clamp(prep.truth_discrepancy, min=1.0)
+    success = (w["global_min"] - prep.truth_discrepancy).abs() <= 1e-3 * scale
+    in_walk = (torch.arange(minima.shape[1], device=minima.device)[None, :]
+               < w["deep_limit"][:, None])
+    best = engine.first_argmin(torch.where(in_walk, minima, engine._BIG), 1)
+    inner = torch.gather(argmins, 1, best[:, None])[:, 0]
+    starts = torch.as_tensor([s for s, _ in bounds], device=minima.device)
+    return w["stop_k"], success, starts[best] + inner, w["deep_limit"]
+
+
 def k5_walk(run, prep, u_l, layout, label="main path",
             twin_rows: int | None = None):
     """A batch's block minima through K5 (``block_discrepancy_minima``)
@@ -514,21 +561,8 @@ def k5_walk(run, prep, u_l, layout, label="main path",
     ref_min, ref_arg = k5_minima(
         prep, lterm_twin(m_mat, u_l, t_flat, twin_rows), layout, k)
     err = compare(f"K5 block minima ({label})", got_min, ref_min, rel=True)
-    cfg = run["config"]
-    walk = dict(window=int(cfg.get("window", 5)),
-                soft_margin=float(cfg.get("soft_margin", 0.9)))
-    starts = torch.as_tensor([s for s, _ in bounds], device=got_min.device)
-    picks = []
-    for minima, argmins in ((got_min, got_arg), (ref_min, ref_arg)):
-        w = engine.sliding_walk(minima, run["fcn"], **walk)
-        scale = torch.clamp(prep.truth_discrepancy, min=1.0)
-        success = (w["global_min"] - prep.truth_discrepancy).abs() <= 1e-3 * scale
-        in_walk = (torch.arange(minima.shape[1], device=minima.device)[None, :]
-                   < w["deep_limit"][:, None])
-        best = engine.first_argmin(torch.where(in_walk, minima, engine._BIG), 1)
-        inner = torch.gather(argmins, 1, best[:, None])[:, 0]
-        picks.append((w["stop_k"], success, starts[best] + inner,
-                      w["deep_limit"]))
+    picks = [walk_picks(run, prep, minima, argmins, bounds)
+             for minima, argmins in ((got_min, got_arg), (ref_min, ref_arg))]
     (sk, sk_ref), (su, su_ref), (tp, tp_ref), (dl, dl_ref) = zip(*picks)
     diffs = {"stop_k": int((sk != sk_ref).sum()),
              "success": int((su != su_ref).sum()),
@@ -3006,13 +3040,13 @@ def ge_entry(label, perm, h, k, card):
     return ge
 
 
-def wimax_kernels(dev, tp, buf, card):
-    """K5 and GE on one round's prepared rows at the point: K5 against its
-    twin (in row chunks) and the f64 evaluation, the block minima and walk
-    from K5 against those from the twin, its launch shape, timed against
-    its bound and the chunked fp16 yardstick (``k5_entry``); the GE kernel
-    == its twin == the dense route on the round's perm load, timed
-    (``ge_entry``)."""
+def system_kernels(dev, label, tp, buf, card, twin_rows, f64_rows, lib_teps):
+    """K5 and GE on one round's prepared rows of a ``TwoPhase``: K5 against
+    its twin (``twin_rows`` rows a call) and the f64 evaluation, the block
+    minima and walk from K5 against those from the twin, its launch shape,
+    timed against its bound and the fp16 yardstick (``lib_teps`` TEPs a
+    call) (``k5_entry``); the GE kernel == its twin == the dense route on
+    the round's perm load, timed (``ge_entry``)."""
     code = tp.code
     k = code.k
     llr, labels = buf["llr"], buf["labels"]
@@ -3020,10 +3054,10 @@ def wimax_kernels(dev, tp, buf, card):
     prep = engine.prepare(refined, llr, labels, code.h_osd, k)
     run = {"code": code, "fcn": tp.fcn,
            "config": {"window": tp.window, "soft_margin": tp.soft_margin}}
-    k5 = k5_entry("wimax system", run, prep, (tp.teps, tp.mask, tp.bounds), card,
-                  WIMAX_TWIN_ROWS, WIMAX_F64_ROWS, WIMAX_LIB_TEPS)
+    k5 = k5_entry(label, run, prep, (tp.teps, tp.mask, tp.bounds), card,
+                  twin_rows, f64_rows, lib_teps)
     perm = torch.sort(refined.abs(), dim=1, stable=True).indices
-    ge = ge_entry("wimax system, one round's rows", perm, code.h_osd, k, card)
+    ge = ge_entry(f"{label}, one round's rows", perm, code.h_osd, k, card)
     return k5, ge
 
 
@@ -3091,7 +3125,9 @@ def phase_wimax_system(dev, rows, smi):
         for name, entry in wimax_edge_times(dev, tp, buf, rounds).items():
             edge.setdefault(name, {})[point] = entry
         if snr == WIMAX_POINTS[0][0]:
-            k5, ge = wimax_kernels(dev, tp, buf, smi)
+            k5, ge = system_kernels(dev, "wimax system", tp, buf, smi,
+                                    WIMAX_TWIN_ROWS, WIMAX_F64_ROWS,
+                                    WIMAX_LIB_TEPS)
             ties = wimax_card_vs_cpu(tp, buf, WIMAX_CPU_ROWS)
         del tp, buf
         torch.cuda.synchronize()
@@ -3462,6 +3498,769 @@ def phase_rayleigh(dev, rows, smi):
         "card": smi}))
 
 
+R5_VARIANTS = os.path.join(ROOT, "runs", "r5_variants")
+NMSR_RUN = os.path.join(ROOT, "runs", "r5_variants_nmsr")
+# frames of each scalar variant's evaluation point, of the untrained NMS-r
+# point (the record's 16,384 fail but 7), of the trained NMS-r's eval-nms
+VARIANT_FRAMES, NMS_R_INIT_FRAMES, NMS_R_CLI_FRAMES = 2_097_152, 65_536, 262_144
+VARIANT_SEED = 15
+# the retrained NMS-r must decode: far below the untrained net's 0.9996
+NMS_R_MAX_FER = 0.2
+# rounds of the NMS-r two-phase system (262,144 frames and 32,768 capture
+# rows a round, as the main path); its walked rows held card == CPU
+NMS_R_ROUNDS, NMS_R_CPU_ROWS = 4, 64
+# the refined values of the NMS-r walk, card against CPU: the phase-2
+# tolerance of the multi-code and Rayleigh CPU tests (STEP_TOL)
+NMS_R_REFINED_TOL = 1e-4
+# sldpc-torch in a new process that also prints one "probe: {json}" line:
+# the decoder of each capture step it built and its launch counts
+CLI_PROBE = """import json, sys
+import chip_smoke
+from short_ldpc_decoding_osd_tpu_torch import _kernels
+from short_ldpc_decoding_osd_tpu_torch.cli.main import main
+built = []
+with chip_smoke.recorded_decoders(built):
+    rc = main(sys.argv[1:])
+print("probe: " + json.dumps({"decoders": built, "launches": {
+    k: n for k, n in _kernels.LAUNCHES.items() if n}}))
+sys.exit(rc)
+"""
+
+
+def variant_records():
+    """``variant_fer.json``'s points by variant and ``nms_r_trained.json``'s
+    (frame errors, frames)."""
+    recs = {p["variant"]: (p["frame_errors"], p["frames"]) for p in read_json(
+        os.path.join(R5_VARIANTS, "variant_fer.json"))["points"]}
+    (trained,) = read_json(os.path.join(R5_VARIANTS, "nms_r_trained.json"))["points"]
+    return recs, (trained["frame_errors"], trained["frames"])
+
+
+def timed_once(fn):
+    """(``fn()``, its CUDA-event milliseconds): one call of a slow plain
+    twin, its result the comparison's and its time the row's."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def counters_equal(label, got, want):
+    got, want = got.cpu().to(torch.int64), want.cpu().to(torch.int64)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: kernel {got.tolist()} vs plain "
+                             f"{want.tolist()}")
+    return got.tolist()
+
+
+def variant_weight_sets(nms3_dir):
+    """The two weight sets of the kernel checks: NMS-2's initial
+    parameters, and the NMS-3 factor the card trained (``nms3_dir``), whose
+    w_vc and w_marg differ."""
+    trained = recipe.host_params(load_jax_pickle(os.path.join(nms3_dir,
+                                                              "nms_params.pkl")))
+    sets = {"NMS-2 init": (nms.init_params("NMS-2"), "NMS-2"),
+            "NMS-3 trained": (trained, "NMS-3")}
+    w_vc, w_chk, w_marg = nms.scalar_weights(trained, "NMS-3")
+    log(f"NMS-3 trained on the card: (w_vc, w_chk, w_marg) = ({w_vc:.6f}, "
+        f"{w_chk:.6f}, {w_marg:.6f}); w_vc - w_marg = {w_vc - w_marg:+.6f}")
+    if w_vc == w_marg:
+        raise AssertionError("NMS-3 trained: w_vc == w_marg")
+    return sets
+
+
+def dense_entry(label, params, variant, h, x):
+    """K6 on the rows ``x`` == its plain twin bit for bit (and compared with
+    K1), timed against its bound."""
+    hd = torch.as_tensor(np.asarray(h), dtype=torch.float32, device=x.device)
+    weights = nms.scalar_weights(params, variant)
+    got = nms_dense.decode_final_dense(params, hd, x, ITERS, variant)
+    want, plain_ms = timed_once(lambda: nms_dense._decode_dense_plain(
+        hd, x, ITERS, weights))
+    err = compare(f"{label} K6", got, want)
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label} K6: kernel differs from its plain twin")
+    same_k1 = torch.equal(got, nms_edge.decode_final_edge(params, h, x, ITERS,
+                                                          variant))
+    del got, want
+    b, n = x.shape
+    bms, by = bound_ms(4 * b * n * 2, nms_edge_ops(h, b, ITERS) / F32_INSTR)
+    ms = cuda_ms(lambda: nms_dense.decode_final_dense(params, hd, x, ITERS,
+                                                      variant), 10)
+    log(f"{label} K6 dense_final ({b}, {n}): == its plain twin bit for bit, "
+        f"== K1 {same_k1}, {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}), {ms / bms:.2f}x the bound")
+    return {"shape": f"h (64, 128) f32, llr ({b}, {n}) f32 -> ({b}, {n}), T={ITERS}",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "launches": None}
+
+
+def mc_entry(label, name, fn, want, plain_ms, ops, nbytes, shape):
+    """A fused Monte-Carlo kernel at a weight set: ``fn()``'s counters equal
+    to its twin's ``want`` (``plain_ms`` to compute), timed."""
+    counters_equal(f"{label} {name}", fn(), want)
+    bms, by = bound_ms(nbytes, ops / F32_INSTR)
+    ms = cuda_ms(fn, 5)
+    log(f"{label} {name}: counters {want.tolist()} == its plain twin's, "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{ms / bms:.2f}x the bound")
+    return {"shape": shape, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None, "launches": None}
+
+
+def cascade_twin(mc, t1, batch, block=512):
+    """``mc_cascade.cascade_counters`` written out over the plain twins
+    (the calibration, the capacity and its doubling retry alike)."""
+    calib = min(batch, 131_072)
+    c1 = nms_edge._mc_frames_plain(mc, t1, calib, stage=True)[0]
+    cap = mc_cascade.capacity(1.0 - float(c1[0]) / calib, batch, block)
+    while True:
+        c1, flags, _ = nms_edge._mc_frames_plain(mc, t1, batch, stage=True)
+        ids = mc_cascade.fixed_capacity_ids(flags, cap)
+        c2 = nms_edge._mc_frames_plain(mc, ITERS, len(ids), ids)[0]
+        if int(batch - c1[0] - c2[0]) <= 0 or cap >= batch:
+            return (c1 + c2)[:5]
+        cap = min(batch, 2 * cap)
+
+
+def variant_kernels(dev, label, params, variant, seed, cascade):
+    """18(a) at one weight set: K1 (262,144 frames), K2 (the 32,768 first
+    failures of that step) and K6 (262,144) == their plain twins bit for
+    bit; K4, K3 and K7 at 2,097,152 frames with counters equal to their
+    twins'; with ``cascade`` one ``cascade_counters`` call (K8a, K8b) ==
+    its twin, its launches counted; each timed.  Returns each row's
+    entry."""
+    code = get_code("ccsds_128_64")
+    h, big, t1 = code.h, PH1_BATCH, 4
+    llr, words = sample_batch(torch.Generator(device=dev).manual_seed(seed),
+                              ChannelSpec.awgn(3.0, code.rate),
+                              torch.as_tensor(code.g, device=dev), CAP_B)
+    out = {"K1 nms_edge_final": edge_entry(label, "K1 nms_edge_final", params,
+                                           variant, h, llr, False, None)}
+    soft = nms_edge.decode_final_edge(params, h, llr, ITERS, variant)
+    _, cap = count_and_capture(llr, words, soft, h, CAP)
+    out["K2 nms_edge_traj"] = edge_entry(label, "K2 nms_edge_traj", params,
+                                         variant, h, cap["llr"].contiguous(),
+                                         True, None)
+    out["K6 dense_final"] = dense_entry(label, params, variant, h, llr)
+    del llr, words, soft, cap
+    torch.cuda.empty_cache()
+
+    mc = nms_edge.mc_setup(code, params, variant, 3.0, seed, dev)
+    c1, flags = mc_cascade.phase1(mc, t1, big)
+    unconv = big - int(c1[0])
+    del flags
+    want, plain_ms = timed_once(lambda: nms_edge._mc_frames_plain(mc, ITERS, big)[0][:5])
+    out["K4 mc_oneshot"] = mc_entry(
+        label, "K4 mc_oneshot", lambda: nms_edge.fused_counters_edge(
+            code, params, variant, ITERS, 3.0, big, seed, device=dev),
+        want, plain_ms, nms_edge_ops(h, big, ITERS), 8 * 5,
+        f"{big} hash frames, T={ITERS} -> (5,) int64")
+    rows_s, final = nms_edge.build_rows_schedule(((t1, 0.375),), 1024, ITERS)
+    want, plain_ms = timed_once(lambda: nms_edge._compact_plain(
+        mc, big, 1024, rows_s, final))
+    out["K3 mc_compact"] = mc_entry(
+        label, "K3 mc_compact", lambda: nms_edge.fused_counters_edge_compact(
+            code, params, variant, ITERS, 3.0, big, seed, block_frames=1024,
+            schedule=((t1, 0.375),), device=dev),
+        want, plain_ms,
+        edge_ops(h, big * t1 + unconv * (ITERS - t1), big + unconv), 8 * 6,
+        f"{big} hash frames, groups of 1024, schedule ((4, 384),), T={ITERS} "
+        "-> (6,) int64")
+    hc = torch.as_tensor(code.h, dtype=torch.float32, device=dev)
+    gc = torch.as_tensor(code.g, dtype=torch.float32, device=dev)
+    sigma = float(np.float32(sigma_for_snr(3.0, code.rate)))
+    want, plain_ms = timed_once(lambda: mc_dense._mc_dense_plain(
+        mc.weights, seed, hc, gc, ITERS, big, sigma, 1.0))
+    out["K7 mc_dense"] = mc_entry(
+        label, "K7 mc_dense", lambda: mc_dense.fused_counters(
+            code, params, variant, ITERS, 3.0, big, seed, device=dev),
+        want, plain_ms, nms_edge_ops(h, big, ITERS), 8 * 5,
+        f"{big} hash frames, h (64, 128) + G (64, 128) f32, T={ITERS} -> (5,) int64")
+    if cascade:
+        out |= variant_cascade(dev, label, code, params, variant, mc, seed, t1,
+                               unconv)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def variant_cascade(dev, label, code, params, variant, mc, seed, t1, unconv):
+    """One ``cascade_counters`` call (2,097,152 frames) == its twin, its
+    launches counted; K8a and K8b each timed against its twin part."""
+    big, h = PH1_BATCH, code.h
+    want, twin_ms = timed_once(lambda: cascade_twin(mc, t1, big))
+    _kernels.reset_launches()
+    got = mc_cascade.cascade_counters(code, params, variant, ITERS, 3.0, big, seed,
+                                      t1=t1, device=dev)
+    launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+    counters_equal(f"{label} cascade", got, want)
+    if set(launches) != {"cascade_p1", "cascade_p2"}:
+        raise AssertionError(f"{label} cascade launched {launches}")
+    log(f"{label} cascade_counters: {want.tolist()} == its twin's ({twin_ms:.1f} "
+        f"ms), launches {launches}")
+    _, flags = mc_cascade.phase1(mc, t1, big)
+    ids = mc_cascade.fixed_capacity_ids(
+        flags, mc_cascade.capacity(unconv / big, big, 512))
+    p1_plain = timed_once(lambda: nms_edge._mc_frames_plain(mc, t1, big,
+                                                            stage=True))[1]
+    p2_want, p2_plain = timed_once(lambda: nms_edge._mc_frames_plain(
+        mc, ITERS, len(ids), ids)[0][:5])
+    out = {
+        "K8a cascade_p1": mc_entry(
+            label, "K8a cascade_p1", lambda: mc_cascade.phase1(mc, t1, big)[0],
+            nms_edge._mc_frames_plain(mc, t1, big, stage=True)[0][:5], p1_plain,
+            edge_ops(h, big * t1, big), 4 * big,
+            f"{big} hash frames, t1={t1} -> (5,) int64 + flags ({big},) int32"),
+        "K8b cascade_p2": mc_entry(
+            label, "K8b cascade_p2", lambda: mc_cascade.phase2(mc, ITERS, ids),
+            p2_want, p2_plain, edge_ops(h, unconv * ITERS, unconv), 4 * len(ids),
+            f"ids ({len(ids)},) int32 ({unconv} flagged, -1 padded), T={ITERS} "
+            "-> (5,) int64")}
+    for name, key in (("K8a cascade_p1", "cascade_p1"),
+                      ("K8b cascade_p2", "cascade_p2")):
+        out[name]["launches"] = launches[key]
+    return out
+
+
+@contextlib.contextmanager
+def recorded_decoders(seen: list):
+    """While open, the decoder of every capture step
+    ``harness.build_nms_mc_step`` builds is appended to ``seen``."""
+    def wrap(plain):
+        def build(*args, **kwargs):
+            step = plain(*args, **kwargs)
+            seen.append(step.decoder)
+            return step
+        return build
+    with patched(harness, "build_nms_mc_step", wrap):
+        yield
+
+
+def variant_point(dev, label, code, params, variant, frames, batch, **extra):
+    """One ``run_nms_mc`` point at 3.0 dB with its launches and capture-step
+    decoders recorded: (stats, failures, decoders, launches)."""
+    decoders = []
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    with recorded_decoders(decoders):
+        stats, fb = harness.run_nms_mc(code, params, variant, ITERS, 3.0,
+                                       batch=batch, error_budget=10**9,
+                                       max_frames=frames, seed=VARIANT_SEED,
+                                       device=dev, **extra)
+    synchronize(dev)
+    launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+    log(f"variants {label}: {stats.frame_errors}/{stats.frames} frame errors "
+        f"(FER {stats.fer:.6f}), bit errors {stats.bit_errors}, decoders "
+        f"{decoders}, launches {launches}, {time.perf_counter() - t0:.2f} s")
+    return stats, fb, decoders, launches
+
+
+def expect_route(label, decoders, launches, want_decoders, want_keys):
+    """The point's capture-step decoders are ``want_decoders`` and its
+    launches exactly the kernels ``want_keys``."""
+    if decoders != want_decoders or set(launches) != set(want_keys):
+        raise AssertionError(f"variants {label}: decoders {decoders}, launches "
+                             f"{launches}; expected {want_decoders}, {want_keys}")
+
+
+def variant_points(dev, recs, weight_sets):
+    """18(b): the evaluation points at 3.0 dB through ``run_nms_mc`` (seed
+    15), their routes, the records and the two identities; then the capture
+    step pinned to K6 and the raw-LLR phase-2 step (K2) at the two weight
+    sets.  Returns the launches by kernel."""
+    code = get_code("ccsds_128_64")
+    steps = VARIANT_FRAMES // SWEEP_B
+    total = {}
+
+    def count(launches):
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+
+    results = {}
+    for name, rung in (("NMS-2", None), ("NMS-3", None), ("NMS-2", "dense")):
+        label = name + (" rung=dense" if rung else "")
+        stats, _, decoders, launches = variant_point(
+            dev, label, code, nms.init_params(name), name, VARIANT_FRAMES, SWEEP_B,
+            rung=rung)
+        if rung:  # K7 every step
+            expect_route(label, decoders, launches, [], ["mc_dense"])
+            if launches["mc_dense"] != steps:
+                raise AssertionError(f"variants {label}: {launches}")
+        else:  # K3, and K4 from an overflowed step on
+            expect_route(label, decoders, launches, [], ["mc_compact"]
+                         + (["mc_oneshot"] if "mc_oneshot" in launches else []))
+        count(launches)
+        results[label] = stats
+    if results["NMS-2"] != results["NMS-3"]:
+        raise AssertionError(f"NMS-2 {results['NMS-2']} != NMS-3 {results['NMS-3']}")
+    log(f"variants: NMS-2 == NMS-3 counter for counter at their initial "
+        f"parameters ({results['NMS-2'].frame_errors} frame errors, "
+        f"{results['NMS-2'].bit_errors} bit errors)")
+
+    p1 = nms.init_params("NMS-1")
+    captured = {}
+    for name in ("ENMS", "NMS-1"):
+        stats, fb, decoders, launches = variant_point(
+            dev, f"{name} capture route", code, p1, name, VARIANT_FRAMES, SWEEP_B,
+            capture_failures=True, capture_trajectories=False)
+        expect_route(name, decoders, launches, ["edge"], ["nms_edge_final"])
+        count(launches)
+        captured[name] = (stats, fb)
+    (se, fe), (s1, f1) = captured["ENMS"], captured["NMS-1"]
+    if not (se == s1 and np.array_equal(fe.trajectories, f1.trajectories)
+            and np.array_equal(fe.labels, f1.labels)):
+        raise AssertionError("CCSDS ENMS differs from NMS-1 on the capture route")
+    log(f"variants: CCSDS ENMS == NMS-1 frame for frame on the capture route "
+        f"({se.frame_errors} frame errors, {len(fe.labels)} failure rows "
+        f"captured, equal)")
+    del captured, fe, f1
+    stats, _, decoders, launches = variant_point(
+        dev, "ENMS", code, p1, "ENMS", VARIANT_FRAMES, SWEEP_B)
+    expect_route("ENMS", decoders, launches, ["edge"], ["nms_edge_final"])
+    if stats != se:
+        raise AssertionError("ENMS without capture differs from its capture route")
+    count(launches)
+    results["ENMS"] = stats
+    stats, _, decoders, launches = variant_point(
+        dev, "NMS-r untrained", code, nms.init_params("NMS-r", code.h), "NMS-r",
+        NMS_R_INIT_FRAMES, NMS_R_INIT_FRAMES)
+    expect_route("NMS-r untrained", decoders, launches, ["edge_padded"], [])
+    results["NMS-r"] = stats
+    for name in ("NMS-2", "NMS-3", "ENMS", "NMS-r"):
+        s = results[name]
+        log(f"variants {name} vs variant_fer.json: "
+            + share_text(f"variants {name} FER", (s.frame_errors, s.frames),
+                         recs[name]))
+
+    qc = get_code("qc_96_48")
+    shapes = []
+
+    def wrap(plain):
+        def decode(params, h, *args, **kwargs):
+            shapes.append(tuple(np.shape(h)))
+            return plain(params, h, *args, **kwargs)
+        return decode
+    with patched(nms_edge, "decode_final_edge", wrap):
+        stats, _, decoders, launches = variant_point(
+            dev, "ENMS qc_96_48", qc, p1, "ENMS", 4 * NMS_R_INIT_FRAMES,
+            NMS_R_INIT_FRAMES)
+    expect_route("ENMS qc_96_48", decoders, launches, ["edge"], ["nms_edge_final"])
+    if set(shapes) != {qc.extended().h.shape}:
+        raise AssertionError(f"ENMS qc_96_48 decoded on {set(shapes)}")
+    count(launches)
+    log(f"variants ENMS qc_96_48 (reported, no record): K1 on the extended "
+        f"{qc.extended().h.shape} matrix, FER {stats.fer:.6f} of {stats.frames}")
+
+    for label, (params, variant) in weight_sets.items():
+        count(variant_pinned_k6(dev, label, code, params, variant))
+        count(variant_phase2(dev, label, code, params, variant))
+    return total
+
+
+def variant_pinned_k6(dev, label, code, params, variant):
+    """The capture step pinned to K6 against the default (K1) step on the
+    same generators, 2 steps of 262,144 frames: counters, capture count and
+    buffers identical.  Returns the pinned step's launches."""
+    spec = ChannelSpec.awgn(3.0, code.rate)
+    steps = {d: harness.build_nms_mc_step(code, variant, ITERS, spec, CAP_B,
+                                          capture_capacity=CAP, decoder=d,
+                                          device=dev)
+             for d in ("dense", None)}
+    if steps[None].decoder != "edge":
+        raise AssertionError(f"{label}: default decoder {steps[None].decoder}")
+    outs = {}
+    for d, step in steps.items():
+        gen = torch.Generator(device=dev)
+        _kernels.reset_launches()
+        outs[d] = []
+        for i in range(2):
+            gen.manual_seed(VARIANT_SEED * 1_000_003 + i)
+            outs[d].append(step(params, gen))
+        launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+        if d == "dense":
+            pinned = launches
+    for (c_k6, b_k6), (c_k1, b_k1) in zip(outs["dense"], outs[None]):
+        if not (torch.equal(c_k6, c_k1) and all(torch.equal(b_k6[k], b_k1[k])
+                                                for k in b_k1)):
+            raise AssertionError(f"{label}: the K6-pinned capture step differs "
+                                 "from the K1 step")
+    if pinned != {"dense_final": 2}:
+        raise AssertionError(f"{label}: K6-pinned step launched {pinned}")
+    log(f"variants {label}: the capture step pinned to K6 == the K1 step over 2 "
+        f"steps ({outs[None][0][0].tolist()} ...), launches {pinned}")
+    return pinned
+
+
+def variant_phase2(dev, label, code, params, variant):
+    """The raw-LLR phase-2 step (``make_dl_osd_step_from_llr``) at the
+    weight set on one capture step's failures with the r4 artifacts: its
+    re-decode is K2 (one launch, with GE and K5).  Returns its launches."""
+    run = load_run(R4, dev)
+    blocks, acc = segments.build_tep_blocks(run["path"], code.k, 6)
+    teps, mask, bounds = segments.pack_tep_chunks(blocks)
+    step = harness.build_nms_mc_step(code, variant, ITERS,
+                                     ChannelSpec.awgn(3.0, code.rate), CAP_B,
+                                     capture_capacity=CAP, device=dev)
+    _, buf = step(params, torch.Generator(device=dev).manual_seed(VARIANT_SEED))
+    phase2 = engine.make_dl_osd_step_from_llr(run["dia"], code, variant, ITERS,
+                                              bounds=bounds)
+    _kernels.reset_launches()
+    with torch.no_grad():
+        out, _, det = phase2(params, buf["llr"], buf["labels"],
+                             torch.as_tensor(teps, device=dev),
+                             torch.as_tensor(mask, device=dev), acc, run["fcn"])
+    launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
+    if launches != {"nms_edge_traj": 1, "ge_packed": 1, "lterm": 1}:
+        raise AssertionError(f"{label} phase 2 launched {launches}")
+    rows = min(int(buf["count"]), CAP)
+    log(f"variants {label}: raw-LLR phase 2 on {rows} captured failures, "
+        f"{int(det[:rows].sum())} confirmed, {int(out['success'][:rows].sum())} "
+        f"OSD successes, launches {launches}")
+    return launches
+
+
+def cli_process(args, out_dir, name, every: list):
+    """``sldpc-torch <args>`` in a new process (with the probe), its output
+    to ``out_dir/<name>.log``, appended to ``every``: (Popen, log path,
+    start time)."""
+    path = os.path.join(out_dir, f"{name}.log")
+    with open(path, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-c", CLI_PROBE, *args],
+                                cwd=ROOT, stdout=fh, stderr=subprocess.STDOUT,
+                                text=True)
+    every.append(proc)
+    return proc, path, time.perf_counter()
+
+
+@contextlib.contextmanager
+def stopped_at_exit():
+    """Yields a list for ``cli_process``; on leaving, each of its processes
+    still running is killed and reaped."""
+    every = []
+    try:
+        yield every
+    finally:
+        for proc in every:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def cli_wait(label, started, timeout=900):
+    """Wait for a ``cli_process``; raise on a failure; (its output lines,
+    its probe, its seconds)."""
+    proc, path, t0 = started
+    rc = proc.wait(timeout=timeout)
+    seconds = time.perf_counter() - t0
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    if rc != 0:
+        raise AssertionError(f"{label}: exit {rc}: " + "\n".join(lines[-30:]))
+    probe = json.loads(next(ln for ln in reversed(lines)
+                            if ln.startswith("probe: "))[len("probe: "):])
+    log(f"{label}: {seconds:.1f} s in a new process, probe {json.dumps(probe)}")
+    return lines, probe, seconds
+
+
+def eval_point(label, run_dir, probe, rec):
+    """The one point an eval-nms process wrote; against ``rec`` (frame
+    errors, frames) by 99.9% Wilson overlap when one is given."""
+    (point,) = read_json(os.path.join(run_dir, "nms_fer.json"))["points"]
+    got = (point["frame_errors"], point["frames"])
+    text = (share_text(label, got, rec) if rec else
+            f"{got[0]}/{got[1]} = {got[0] / got[1]:.5f}")
+    log(f"{label}: frame errors {text} (decoders {probe['decoders']}, launches "
+        f"{probe['launches']})")
+    return point
+
+
+def variant_training(dev, tmp, trained_rec):
+    """18(c, d): ``sldpc-torch train-nms --variant NMS-3`` and ``--variant
+    NMS-r`` at the ``NMSTrainConfig`` defaults and ``eval-nms --variant
+    NMS-r`` on a copy of ``runs/r5_variants_nmsr``, three new processes at
+    once; then ``eval-nms`` at 3.0 dB on each trained run directory (two
+    at once).  Gates: the record's NMS-r inside ``nms_r_trained.json``'s
+    99.9% interval on the padded layout; each training's loss on the first
+    block's ring frames below the initial parameters' loss there, NMS-r's
+    NN weights non-negative, its retrained FER under ``NMS_R_MAX_FER`` (its
+    gap to the record reported).  Returns the run directories, seconds,
+    losses and points."""
+    dirs = {v: os.path.join(tmp, v) for v in ("NMS-3", "NMS-r", "record NMS-r")}
+    shutil.copytree(NMSR_RUN, dirs["record NMS-r"])
+    evals = {"NMS-3": ["--batch", str(SWEEP_B), "--max-frames", str(PH1_BATCH)],
+             "NMS-r": ["--batch", str(NMS_R_INIT_FRAMES), "--max-frames",
+                       str(NMS_R_CLI_FRAMES)]}
+    code = get_code("ccsds_128_64")
+    with stopped_at_exit() as every:
+        def eval_nms(variant, run_dir, name):
+            return cli_process(["eval-nms", "--variant", variant, "--run-dir",
+                                run_dir, "--snrs", "3.0:3.0:1", "--device",
+                                "cuda", *evals[variant]], tmp, name, every)
+
+        started = {f"train-nms {v}": cli_process(
+            ["train-nms", "--variant", v, "--run-dir", dirs[v], "--device",
+             "cuda"], tmp, f"train_{v}", every) for v in ("NMS-3", "NMS-r")}
+        started["eval-nms record NMS-r"] = eval_nms("NMS-r", dirs["record NMS-r"],
+                                                    "eval_record")
+        done = {label: cli_wait(label, s) for label, s in started.items()}
+        probe = done["eval-nms record NMS-r"][1]
+        points = {"record NMS-r": eval_point(
+            "eval-nms NMS-r (the record's weights) vs nms_r_trained.json",
+            dirs["record NMS-r"], probe, trained_rec)}
+        if probe["decoders"] != ["edge_padded"] or probe["launches"]:
+            raise AssertionError(f"eval-nms NMS-r route {probe}")
+
+        started = {f"eval-nms {v}": eval_nms(v, dirs[v], f"eval_{v}")
+                   for v in ("NMS-3", "NMS-r")}
+        losses = {}
+        for v in ("NMS-3", "NMS-r"):  # while the evaluations run
+            cfg = NMSTrainConfig(variant=v)
+            trained = load_jax_pickle(os.path.join(dirs[v], "nms_params.pkl"))
+            first = range(cfg.print_interval)
+            losses[v] = [nms_train.ring_loss(code, cfg, nms.init_params(v, code.h),
+                                             first, device=dev),
+                         nms_train.ring_loss(code, cfg, trained, first, device=dev)]
+            log(f"train-nms {v}: loss on the first block's ring frames "
+                f"{losses[v][0]:.3f} at the initial parameters, "
+                f"{losses[v][1]:.3f} trained; parameters " + json.dumps(
+                    {k: np.asarray(a).ravel().round(6).tolist()
+                     for k, a in trained.items()}))
+            if not losses[v][1] < losses[v][0]:
+                raise AssertionError(f"train-nms {v}: the loss did not fall "
+                                     f"{losses[v]}")
+            if v == "NMS-r" and not all((np.asarray(trained[k]) >= 0).all()
+                                        for k in ("nn_w1", "nn_w2")):
+                raise AssertionError("train-nms NMS-r: a negative NN weight")
+        done |= {label: cli_wait(label, s) for label, s in started.items()}
+    for v, route in (("NMS-3", ([], {"mc_compact", "mc_oneshot"})),
+                     ("NMS-r", (["edge_padded"], set()))):
+        probe = done[f"eval-nms {v}"][1]
+        if probe["decoders"] != route[0] or not set(probe["launches"]) <= route[1]:
+            raise AssertionError(f"eval-nms {v} route {probe}")
+        points[v] = eval_point(f"eval-nms {v} (trained on the card)", dirs[v],
+                               probe, None)
+    got = (points["NMS-r"]["frame_errors"], points["NMS-r"]["frames"])
+    gap = gap_sigma(got, trained_rec)
+    log(f"eval-nms NMS-r retrained on the card: FER {got[0] / got[1]:.5f} "
+        f"against the record's {trained_rec[0] / trained_rec[1]:.5f} (another "
+        f"RNG stream trains another net): {gap:+.2f} sigma, reported")
+    if not got[0] / got[1] < NMS_R_MAX_FER:
+        raise AssertionError(f"NMS-r retrained FER {got[0] / got[1]} is not under "
+                             f"{NMS_R_MAX_FER}")
+    return {"dirs": dirs, "seconds": {label: d[2] for label, d in done.items()},
+            "losses": losses, "points": points, "nms_r_gap_sigma": gap}
+
+
+def nms_r_recipe(dev, tmp, trained_rec):
+    """18(e), the recipe: ``runs/r4_pipeline``'s config with ``"variant":
+    "NMS-r"`` and the record's NMS-r weights (stage 1 reused) through
+    ``recipe.run_recipe``: stages 2-5 retrained on the card.  Gates: stage
+    1 reused; the DIA's and the stopper's losses fall and the MRB
+    zero-error count rises; the eval sweep launches GE and K5 once a point
+    and nothing else (the capture and the re-decode of NMS-r are plain
+    PyTorch); the 3.0 dB point's ``fer_nms_detected`` inside
+    ``nms_r_trained.json``'s 99.9% interval.  Returns the run directory and
+    a summary."""
+    d = os.path.join(tmp, "nms_r_system")
+    os.makedirs(d)
+    cfg = dataclasses.replace(recipe_config(R4), variant="NMS-r")
+    shutil.copy(os.path.join(NMSR_RUN, "nms_params.pkl"), d)
+    seen = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with counted_eval_sweeps(seen):
+        curve = recipe.run_recipe(cfg, d, snrs=np.linspace(2.0, 3.0, 6), log=log,
+                                  device=dev)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    if (os.path.exists(os.path.join(d, "nms_train_summary.json"))
+            or not filecmp.cmp(os.path.join(d, "nms_params.pkl"),
+                               os.path.join(NMSR_RUN, "nms_params.pkl"),
+                               shallow=False)):
+        raise AssertionError("NMS-r recipe: stage 1 was retrained")
+    paths = read_json(os.path.join(d, "decoding_path.json"))
+    zero = [paths["hist_initial"].get("0", 0), paths["hist_refined"].get("0", 0)]
+    hist = read_json(os.path.join(d, "dia_model_cnn_train_summary.json"))["history"]
+    val = read_json(os.path.join(d, "stopper_validation.json"))
+    if not zero[1] > zero[0]:
+        raise AssertionError(f"NMS-r recipe: MRB zero-error count {zero}")
+    if not hist[-1]["loss_mean"] < hist[0]["loss_mean"]:
+        raise AssertionError(f"NMS-r recipe: DIA loss {hist[0]} -> {hist[-1]}")
+    if not val["final_loss"] < val["initial_loss"]:
+        raise AssertionError(f"NMS-r recipe: stopper loss {val}")
+    want = {key: len(curve["points"]) for key in ("ge_packed", "lterm")}
+    if len(seen) != 1 or {k: n for k, n in seen[0].items() if n} != want:
+        raise AssertionError(f"NMS-r eval sweep launches {seen}, expected {want}")
+    texts = []
+    for point in curve["points"]:
+        osd = point["osd"]
+        got = (round(point["fer_nms_detected"] * point["frames"]), point["frames"])
+        texts.append(
+            f"{point['snr_db']:.1f} dB: fer_nms_detected {got[0]}/{got[1]} = "
+            f"{got[0] / got[1]:.5f}, OSD {osd['success']} of "
+            f"{osd['success'] + osd['fail']} (strict {osd['strict_success']}), "
+            f"mean complexity {osd['complexity']:.1f}, fer_total "
+            f"{point['fer_total']:.4g}")
+    last = curve["points"][-1]
+    texts.append("3.0 dB vs nms_r_trained.json: " + share_text(
+        "NMS-r recipe 3.0 dB fer_nms_detected",
+        (round(last["fer_nms_detected"] * last["frames"]), last["frames"]),
+        trained_rec))
+    meta = read_json(os.path.join(d, "train_failures_meta.json"))
+    out = {"seconds": seconds, "stage_seconds": read_json(
+        os.path.join(d, "stage_seconds.json")), "peak_memory_bytes": peak,
+        "harvest": f"{meta['detected_failures']}/{meta['frames']} at "
+                   f"{cfg.training_snr} dB", "mrb_zero_initial_refined": zero,
+        "dia_loss": [hist[0]["loss_mean"], hist[-1]["loss_mean"]],
+        "stopper_loss": [val["initial_loss"], val["final_loss"]],
+        "eval_launches": want, "points": texts}
+    log("NMS-r recipe: " + json.dumps(out))
+    return d, out
+
+
+def nms_r_card_vs_cpu(tp, buf, rows: int):
+    """The walk of a ``TwoPhase``'s own phase-2 step on the first ``rows``
+    captured rows, the card against the port's CPU run: stop index,
+    success and chosen TEP equal, refined values within
+    ``NMS_R_REFINED_TOL``; returns the largest refined difference."""
+    cpu = system.TwoPhase(tp.run_dir, tp.cap_b, tp.cap, tp.snr_db, "cpu")
+    picks, refined = [], []
+    for side in (tp, cpu):
+        llr = buf["llr"][:rows].to(side.device)
+        labels = buf["labels"][:rows].to(side.device)
+        ref = wimax_step(side, llr, labels)[1]
+        prep = engine.prepare(ref, llr, labels, side.code.h_osd, side.code.k)
+        minima, argmins = engine.block_discrepancy_minima(
+            prep, side.teps, side.mask, side.code.k, side.bounds)
+        run = {"fcn": side.fcn, "config": {"window": side.window,
+                                           "soft_margin": side.soft_margin}}
+        picks.append([t.cpu() for t in walk_picks(run, prep, minima, argmins,
+                                                  side.bounds)[:3]])
+        refined.append(ref.cpu())
+    err = compare("NMS-r walk: refined values, card vs CPU", refined[0],
+                  refined[1], rel=True, tol=NMS_R_REFINED_TOL)
+    differ = {name: int((a != b).sum())
+              for name, a, b in zip(("stop_k", "success", "chosen_tep"), *picks)}
+    log(f"NMS-r card vs CPU walk ({rows} captured rows, re-decode route "
+        f"{engine.redecode_route(tp.code.h, tp.variant, tp.device, rows)} on "
+        f"both): frames that differ {json.dumps(differ)}, refined values "
+        f"within {err:.3g}; successes {int(picks[0][1].sum())} (card) / "
+        f"{int(picks[1][1].sum())} (CPU)")
+    if any(differ.values()):
+        raise AssertionError("NMS-r walk: card differs from CPU")
+    return err
+
+
+def nms_r_system(dev, run_dir, trained_rec, card):
+    """18(e), the system: ``system.TwoPhase`` on the NMS-r run directory at
+    3.0 dB (``cap_b`` 262,144, ``cap`` 32,768): the capture and re-decode
+    on the padded edge layout, a warm-up round, ``measure`` with the launch
+    counts reset just before and read just after (GE and K5 R each,
+    nothing else), ``stage_times``, the peak memory; the NMS FER inside
+    ``nms_r_trained.json``'s interval, the OSD success share reported (no
+    JAX record).  Then GE and K5 on one round's rows against their plain
+    versions (``system_kernels``) and the walk card == CPU on 64 rows."""
+    tp = system.TwoPhase(run_dir, CAP_B, CAP, 3.0, dev)
+    routes = (tp.capture_step.decoder,
+              engine.redecode_route(tp.code.h, tp.variant, dev, CAP))
+    if routes != ("edge_padded", "edge_padded"):
+        raise AssertionError(f"NMS-r system routes {routes}")
+    tp.full_round(10**6)  # warm-up
+    synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _kernels.reset_launches()
+    out = tp.measure(NMS_R_ROUNDS)
+    launches = {"ge_packed": NMS_R_ROUNDS, "lterm": NMS_R_ROUNDS}
+    only_launched("NMS-r system", launches)
+    out["system_stage_s"] = tp.stage_times(NMS_R_ROUNDS)
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["launches"] = launches
+    log("NMS-r system: " + json.dumps(out))
+    errors, frames = out["system_frame_errors"], out["system_frames"]
+    succ, failures = out["system_osd_success"], out["system_failures"]
+    stages = out["system_stage_s"]
+    staged = sum(v for key, v in stages.items() if key != "sliding_osd_total")
+    log(f"NMS-r system 3.0 dB on {card}: {out['system_codewords_per_s']:.1f} cw/s, "
+        f"{out['system_osd_failures_per_s']:.1f} OSD failures/s, NMS FER "
+        + share_text("NMS-r system NMS FER", (errors, frames), trained_rec)
+        + f"; OSD successes {succ} of {failures} ({succ / failures:.5f}; the JAX "
+        f"package has no NMS-r two-phase record), strict "
+        f"{out['system_osd_strict_success']}, unconfirmed "
+        f"{out['system_osd_unconfirmed']}, overflow "
+        f"{out['system_capture_overflow']}; staged round {1e3 * staged:.2f} ms "
+        "(" + ", ".join(f"{k} {1e3 * v:.2f}" for k, v in stages.items())
+        + f"), peak memory {out['peak_memory_bytes'] / 2**30:.2f} GiB")
+    _, buf = tp.capture_round(NMS_R_ROUNDS + 1)
+    rows = min(int(buf["count"]), CAP)
+    k5, ge = system_kernels(dev, "NMS-r system", tp, buf, card,
+                            *k5_chunks(CAP, tp.code.h_osd.shape[0],
+                                       int(tp.teps.shape[0] * tp.teps.shape[1])))
+    refined_err = nms_r_card_vs_cpu(tp, buf, NMS_R_CPU_ROWS)
+    del tp, buf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"system": out, "buffer_failures": rows,
+            "card_vs_cpu_refined_err": refined_err}, k5, ge
+
+
+def phase_variants(dev, rows, smi):
+    """18: the NMS variants through the port's entry points (``run_nms_mc``,
+    ``sldpc-torch train-nms``/``eval-nms --variant``, ``recipe.run_recipe``,
+    ``system.TwoPhase``) against ``runs/r5_variants``: (c, d) the trainings
+    and CLI evaluations (``variant_training``), (a) the kernels at NMS-2's
+    initial and NMS-3's trained weights (``variant_kernels``), (b) the
+    evaluation points and identities (``variant_points``), (e) NMS-r's
+    two-phase system (``nms_r_recipe``, ``nms_r_system``).  The kernel rows
+    get ``variants`` entries, GE and K5 ``nms_r_system`` entries."""
+    t0 = time.perf_counter()
+    recs, trained_rec = variant_records()
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = variant_training(dev, tmp, trained_rec)
+        seconds["c_d_processes"] = time.perf_counter() - t0
+        sets = variant_weight_sets(trained["dirs"]["NMS-3"])
+        entries, launches = {}, {}
+        t1 = time.perf_counter()
+        for label, (params, variant) in sets.items():
+            weights = nms.scalar_weights(params, variant)
+            for name, entry in variant_kernels(dev, label, params, variant,
+                                               VARIANT_SEED,
+                                               cascade=variant == "NMS-3").items():
+                n = entry.pop("launches")  # the cascade call's, else None
+                if n is not None:
+                    launches[LAUNCH_KEY[name]] = n
+                entries.setdefault(name, {})[label] = entry | {"weights": weights}
+        seconds["a_kernels"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        launches |= variant_points(dev, recs, sets)
+        seconds["b_points"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        run_dir, recipe_out = nms_r_recipe(dev, tmp, trained_rec)
+        seconds["e_recipe"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        system_out, k5, ge = nms_r_system(dev, run_dir, trained_rec, smi)
+        seconds["e_system"] = time.perf_counter() - t1
+    for row in rows:
+        name = row["name"]
+        if name in entries:
+            row["variants"] = entries[name] | {
+                "launches": launches.get(LAUNCH_KEY[name], 0)}
+        elif name == "K5 lterm":
+            row["nms_r_system"] = k5 | {"launches": NMS_R_ROUNDS}
+        elif name == "GE ge_packed":
+            row["nms_r_system"] = ge | {"launches": NMS_R_ROUNDS}
+    seconds["total"] = time.perf_counter() - t0
+    log("variants: " + json.dumps({
+        "seconds": seconds, "process_seconds": trained["seconds"],
+        "training_losses": trained["losses"],
+        "nms_r_retrained_gap_sigma": trained["nms_r_gap_sigma"],
+        "path_launches": launches, "nms_r_system": system_out,
+        "card": smi}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3488,6 +4287,7 @@ def main():
     phase_wimax_system(dev, rows, smi)
     phase_multicode(dev, rows, smi)
     phase_rayleigh(dev, rows, smi)
+    phase_variants(dev, rows, smi)
     rows.sort(key=lambda row: row["name"])
     if any(row["launches"] is None or row["launches"] < 1 for row in rows):
         raise AssertionError("a kernel row has no launch on its path")

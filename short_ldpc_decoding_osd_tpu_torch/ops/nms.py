@@ -167,6 +167,10 @@ def _check_update_neural(vc, h, params, edge_cols):
 
 
 def _iterate(params, h, llr, num_iterations, variant, edge_cols, keep_all):
+    # the parameters on the frames' device, as the padded edge layout takes
+    # them: callers keep the scalar variants' weights on the host for the
+    # kernel wrappers, and NMS-r's network must run beside its frames
+    params = {k: torch.as_tensor(v).to(llr.device) for k, v in params.items()}
     w_vc, w_chk, w_marg = _weights(params, variant)
     h = torch.as_tensor(h, dtype=torch.float32, device=llr.device)
     weighted_in = (w_vc * llr)[:, None, :]

@@ -16,7 +16,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 from torch.utils.flop_counter import FlopCounterMode
 
-from .._device import synchronize
+from .._device import resolve_device, synchronize
 
 
 @contextlib.contextmanager
@@ -37,10 +37,11 @@ def trace(log_dir: str):
 class Timer:
     """Blocking wall-clock timer for device work: each interval is closed
     by ``torch.cuda.synchronize()`` on a CUDA ``device`` (PyTorch returns
-    before the card finishes), so it measures the work, not its enqueue."""
+    before the card finishes), so it measures the work, not its enqueue.
+    ``device`` is the card unless the caller passes ``"cpu"``."""
 
-    def __init__(self, device: str | torch.device = "cpu"):
-        self.device = torch.device(device)
+    def __init__(self, device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
         self.records: dict[str, list[float]] = {}
 
     @contextlib.contextmanager

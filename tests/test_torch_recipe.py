@@ -315,10 +315,11 @@ def test_cli_train_dia_round_trip(tmp_path, capsys):
                             "/nonexistent/never-created"]),
     lambda: rayleigh.main(["--run", R4, "--out", "/nonexistent/never-created"]),
     lambda: rayleigh.run_points(R4, [6.0]),
+    lambda: Timer(),
 ], ids=["train_dia", "pattern_sweep", "stopper_samples", "train_stopper",
         "run_recipe", "cli", "fs_osd", "pb_osd", "conventional_osd",
         "miracle_view", "cli_baseline", "multicode", "rayleigh",
-        "rayleigh_run_points"])
+        "rayleigh_run_points", "timer"])
 def test_cuda_default_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device resolves")

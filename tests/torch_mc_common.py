@@ -63,9 +63,11 @@ def _sample_np(fids, seed, code, sigma, mean=1.0):
 # --- the compaction rule written out over JAX's XLA decoder --------------
 
 def _golden(code_name, seed, batch, num_iterations, snr_db=3.0, stages=(),
-            block=None):
+            block=None, params=None, variant="NMS-1"):
     """Counters [frames, frame_err, bit_err, detected, undetected] and the
-    overflow count of the hash frames ``0..batch-1`` under the rule: at each
+    overflow count of the hash frames ``0..batch-1`` decoded by ``variant``
+    with the JAX parameter tree ``params`` (default: NMS-1's initial
+    factor) under the rule: at each
     stage ``(cumulative iterations, rows)`` a frame with a zero syndrome is
     judged there, and of each ``block`` group's alive unconverged frames
     (frame order) those ranked >= rows are judged there too (overflow);
@@ -74,10 +76,10 @@ def _golden(code_name, seed, batch, num_iterations, snr_db=3.0, stages=(),
     h = code.h.astype(np.int64)
     sigma = float(sigma_for_snr(snr_db, code.rate))
     codeword, llr, _ = _sample_np(np.arange(batch), seed, code, sigma)
-    outs = np.asarray(jnms.decode(jnms.init_params("NMS-1"),
-                                  jnp.asarray(code.h, jnp.float32),
-                                  jnp.asarray(llr, jnp.float32),
-                                  num_iterations, "NMS-1"))
+    outs = np.asarray(jnms.decode(
+        jnms.init_params("NMS-1") if params is None else params,
+        jnp.asarray(code.h, jnp.float32), jnp.asarray(llr, jnp.float32),
+        num_iterations, variant))
     decision = outs[num_iterations] < 0
     alive = np.ones(batch, bool)
     overflow = 0
