@@ -206,7 +206,23 @@ Phases (each raises on failure, so the script never exits 0 after one):
     (4 rounds; GE and K5 R launches, nothing else; the NMS FER inside the
     record's interval; cw/s, OSD failures/s, stages, peak memory, the OSD
     success share reported), GE and K5 on one round's rows against their
-    plain versions, and the walk card == CPU on 64 of them.
+    plain versions, and the walk card == CPU on 64 of them;
+19. the port's last entry points as new processes: (a) ``sldpc-torch bench
+    --batch 2097152`` (``system.bench``): exit 0, its last line JSON with
+    ``BENCH_r05.json``'s keys less the four TPU figures, the card's name,
+    the system at 3.0 dB, ``sample_fer`` and ``system_fer_nms`` against
+    their records by 99.9% Wilson overlap, 49,152 algorithmic flops a
+    frame, the TF baseline, launches exactly K3 9, K1 18, K2 10, GE 10, K5
+    11 and nothing else, phase 1's and the system's rates at least half of
+    phase 4's and phase 3's in this process (the ``bench_cli`` entries of the
+    K1, K2, K3, K5 and GE rows); (b) ``sldpc-torch train-dia`` then
+    ``train-stopper`` with ``runs/r4_pipeline/config.json``'s flags on one
+    run directory that holds only its ``nms_params.pkl``: the harvest FER
+    against the record, the DIA's loss falling, the MRB zero-error count
+    rising, 30 patterns, ``train-stopper`` reusing the failures (no K1)
+    and the refiner (its pickle untouched) with its loss falling, the
+    pickles in the JAX layout, the directory through ``load_run``; each
+    process's seconds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 1 and
@@ -1500,8 +1516,8 @@ def phase_phase1(dev, rows):
     """``bench.py``'s phase-1 headline on the card (``system.Phase1``):
     compact, then one-shot; each with counts reset after the warm-up step
     and required to be exactly ``PH1_STEPS`` launches of its kernel, and
-    its FER held against the JAX record."""
-    seconds = {}
+    its FER held against the JAX record.  Returns the K3 run's fields."""
+    seconds, outs = {}, {}
     for kernel, key in (("compact", "mc_compact"), ("oneshot", "mc_oneshot")):
         phase1 = system.Phase1(batch=PH1_BATCH, kernel=kernel, device=dev)
         phase1.step(0)  # warm-up
@@ -1518,10 +1534,11 @@ def phase_phase1(dev, rows):
         ci = wilson_overlap(f"phase-1 {kernel}", out["timed_frame_errors"],
                             out["timed_frames"])
         out["fer_999_ci"] = ci
-        seconds[kernel] = out["seconds"]
+        seconds[kernel], outs[kernel] = out["seconds"], out
         log("phase1: " + json.dumps(out))
     log(f"phase-1 K3/K4 time ratio: {seconds['compact'] / seconds['oneshot']:.4f}; "
         "FERs agree with BENCH_r05.json's sample_fer (99.9% Wilson overlap)")
+    return outs["compact"]
 
 
 def phase_sweep(dev):
@@ -1565,7 +1582,8 @@ def phase_cascade(dev, rows):
 def phase_main_path(dev, rows):
     """The entry point ``run_two_phase`` spelled out, so that the launch
     counts bracket exactly the timed rounds: reset after the warm-up, read
-    before the per-stage split (which calls K2 and K5 on its own)."""
+    before the per-stage split (which calls K2 and K5 on its own).  Returns
+    the measured fields."""
     two_phase = system.TwoPhase(cap_b=CAP_B, cap=CAP, snr_db=3.0, device=dev)
     two_phase.full_round(10**6)  # warm-up
     synchronize(dev)
@@ -1614,6 +1632,7 @@ def phase_main_path(dev, rows):
         raise AssertionError(
             f"OSD success share CI {share_ci} misses the record {ref_share_ci}")
     log("statistics agree with BENCH_r05.json (99.9% Wilson intervals overlap)")
+    return out
 
 
 def profile(dev, label: str, fn, watch=()):
@@ -4261,6 +4280,190 @@ def phase_variants(dev, rows, smi):
         "card": smi}))
 
 
+# 19: sldpc-torch bench's line holds BENCH_r05.json's keys less the four
+# TPU figures (the one-hot MXU FLOP model and the shares of the v5e's peak)
+TPU_BENCH_KEYS = {"flops_per_frame_model", "effective_tflops",
+                  "mfu_pct_vs_bf16_peak", "mfu_pct_algorithmic"}
+# launches of one bench process: K3 a phase-1 step (warm-up + 8); the
+# system's warm-up round, 8 capture-only and 8 full rounds, and the stage
+# round (K5 twice: the minima stage, then sliding_osd_total)
+BENCH_CLI_LAUNCHES = {"mc_compact": 1 + PH1_STEPS,
+                      "nms_edge_final": 1 + 2 * ROUNDS + 1,
+                      "nms_edge_traj": 1 + ROUNDS + 1, "ge_packed": 1 + ROUNDS + 1,
+                      "lterm": 1 + ROUNDS + 2}
+
+
+def cli_json(label, lines):
+    """The JSON line a ``cli_process`` printed last (before its probe
+    line); raises unless it parses."""
+    body = [ln for ln in lines if not ln.startswith("probe: ")]
+    try:
+        return json.loads(body[-1])
+    except (IndexError, ValueError) as exc:
+        raise AssertionError(f"{label}: last line is not JSON: {body[-3:]}") from exc
+
+
+def r4_cli_flags():
+    """``runs/r4_pipeline/config.json`` as ``train-dia``/``train-stopper``
+    flags."""
+    cfg = read_json(os.path.join(R4, "config.json"))
+    return ["--code", cfg["code_name"], "--variant", cfg["variant"],
+            "--iterations", str(cfg["num_iterations"]),
+            "--training-snr", str(cfg["training_snr"]),
+            "--dia-model", cfg["dia_model"],
+            "--train-failures", str(cfg["train_failure_target"]),
+            "--decoding-length", str(cfg["decoding_length"]),
+            "--threshold-sum", str(cfg["threshold_sum"]),
+            "--window", str(cfg["window"]), "--soft-margin", str(cfg["soft_margin"]),
+            "--segments", str(cfg["num_segments"]), "--batch", str(cfg["eval_batch"]),
+            "--seed", str(cfg["seed"])]
+
+
+def bench_cli(tmp, in_process):
+    """19(a): ``sldpc-torch bench --batch 2097152`` in a new process.
+    Gates: exit 0 and a JSON last line with ``bench.py``'s keys less the
+    TPU figures; the card's name; the system at 3.0 dB; ``sample_fer`` and
+    ``system_fer_nms`` inside the records' 99.9% intervals; 49,152
+    algorithmic flops a frame; the TF baseline; the launches exactly
+    ``BENCH_CLI_LAUNCHES``; phase 1's and the system's rates at least half
+    of this run's in-process ones (else another path ran)."""
+    with stopped_at_exit() as every:
+        lines, probe, seconds = cli_wait("sldpc-torch bench", cli_process(
+            ["bench", "--batch", str(PH1_BATCH), "--device", "cuda"], tmp,
+            "bench", every))
+    line = cli_json("sldpc-torch bench", lines)
+    log("sldpc-torch bench line: " + json.dumps(line))
+    keys = set(read_json(os.path.join(ROOT, "BENCH_r05.json"))["parsed"])
+    missing = keys - TPU_BENCH_KEYS - set(line)
+    if missing or TPU_BENCH_KEYS & set(line):
+        raise AssertionError(f"bench line: missing {sorted(missing)}, TPU keys "
+                             f"{sorted(TPU_BENCH_KEYS & set(line))}")
+    name = torch.cuda.get_device_name(0)
+    want = {"device": name, "system_snr_db": 3.0, "batch": PH1_BATCH,
+            "flops_per_frame_algorithmic": 49152.0,
+            "baseline_kind": "reference_tf2_cpu"}
+    got = {k: line[k] for k in want}
+    if got != want:
+        raise AssertionError(f"bench line {got} != {want}")
+    ph1 = share_text("bench sample_fer", (round(line["sample_fer"] * line["batch"]),
+                                          line["batch"]),
+                     (REF_PH1_ERRORS, REF_PH1_FRAMES))
+    nms_fer = share_text("bench system_fer_nms", (line["system_frame_errors"],
+                                                  line["system_frames"]),
+                         (round(REF_FER * REF_FRAMES), REF_FRAMES))
+    launches = probe["launches"]
+    if launches != BENCH_CLI_LAUNCHES:
+        raise AssertionError(f"bench launches {launches} != {BENCH_CLI_LAUNCHES}")
+    ratios = {"value": line["value"] / in_process["value"],
+              "system_codewords_per_s": line["system_codewords_per_s"]
+              / in_process["system_codewords_per_s"]}
+    log(f"sldpc-torch bench on {name}: {seconds:.1f} s; value "
+        f"{line['value']} cw/s (in process {in_process['value']:.1f}), system "
+        f"{line['system_codewords_per_s']} cw/s (in process "
+        f"{in_process['system_codewords_per_s']:.1f}), vs_baseline "
+        f"{line['vs_baseline']}, numpy stand-in "
+        f"{line['numpy_standin_codewords_per_s']} cw/s; sample_fer {ph1}; "
+        f"system_fer_nms {nms_fer}; launches {launches}")
+    if min(ratios.values()) < 0.5:
+        raise AssertionError(f"bench process rates against in-process: {ratios}")
+    return line, launches, seconds
+
+
+def train_cli(dev, tmp):
+    """19(b): ``sldpc-torch train-dia`` then ``train-stopper`` in new
+    processes on one run directory that holds only
+    ``runs/r4_pipeline/nms_params.pkl``, with ``config.json``'s flags.
+    ``phase_recipe``'s gates: harvest FER against the record, the DIA's
+    block loss falling, the refined MRB zero-error count above the initial
+    one, 30 patterns; ``train-stopper`` reusing ``train-dia``'s failures and
+    refiner (no K1 launch, the refiner's pickle untouched) with its
+    validation loss falling; the pickles in the JAX layout; the run
+    directory, with ``config.json`` copied in, through ``load_run``."""
+    run_dir = os.path.join(tmp, "train_cli")
+    os.makedirs(run_dir)
+    shutil.copy(os.path.join(R4, "nms_params.pkl"), run_dir)
+    run = recipe.RunDir(run_dir)
+    flags = [*r4_cli_flags(), "--run-dir", run_dir, "--device", "cuda"]
+    out = {}
+    with stopped_at_exit() as every:
+        lines, probe, out["train-dia"] = cli_wait("sldpc-torch train-dia", cli_process(
+            ["train-dia", *flags], tmp, "train_dia", every))
+        printed = cli_json("train-dia", lines)
+        meta = run.load_json("train_failures_meta.json")
+        hist = run.load_json("dia_model_cnn_train_summary.json")["history"]
+        paths = run.load_json("decoding_path.json")
+        zero = (paths["hist_initial"].get("0", 0), paths["hist_refined"].get("0", 0))
+        harvest = share_text("train-dia harvest FER", (meta["detected_failures"],
+                                                       meta["frames"]),
+                             (REF_HARVEST_ERRORS, REF_HARVEST_FRAMES))
+        log(f"train-dia: printed {printed}; harvest {harvest}; DIA block loss "
+            f"{hist[0]['loss_mean']:.2f} -> {hist[-1]['loss_mean']:.2f}; MRB "
+            f"zero-error {zero[0]} -> {zero[1]} (record {REF_MRB_ZERO_INITIAL} -> "
+            f"{REF_MRB_ZERO_REFINED}); launches {probe['launches']}")
+        if printed != {"decoding_path_len": 30} or len(paths["path"]) != 30:
+            raise AssertionError(f"train-dia printed {printed}")
+        if not hist[-1]["loss_mean"] < hist[0]["loss_mean"]:
+            raise AssertionError(f"train-dia: DIA loss did not fall {hist[0]} -> "
+                                 f"{hist[-1]}")
+        if not zero[1] > zero[0]:
+            raise AssertionError(f"train-dia: MRB zero-error count {zero}")
+        if not probe["launches"].get("nms_edge_final"):
+            raise AssertionError(f"train-dia harvest without K1: {probe}")
+        stamp = os.path.getmtime(run.path("dia_model_cnn.pkl"))
+
+        lines, probe, out["train-stopper"] = cli_wait(
+            "sldpc-torch train-stopper", cli_process(["train-stopper", *flags], tmp,
+                                                     "train_stopper", every))
+    printed = cli_json("train-stopper", lines)
+    val = run.load_json("stopper_validation.json")
+    log(f"train-stopper: printed {printed}; validation {json.dumps(val)}; "
+        f"launches {probe['launches']}")
+    if printed != {"decoding_path_len": 30, "stopper": "stopper_params.pkl"}:
+        raise AssertionError(f"train-stopper printed {printed}")
+    if os.path.getmtime(run.path("dia_model_cnn.pkl")) != stamp:
+        raise AssertionError("train-stopper retrained the DIA")
+    if "nms_edge_final" in probe["launches"] or not probe["launches"].get("lterm"):
+        raise AssertionError(f"train-stopper launches {probe['launches']}: the "
+                             "harvest must be reused and the samples run K5")
+    if not val["final_loss"] < val["initial_loss"]:
+        raise AssertionError(f"train-stopper: loss did not fall {val}")
+    layouts, ref_layouts = numpy_layouts(run_dir), numpy_layouts(R4)
+    if layouts != ref_layouts:
+        raise AssertionError(f"train CLI pickles {layouts} != JAX's {ref_layouts}")
+    # only run_recipe writes config.json (in JAX as in the port): the
+    # config the flags came from completes the run directory
+    shutil.copy(os.path.join(R4, "config.json"), run_dir)
+    written = load_run(run_dir, dev)
+    log(f"train CLI run dir: loads through convert.load_run on the card "
+        f"({type(written['dia']).__name__}, {len(written['path'])} patterns), "
+        "pickles in the JAX key layout")
+    return out
+
+
+def phase_entry_points(dev, rows, smi, in_process):
+    """19: the port's last entry points as new processes: (a) ``sldpc-torch
+    bench`` (``bench_cli``), its launches the ``bench_cli`` entries of the
+    K1, K2, K3, K5 and GE rows; (b) ``train-dia`` then ``train-stopper``
+    (``train_cli``).  ``in_process`` holds phase 4's K3 ``value`` and
+    phase 3's ``system_codewords_per_s``."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the processes size their captures by free memory
+    with tempfile.TemporaryDirectory() as tmp:
+        line, launches, bench_seconds = bench_cli(tmp, in_process)
+        train_seconds = train_cli(dev, tmp)
+    for row in rows:
+        key = LAUNCH_KEY[row["name"]]
+        if key in launches:
+            row["bench_cli"] = {"launches": launches[key]}
+    log("entry points: " + json.dumps({
+        "process_seconds": {"bench": bench_seconds} | train_seconds,
+        "seconds": time.perf_counter() - t0,
+        "bench": {k: line[k] for k in (
+            "value", "system_codewords_per_s", "vs_baseline",
+            "numpy_standin_codewords_per_s", "system_osd_failures_per_s")},
+        "card": smi}))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4271,8 +4474,8 @@ def main():
     phase_mc_other_codes(dev)
     phase_card_vs_cpu(dev)
     phase_path(dev)
-    phase_main_path(dev, rows)
-    phase_phase1(dev, rows)
+    system_out = phase_main_path(dev, rows)
+    phase1_out = phase_phase1(dev, rows)
     phase_sweep(dev)
     phase_cascade(dev, rows)
     phase_profile(dev)
@@ -4288,6 +4491,9 @@ def main():
     phase_multicode(dev, rows, smi)
     phase_rayleigh(dev, rows, smi)
     phase_variants(dev, rows, smi)
+    phase_entry_points(dev, rows, smi, {
+        "value": phase1_out["value"],
+        "system_codewords_per_s": system_out["system_codewords_per_s"]})
     rows.sort(key=lambda row: row["name"])
     if any(row["launches"] is None or row["launches"] < 1 for row in rows):
         raise AssertionError("a kernel row has no launch on its path")

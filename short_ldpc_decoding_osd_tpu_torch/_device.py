@@ -19,6 +19,14 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def device_name(device: torch.device) -> str:
+    """The card's name on CUDA (``torch.cuda.get_device_name``), else the
+    device string (``"cpu"``): what a result line says it ran on."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return str(device)
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for queued device work (a no-op on the CPU)."""
     if device.type == "cuda":

@@ -21,16 +21,23 @@ time split from one extra round with a synchronisation between stages.
 counters, kernel K3 (``"compact"``) or K4 (``"oneshot"``), at 2,097,152
 frames a step with NMS-1 at its initial factor; :class:`Phase1` holds the
 step and its timed loop.
+
+:func:`bench` is the port of ``bench.py:main``: the numpy stand-in
+(:func:`numpy_nms_throughput`, ``bench.py:64-101``), the reference decoder's
+recorded CPU rate, phase 1 and the two-phase system, as one dict with
+``bench.py``'s fields.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
+import numpy as np
 import torch
 
-from ._device import resolve_device, synchronize
+from ._device import device_name, resolve_device, synchronize
 from .channel.awgn import ChannelSpec
 from .codes import get_code
 from .convert import load_run
@@ -38,9 +45,13 @@ from .mc.harness import build_nms_mc_step
 from .ops import nms, nms_edge
 from .osd import engine, segments
 
-DEFAULT_RUN = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "runs", "r4_pipeline")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEFAULT_RUN = os.path.join(_ROOT, "runs", "r4_pipeline")
+# the reference TF2 decoder's CPU rate (``scripts/reference_parity.py``), the
+# divisor of ``vs_baseline`` as ``bench.py:429-438`` reads it
+REFPARITY_JSON = os.path.join(_ROOT, "runs", "refparity", "refparity.json")
+# ``bench.py``'s SYSTEM_SNR: its ``--snr`` moves phase 1 and the stand-in only
+SYSTEM_SNR_DB = 3.0
 
 
 class TwoPhase:
@@ -179,7 +190,7 @@ class TwoPhase:
                 "phase2_implied": t_total - t_phase1,
             },
             "system_run_dir": self.run_dir,
-            "device": str(dev),
+            "device": device_name(dev),
         }
 
 
@@ -248,8 +259,7 @@ class Phase1:
             "metric": "nms_decoded_codewords_per_s_1chip",
             "value": steps * self.batch / seconds,
             "unit": "codewords/s",
-            "device": (torch.cuda.get_device_name(self.device)
-                       if self.device.type == "cuda" else str(self.device)),
+            "device": device_name(self.device),
             "batch": self.batch,
             "iters": self.iters,
             "kernel": self.kernel,
@@ -281,3 +291,103 @@ def phase1_throughput(batch: int = 2_097_152, steps: int = 8,
     phase1.step(0)  # warm-up: kernel build, allocator
     synchronize(phase1.device)
     return phase1.measure(steps)
+
+
+def numpy_nms_decode(h: np.ndarray, llr: np.ndarray, w_chk: float,
+                     iters: int) -> np.ndarray:
+    """The stand-in's vectorized numpy dense NMS-1 decode of ``bench.py:73-91``:
+    (B,) bool, the last iteration's syndrome is nonzero."""
+    h = h.astype(np.float32)
+    m, n = h.shape
+    nonedge = (1.0 - h)[None]
+    cv = np.zeros((llr.shape[0], m, n), np.float32)
+    for _ in range(iters):
+        total = cv.sum(axis=1) + llr
+        vc = total[:, None, :] * h - cv
+        sign = np.sign(vc + nonedge)
+        row_sign = np.prod(sign, axis=-1, keepdims=True)
+        edge_sign = row_sign * h * sign
+        mag = np.abs(vc)
+        masked = np.where(h > 0, mag, np.inf)
+        part = np.partition(masked, 1, axis=-1)
+        min1 = part[..., 0:1]
+        min2 = part[..., 1:2]
+        emag = np.where(mag > min1, min1, min2) * h
+        cv = w_chk * emag * edge_sign
+    soft = cv.sum(axis=1) + llr
+    hard = soft < 0
+    synd = (hard @ h.T) % 2
+    return synd.any(axis=1)
+
+
+def numpy_nms_throughput(code, w_chk: float, snr_db: float, iters: int,
+                         batch: int = 512, reps: int = 3) -> float:
+    """Single-process numpy dense NMS decode on the host, codewords/s: the
+    best of ``reps`` timed decodes of ``batch`` seeded AWGN frames after a
+    warm-up on 8 (``bench.py:64-101``)."""
+    rng = np.random.default_rng(0)
+    n = code.h.shape[1]
+    sigma = np.sqrt(1.0 / (2.0 * code.rate * 10 ** (snr_db / 10.0)))
+    llr = (1.0 + sigma * rng.standard_normal((batch, n))).astype(np.float32)
+    numpy_nms_decode(code.h, llr[:8], w_chk, iters)
+    # the best rep: robust to transient host contention, and a faster
+    # baseline only makes the reported speedup more conservative
+    best = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        numpy_nms_decode(code.h, llr, w_chk, iters)
+        best = max(best, batch / (time.perf_counter() - t0))
+    return best
+
+
+def reference_tf_rate() -> float | None:
+    """``ref_tf_codewords_per_s_cpu`` of :data:`REFPARITY_JSON`, or None
+    when the record is missing or unreadable (``bench.py:429-438``)."""
+    try:
+        with open(REFPARITY_JSON) as fh:
+            return float(json.load(fh)["ref_tf_codewords_per_s_cpu"])
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
+
+
+def bench(batch: int = 16_384, snr_db: float = 3.0,
+          device: str | torch.device = "cuda", run_dir: str | None = None) -> dict:
+    """``bench.py:main``'s line: the numpy stand-in at ``snr_db`` (timed
+    first, on a quiet host), the reference's recorded TF rate (the stand-in
+    when the record is missing), :func:`phase1_throughput` at ``batch`` and
+    ``snr_db``, then :func:`run_two_phase` on ``run_dir`` at
+    :data:`SYSTEM_SNR_DB` whatever ``snr_db`` is.  ``bench.py``'s keys
+    with its rounding, without its four TPU figures (the one-hot MXU FLOP
+    model and the shares of the v5e's peak), plus the port's extra fields.
+    A failure of either phase raises."""
+    dev = resolve_device(device)
+    code = get_code("ccsds_128_64")
+    w_chk = float(np.log1p(np.exp(-0.048)))  # softplus of NMS-1's initial factor
+    cpu_rate = numpy_nms_throughput(code, w_chk, snr_db, 12)
+    tf_rate = reference_tf_rate()
+    phase1 = phase1_throughput(batch=batch, snr_db=snr_db, device=dev)
+    two_phase = run_two_phase(run_dir=run_dir, snr_db=SYSTEM_SNR_DB, device=dev)
+    rate = phase1["value"]
+    # 8 flops an edge an iteration: column total, extrinsic subtract,
+    # min/submin (2), sign product and select (2), normalize, marginalize
+    flops_alg = 8.0 * float(code.h.sum()) * phase1["iters"]
+    baseline = tf_rate or cpu_rate
+    split = two_phase["system_split_s"]
+    return {
+        "metric": phase1["metric"],
+        "value": round(rate, 1),
+        "unit": phase1["unit"],
+        "vs_baseline": round(rate / baseline, 2),
+        "baseline_kind": "reference_tf2_cpu" if tf_rate else "numpy_standin_cpu",
+        "baseline_tf_codewords_per_s": round(tf_rate, 1) if tf_rate else None,
+        "vs_numpy_standin": round(rate / cpu_rate, 2),
+        "numpy_standin_codewords_per_s": round(cpu_rate, 1),
+        **{k: v for k, v in phase1.items() if k not in ("metric", "value", "unit")},
+        "flops_per_frame_algorithmic": flops_alg,
+        "algorithmic_tflops": round(rate * flops_alg / 1e12, 2),
+        **two_phase,
+        "system_codewords_per_s": round(two_phase["system_codewords_per_s"], 1),
+        "system_osd_failures_per_s": round(two_phase["system_osd_failures_per_s"], 1),
+        "system_fer_nms": round(two_phase["system_fer_nms"], 6),
+        "system_split_s": {k: round(v, 3) for k, v in split.items()},
+    }

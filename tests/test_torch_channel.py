@@ -16,6 +16,8 @@ from short_ldpc_decoding_osd_tpu_torch.channel import awgn
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.utils import metrics
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 
 @pytest.mark.parametrize("snr_lo,snr_hi,rate", [
     (1.0, 4.0, 0.5), (2.5, 2.5, 0.5), (0.0, 6.0, 880 / 1056)])

@@ -9,6 +9,8 @@ import pytest
 from short_ldpc_decoding_osd_tpu.codes import get_code as jax_get_code
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 PACKAGED = ("ccsds_128_64", "array_121_60", "array_121_80", "qc_96_48",
             "code1_64_32", "wimax_1056_880", "wimaxlike_384_192")
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -28,6 +28,8 @@ from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.mc import harness
 from short_ldpc_decoding_osd_tpu_torch.ops import mc_dense, nms, nms_dense, nms_edge
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 TOL = 2e-4
 DENSE_RUNG_CODES = ["ccsds_128_64", "code1_64_32", "qc_96_48", "array_121_60",
                     "array_121_80"]

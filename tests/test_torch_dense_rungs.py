@@ -29,6 +29,8 @@ from short_ldpc_decoding_osd_tpu_torch.mc import harness, ladder
 from short_ldpc_decoding_osd_tpu_torch.ops import mc_dense, nms, nms_edge
 from short_ldpc_decoding_osd_tpu_torch.utils.metrics import DecodeStats
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 ATOL = 2
 
 

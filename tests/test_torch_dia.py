@@ -20,6 +20,8 @@ from short_ldpc_decoding_osd_tpu.osd import engine as jengine
 from short_ldpc_decoding_osd_tpu_torch import convert
 from short_ldpc_decoding_osd_tpu_torch.osd import engine
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R4 = os.path.join(_ROOT, "runs", "r4_pipeline")
 TOL = dict(rtol=1e-5, atol=1e-5)

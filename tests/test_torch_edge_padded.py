@@ -23,6 +23,8 @@ from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.mc import harness
 from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge_padded as pad
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 
 def _params(variant, h=None):
     jp = jnms.init_params(variant, h)

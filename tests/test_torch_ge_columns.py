@@ -22,6 +22,8 @@ from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.ops import gf2_bitpack
 from test_torch_gf2_bitpack import CASES, _permuted
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 FULL = np.uint64(0xFFFFFFFF)
 
 

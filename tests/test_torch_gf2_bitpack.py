@@ -18,6 +18,8 @@ from short_ldpc_decoding_osd_tpu_torch import _kernels
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.ops import gf2_bitpack, gf2ops
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 
 def _eq(got, want, what=""):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=what)

@@ -12,6 +12,8 @@ from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.ops import mc_cascade
 from torch_mc_common import ATOL, _golden, _params
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 
 # --- K8 against the Pallas kernels (interpret mode) --------------------------
 

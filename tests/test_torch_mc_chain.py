@@ -15,6 +15,8 @@ from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.ops import mc_cascade, nms, nms_edge
 from torch_mc_common import ATOL, _golden, _params
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 
 # --- K4 and K3 against JAX-decoder goldens -----------------------------------
 

@@ -16,6 +16,8 @@ from short_ldpc_decoding_osd_tpu_torch.ops import mc_cascade, nms_edge
 from short_ldpc_decoding_osd_tpu_torch.utils.metrics import DecodeStats
 from torch_mc_common import _kseed, _params
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 
 # --- run_nms_mc -------------------------------------------------------------
 

@@ -9,6 +9,8 @@ from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.ops import nms_edge
 from torch_mc_common import ATOL, _golden, _params
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 
 @pytest.mark.parametrize("code_name", ["ccsds_128_64", "qc_96_48"])
 @pytest.mark.parametrize("schedule,block,snr_db", [

@@ -22,6 +22,8 @@ from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.ops import mc_hash, nms_edge
 from torch_mc_common import _MASK, _mix_np, _sample_np
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 
 def _jax_words(fids, seed, n_streams):
     """JAX's in-kernel hash words through a tiny interpret-mode kernel."""

@@ -17,6 +17,8 @@ from short_ldpc_decoding_osd_tpu.ops import nms_edge_pallas as jedge
 from short_ldpc_decoding_osd_tpu_torch import _kernels
 from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -22,6 +22,8 @@ from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.ops import gf2ops, osd_disc
 from short_ldpc_decoding_osd_tpu_torch.osd import engine, segments
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -14,6 +14,8 @@ from short_ldpc_decoding_osd_tpu.codes import get_code as jax_get_code
 from short_ldpc_decoding_osd_tpu.osd import path as jpath
 from short_ldpc_decoding_osd_tpu_torch.osd import path
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -31,6 +31,8 @@ from short_ldpc_decoding_osd_tpu_torch.mc.harness import count_and_capture
 from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge, nms_edge_padded
 from short_ldpc_decoding_osd_tpu_torch.osd import engine, segments
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R4 = os.path.join(_ROOT, "runs", "r4_pipeline")
 WALK_KEYS = ("success", "strict_success", "complexity", "window_num")
@@ -223,7 +225,8 @@ def test_run_two_phase_on_cpu():
     lambda: convert.load_run(R4),
     lambda: convert.from_jax_params({}, {}, {}),
     lambda: system.run_two_phase(frames=1024, cap_b=1024, cap=64),
-], ids=["resolve_device", "load_run", "from_jax_params", "run_two_phase"])
+    lambda: system.bench(batch=1024),
+], ids=["resolve_device", "load_run", "from_jax_params", "run_two_phase", "bench"])
 def test_cuda_default_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device resolves")

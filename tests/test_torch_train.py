@@ -26,6 +26,8 @@ from short_ldpc_decoding_osd_tpu_torch.train import (
     NMSTrainConfig, StaircaseAdam, clip_each_by_norm_, nms_train, train_nms)
 from short_ldpc_decoding_osd_tpu_torch.utils import checkpoint
 
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
 
 def test_staircase_adam_matches_optax():
     rng = np.random.default_rng(0)
