@@ -38,6 +38,7 @@ from .._device import resolve_device
 from ..channel.awgn import ChannelSpec, sample_batch
 from ..codes import Code
 from ..ops import mc_dense, nms, nms_dense, nms_edge, nms_edge_padded
+from ..utils import profiling
 from ..utils.metrics import DecodeStats
 from . import ladder
 
@@ -117,7 +118,9 @@ def build_nms_mc_step(code: Code, variant: str, num_iterations: int,
     frames up, else the dense ``nms.decode_final``; ``decoder`` pins one of
     :data:`DECODERS`.
     ``generator`` is a ``torch.Generator`` on ``device``; the step's
-    ``decoder`` attribute names the branch it runs."""
+    ``decoder`` attribute names the branch it runs.  The step is span
+    ``capture``, its stages ``capture.sample``, ``capture.decode`` and
+    ``capture.compact`` (``utils.profiling``)."""
     dev = resolve_device(device)
     decode_h = code.extended().h if variant == "ENMS" else code.h
     chosen = select_decoder(decode_h, variant, batch, decoder, dev)
@@ -125,10 +128,15 @@ def build_nms_mc_step(code: Code, variant: str, num_iterations: int,
     decode = decode_final_fn(chosen, decode_h, variant, num_iterations, dev)
 
     def step(params: dict, generator: torch.Generator):
-        llr, words = sample_batch(generator, spec, gen_matrix, batch,
-                                  all_zeros=all_zeros)
-        return count_and_capture(llr, words, decode(params, llr), decode_h,
-                                 capture_capacity)
+        with profiling.span("capture"):
+            with profiling.span("capture.sample"):
+                llr, words = sample_batch(generator, spec, gen_matrix, batch,
+                                          all_zeros=all_zeros)
+            with profiling.span("capture.decode"):
+                soft_last = decode(params, llr)
+            with profiling.span("capture.compact"):
+                return count_and_capture(llr, words, soft_last, decode_h,
+                                         capture_capacity)
 
     step.decoder = chosen
     return step

@@ -39,6 +39,7 @@ import torch
 from .. import _kernels
 from .._device import resolve_device
 from ..channel.awgn import sigma_for_snr
+from ..utils import profiling
 from . import mc_hash
 from .nms import frame_stats, scalar_weights
 
@@ -637,13 +638,15 @@ def fused_counters_edge(code, params: dict, variant: str, num_iterations: int,
     """One-shot fused Monte-Carlo step (kernel K4 on CUDA): ``batch`` hash
     frames of ``seed`` at ``snr_db`` through ``num_iterations`` iterations;
     returns (5,) int64 [frames, frame_err, bit_err, detected, undetected]
-    on ``device``."""
-    mc = mc_setup(code, params, variant, snr_db, seed, device)
-    if mc.device.type == "cpu":
-        return _mc_frames_plain(mc, num_iterations, batch)[0][:5]
-    counters, _, _ = _mc_frames_kernel(mc, num_iterations, batch)
-    _kernels.LAUNCHES["mc_oneshot"] += 1
-    return counters[:5]
+    on ``device``.  Span ``mc.step``, its set-up ``mc.setup``."""
+    with profiling.span("mc.step"):
+        with profiling.span("mc.setup"):
+            mc = mc_setup(code, params, variant, snr_db, seed, device)
+        if mc.device.type == "cpu":
+            return _mc_frames_plain(mc, num_iterations, batch)[0][:5]
+        counters, _, _ = _mc_frames_kernel(mc, num_iterations, batch)
+        _kernels.LAUNCHES["mc_oneshot"] += 1
+        return counters[:5]
 
 
 def fused_counters_edge_compact(code, params: dict, variant: str,
@@ -662,18 +665,21 @@ def fused_counters_edge_compact(code, params: dict, variant: str,
     zero syndrome keeps that decision; of each ``block_frames`` group's
     unconverged frames the first ``rows`` (in frame order) go on, the rest
     keep the stage's decision and count in lane 5.  Frames covered through
-    every stage are judged after all ``num_iterations``."""
+    every stage are judged after all ``num_iterations``.  Span
+    ``mc.step``, its set-up ``mc.setup``."""
     if batch % block_frames:
         raise ValueError(f"batch {batch} not a multiple of {block_frames}")
     if schedule is None:
         schedule = ((t1, compact_frac),)
     rows_schedule, final_iters = build_rows_schedule(
         schedule, block_frames, num_iterations)
-    mc = mc_setup(code, params, variant, snr_db, seed, device)
-    if mc.device.type == "cpu":
-        return _compact_plain(mc, batch, block_frames, rows_schedule,
-                              final_iters)
-    counters = _compact_chain(mc, batch, block_frames, rows_schedule,
-                              final_iters)
-    _kernels.LAUNCHES["mc_compact"] += 1
-    return counters
+    with profiling.span("mc.step"):
+        with profiling.span("mc.setup"):
+            mc = mc_setup(code, params, variant, snr_db, seed, device)
+        if mc.device.type == "cpu":
+            return _compact_plain(mc, batch, block_frames, rows_schedule,
+                                  final_iters)
+        counters = _compact_chain(mc, batch, block_frames, rows_schedule,
+                                  final_iters)
+        _kernels.LAUNCHES["mc_compact"] += 1
+        return counters

@@ -26,6 +26,7 @@ import torch
 from .._device import full_f32
 from ..ops import gf2ops, nms, nms_edge, nms_edge_padded, osd_disc
 from ..ops.nms import first_argmin, first_index
+from ..utils import profiling
 
 _BIG = 3.4e38  # f32-representable "no candidate" discrepancy
 
@@ -115,8 +116,11 @@ def _tep_discrepancies(prep: PreparedBatch, t_flat: torch.Tensor,
     """(B, N) weighted discrepancies ``c0 + u_l @ mod2(M @ T^T) + u_m @ T^T``
     of every TEP row of ``t_flat`` (N, k) int8; the ``u_l``-weighted parity
     term is kernel K5 on CUDA, the rest IEEE f32."""
-    c0, u_l, u_m, _ = _discrepancy_terms(prep, k)
-    lterm = osd_disc.lterm(prep.m_matrix.contiguous(), u_l.contiguous(), t_flat)
+    with profiling.span("minima.terms"):
+        c0, u_l, u_m, _ = _discrepancy_terms(prep, k)
+    with profiling.span("minima.k5"):
+        lterm = osd_disc.lterm(prep.m_matrix.contiguous(), u_l.contiguous(),
+                               t_flat)
     return c0[:, None] + lterm + u_m @ t_flat.T.to(torch.float32)
 
 
@@ -168,21 +172,24 @@ def block_discrepancy_minima(prep: PreparedBatch, teps: torch.Tensor,
 
     ``teps``/``mask`` are (P, Nmax, k)/(P, Nmax) padded blocks, or — with
     ``bounds`` from ``segments.pack_tep_chunks`` — (C, chunk, k)/(C, chunk)
-    dense chunks, the main path's layout (the kernel route)."""
+    dense chunks, the main path's layout (the kernel route), whose stages
+    are spans ``minima.terms`` (the affine map's terms), ``minima.k5`` (its
+    parity term) and ``minima.reduce`` (the per-block minima)."""
     if bounds is None:
         minima, argmins = _block_disc_scan(
             prep, teps, mask, k, lambda d: (d.amin(1), first_argmin(d, 1)))
         return minima.T, argmins.T
     flat = _disc_flat_chunked(prep, teps, mask, k)
-    b = flat.shape[0]
-    big = torch.full((b,), _BIG, dtype=flat.dtype, device=flat.device)
-    zero = torch.zeros((b,), dtype=torch.int64, device=flat.device)
-    # empty blocks mirror the padded path's all-masked result: _BIG, 0
-    minima = torch.stack(
-        [big if e == s else flat[:, s:e].amin(1) for s, e in bounds], 1)
-    argmins = torch.stack(
-        [zero if e == s else first_argmin(flat[:, s:e], 1) for s, e in bounds],
-        1)
+    with profiling.span("minima.reduce"):
+        b = flat.shape[0]
+        big = torch.full((b,), _BIG, dtype=flat.dtype, device=flat.device)
+        zero = torch.zeros((b,), dtype=torch.int64, device=flat.device)
+        # empty blocks mirror the padded path's all-masked result: _BIG, 0
+        minima = torch.stack(
+            [big if e == s else flat[:, s:e].amin(1) for s, e in bounds], 1)
+        argmins = torch.stack(
+            [zero if e == s else first_argmin(flat[:, s:e], 1)
+             for s, e in bounds], 1)
     return minima, argmins
 
 
@@ -362,10 +369,14 @@ def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
     different but mathematically equal reductions); ``strict_success``
     checks that the argmin candidate within the expanded blocks equals the
     transmitted codeword.  Also returns the TEP complexity, window counts,
-    the walk's global minimum and expanded depth, and the block minima."""
-    minima, argmins = block_discrepancy_minima(prep, teps, mask, k, bounds)
-    walk = sliding_walk(minima, fcn_params, window=window,
-                        soft_margin=soft_margin)
+    the walk's global minimum and expanded depth, and the block minima.
+    Its stages are spans ``minima``, ``walk`` and ``select`` (the chosen
+    TEP and its codeword)."""
+    with profiling.span("minima"):
+        minima, argmins = block_discrepancy_minima(prep, teps, mask, k, bounds)
+    with profiling.span("walk"):
+        walk = sliding_walk(minima, fcn_params, window=window,
+                            soft_margin=soft_margin)
     dev = minima.device
     acc = torch.as_tensor(acc_block_sizes, device=dev).to(torch.int64)
     complexity = acc[walk["deep_limit"]]
@@ -373,18 +384,21 @@ def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
     success = (walk["global_min"] - prep.truth_discrepancy).abs() <= rel_tol * scale
 
     num_blocks = minima.shape[1]
-    in_walk = (torch.arange(num_blocks, device=dev)[None, :]
-               < walk["deep_limit"][:, None])
-    best_block = first_argmin(torch.where(in_walk, minima, _BIG), 1)
-    best_inner = torch.gather(argmins, 1, best_block[:, None])[:, 0]
-    if bounds is None:
-        tep_sel = teps[best_block, best_inner]
-    else:
-        starts = torch.as_tensor([s for s, _ in bounds], device=dev)
-        tep_sel = teps.reshape(-1, teps.shape[-1])[starts[best_block] + best_inner]
+    with profiling.span("select"):
+        in_walk = (torch.arange(num_blocks, device=dev)[None, :]
+                   < walk["deep_limit"][:, None])
+        best_block = first_argmin(torch.where(in_walk, minima, _BIG), 1)
+        best_inner = torch.gather(argmins, 1, best_block[:, None])[:, 0]
+        if bounds is None:
+            tep_sel = teps[best_block, best_inner]
+        else:
+            starts = torch.as_tensor([s for s, _ in bounds], device=dev)
+            tep_sel = teps.reshape(-1, teps.shape[-1])[starts[best_block]
+                                                       + best_inner]
+        strict = _selected_is_label(prep, tep_sel, k)
     return {
         "success": success,
-        "strict_success": _selected_is_label(prep, tep_sel, k),
+        "strict_success": strict,
         "complexity": complexity,
         "window_num": walk["window_num"],
         "windows_evaluated": walk["windows_evaluated"],
@@ -483,27 +497,37 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
 
     The re-decode is :func:`redecode_trajectory` on the route of
     :func:`redecode_route` for the step's rows, or on ``route`` when the
-    caller pins one (the mesh pins the route of the global batch)."""
+    caller pins one (the mesh pins the route of the global batch).
+
+    The step is span ``phase2``, its stages ``redecode``, ``detect``,
+    ``dia``, ``prepare`` and ``osd`` (:func:`sliding_osd`)."""
     decode_h = code.extended().h if variant == "ENMS" else code.h
     edge_cols = nms.edge_columns(decode_h) if variant == "NMS-r" else None
     k = code.k
     h_osd = code.h_osd
 
     def step(nms_params, llr, labels, teps, mask, acc, fcn_params):
-        outs = redecode_trajectory(
-            nms_params, decode_h, llr, num_iterations, variant,
-            route or redecode_route(decode_h, variant, llr.device,
-                                    llr.shape[0]),
-            edge_cols)
-        traj = outs.permute(1, 0, 2)  # (B, T+1, n)
-        st = nms.frame_stats(traj[:, -1], labels, decode_h)
-        refined = model.refine_fast(traj)
-        prep = prepare(refined, llr, labels, h_osd, k)
-        out = sliding_osd(prep, teps, mask, acc, fcn_params, k, window=window,
-                          soft_margin=soft_margin, bounds=bounds)
-        if not with_iteration_stats:
-            return out, refined, st["detected_failure"]
-        return (out, refined, st["detected_failure"],
-                iteration_stat_rows(traj, refined, labels))
+        with profiling.span("phase2"):
+            with profiling.span("redecode"):
+                outs = redecode_trajectory(
+                    nms_params, decode_h, llr, num_iterations, variant,
+                    route or redecode_route(decode_h, variant, llr.device,
+                                            llr.shape[0]),
+                    edge_cols)
+            traj = outs.permute(1, 0, 2)  # (B, T+1, n)
+            with profiling.span("detect"):
+                st = nms.frame_stats(traj[:, -1], labels, decode_h)
+            with profiling.span("dia"):
+                refined = model.refine_fast(traj)
+            with profiling.span("prepare"):
+                prep = prepare(refined, llr, labels, h_osd, k)
+            with profiling.span("osd"):
+                out = sliding_osd(prep, teps, mask, acc, fcn_params, k,
+                                  window=window, soft_margin=soft_margin,
+                                  bounds=bounds)
+            if not with_iteration_stats:
+                return out, refined, st["detected_failure"]
+            return (out, refined, st["detected_failure"],
+                    iteration_stat_rows(traj, refined, labels))
 
     return step

@@ -44,6 +44,7 @@ from .convert import load_run
 from .mc.harness import build_nms_mc_step
 from .ops import nms, nms_edge
 from .osd import engine, segments
+from .utils import profiling
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_RUN = os.path.join(_ROOT, "runs", "r4_pipeline")
@@ -52,6 +53,11 @@ DEFAULT_RUN = os.path.join(_ROOT, "runs", "r4_pipeline")
 REFPARITY_JSON = os.path.join(_ROOT, "runs", "refparity", "refparity.json")
 # ``bench.py``'s SYSTEM_SNR: its ``--snr`` moves phase 1 and the stand-in only
 SYSTEM_SNR_DB = 3.0
+# ``TwoPhase.stage_times``' keys and the spans they read
+STAGE_SPANS = (("capture_step_k1", "capture"), ("traj_redecode_k2", "redecode"),
+               ("frame_stats", "detect"), ("dia_refine_fast", "dia"),
+               ("prepare_sort_ge", "prepare"), ("disc_minima_k5", "minima"),
+               ("stopper_walk", "walk"), ("sliding_osd_total", "osd"))
 
 
 class TwoPhase:
@@ -95,48 +101,31 @@ class TwoPhase:
 
     def full_round(self, i: int):
         """Both phases of round ``i``: (counters, captured count, success,
-        strict success, detected), the last three per buffer row."""
-        counters, buf = self.capture_round(i)
-        out, _, detected = self.phase2(self.nms_params, buf["llr"], buf["labels"],
-                                       self.teps, self.mask, self.acc, self.fcn)
+        strict success, detected), the last three per buffer row.
+
+        Span ``round`` around spans ``capture`` and ``phase2``; counts
+        ``osd.rows`` (the rows phase 2 walks) and ``osd.failures`` (the real
+        failures among them, kept on the device until read)."""
+        with profiling.span("round"):
+            counters, buf = self.capture_round(i)
+            out, _, detected = self.phase2(
+                self.nms_params, buf["llr"], buf["labels"], self.teps,
+                self.mask, self.acc, self.fcn)
+            rows = buf["llr"].shape[0]
+            profiling.count("osd.rows", rows)
+            profiling.count("osd.failures", buf["count"], at_most=rows)
         return (counters, buf["count"], out["success"], out["strict_success"],
                 detected)
 
     def stage_times(self, i: int) -> dict:
-        """Seconds per stage of round ``i``, each stage closed by a
-        synchronisation (the chain of ``make_dl_osd_step_from_llr``, spelled
-        out so each stage can be timed)."""
-        code, dev = self.code, self.device
-        decode_h = code.extended().h if self.variant == "ENMS" else code.h
-        walk = dict(window=self.window, soft_margin=self.soft_margin)
-        times = {}
-
-        def timed(name, fn):
-            synchronize(dev)
-            t0 = time.perf_counter()
-            out = fn()
-            synchronize(dev)
-            times[name] = time.perf_counter() - t0
-            return out
-
-        _, buf = timed("capture_step_k1", lambda: self.capture_round(i))
-        route = engine.redecode_route(decode_h, self.variant, dev,
-                                      buf["llr"].shape[0])
-        traj = timed("traj_redecode_k2", lambda: engine.redecode_trajectory(
-            self.nms_params, decode_h, buf["llr"], self.iters, self.variant,
-            route).permute(1, 0, 2))
-        timed("frame_stats", lambda: nms.frame_stats(traj[:, -1], buf["labels"],
-                                                     decode_h))
-        refined = timed("dia_refine_fast", lambda: self.dia.refine_fast(traj))
-        prep = timed("prepare_sort_ge", lambda: engine.prepare(
-            refined, buf["llr"], buf["labels"], code.h_osd, code.k))
-        minima, _ = timed("disc_minima_k5", lambda: engine.block_discrepancy_minima(
-            prep, self.teps, self.mask, code.k, self.bounds))
-        timed("stopper_walk", lambda: engine.sliding_walk(minima, self.fcn, **walk))
-        timed("sliding_osd_total", lambda: engine.sliding_osd(
-            prep, self.teps, self.mask, self.acc, self.fcn, code.k,
-            bounds=self.bounds, **walk))
-        return times
+        """Seconds per stage of round ``i``: its spans' host seconds, each
+        span closed by a synchronisation (``utils.profiling.recording``)."""
+        synchronize(self.device)
+        with profiling.recording(synchronize=self.device,
+                                 record=profiling.Record()) as record:
+            self.full_round(i)
+        spans = record.snapshot()["spans"]
+        return {key: spans[name]["seconds"] for key, name in STAGE_SPANS}
 
     def measure(self, rounds: int) -> dict:
         """``rounds`` rounds of phase 1 alone, then ``rounds`` full rounds,

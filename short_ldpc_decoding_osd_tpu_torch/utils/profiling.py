@@ -1,19 +1,32 @@
-"""Tracing, wall-clock timers, a FLOP count and a structured metrics log.
+"""Tracing, named spans and counters, wall-clock timers, a FLOP count and
+a structured metrics log.
 
 Port of ``short_ldpc_decoding_osd_tpu/utils/profiling.py``: ``trace``
 (:16-23) over ``torch.profiler`` in place of ``jax.profiler``, ``Timer``
 (:26-51), ``flops_estimate`` (:51-63) over PyTorch's flop counter in place
 of XLA's cost analysis, and ``JsonlLogger`` (:68-77).
+
+The port's own recorder: the hot path opens :func:`span` around each stage
+and calls :func:`count` for what it counts.  Both do nothing unless a
+:func:`recording` block is open: a span is then a
+``torch.profiler.record_function`` range named ``sldpc.<name>`` (a running
+profiler's trace holds it on the clock and thread of the CUDA calls and
+kernels it encloses) and an in-memory aggregate per name of calls, host
+seconds and self host seconds; :func:`snapshot` reads the aggregates and
+counters, :func:`reset` clears them.  Custom-kernel launches are counted
+apart, in ``_kernels.LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+from torch.profiler import (ProfilerActivity, profile, record_function,
+                            tensorboard_trace_handler)
 from torch.utils.flop_counter import FlopCounterMode
 
 from .._device import resolve_device, synchronize
@@ -32,6 +45,154 @@ def trace(log_dir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
         yield prof
+
+
+class _NullSpan:
+    """The span of a stage when nothing records: enters and exits."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+_NO_CAP = 2**62
+
+
+@dataclasses.dataclass
+class Record:
+    """Aggregates of the spans (name -> calls, host seconds, self host
+    seconds, calls under each enclosing span, None at the top) and the
+    counters.  A counter fed a device tensor keeps it, with its cap, until
+    :meth:`snapshot` reads them all at once."""
+
+    spans: dict = dataclasses.field(default_factory=dict)
+    counters: dict = dataclasses.field(default_factory=dict)
+    pending: dict = dataclasses.field(default_factory=dict)
+
+    def snapshot(self) -> dict:
+        """``{"spans": {name: {calls, seconds, self_seconds, parents}},
+        "counters": {name: int}}``; reads the pending device counts with
+        one transfer."""
+        if self.pending:
+            items = [(name, t, cap) for name, kept in self.pending.items()
+                     for t, cap in kept]
+            vals = torch.stack([t.reshape(()).to(torch.int64) for _, t, _ in items])
+            caps = torch.tensor([_NO_CAP if c is None else c for _, _, c in items],
+                                device=vals.device)
+            for (name, _, _), v in zip(items, torch.minimum(vals, caps).tolist()):
+                self.counters[name] = self.counters.get(name, 0) + v
+            self.pending.clear()
+        return {"spans": {name: dict(agg, parents=dict(agg["parents"]))
+                          for name, agg in self.spans.items()},
+                "counters": dict(self.counters)}
+
+    def reset(self) -> None:
+        self.spans.clear()
+        self.counters.clear()
+        self.pending.clear()
+
+
+class _Span:
+    """An open span while recording: a ``sldpc.<name>`` profiler range and
+    its share of the record's aggregate."""
+
+    __slots__ = ("name", "range", "state", "t0", "children")
+
+    def __init__(self, name: str, state: _State):
+        self.name, self.state = name, state
+        self.range = record_function("sldpc." + name)
+
+    def __enter__(self):
+        self.state.stack.append(self)
+        self.children = 0.0
+        self.range.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        state = self.state
+        if state.synchronize is not None:
+            synchronize(state.synchronize)
+        dt = time.perf_counter() - self.t0
+        self.range.__exit__(*exc)
+        state.stack.pop()
+        parent = state.stack[-1] if state.stack else None
+        if parent is not None:
+            parent.children += dt
+        agg = state.record.spans.get(self.name)
+        if agg is None:
+            agg = state.record.spans[self.name] = {
+                "calls": 0, "seconds": 0.0, "self_seconds": 0.0, "parents": {}}
+        agg["calls"] += 1
+        agg["seconds"] += dt
+        agg["self_seconds"] += dt - self.children
+        key = None if parent is None else parent.name
+        agg["parents"][key] = agg["parents"].get(key, 0) + 1
+        return False
+
+
+@dataclasses.dataclass
+class _State:
+    record: Record
+    synchronize: torch.device | None = None
+    stack: list = dataclasses.field(default_factory=list)
+
+
+_SHARED = Record()
+# the one flag of the recorder: None when nothing records
+_STATE: _State | None = None
+
+
+def span(name: str):
+    """Context of the stage ``name``: the shared do-nothing object unless a
+    :func:`recording` block is open."""
+    if _STATE is None:
+        return _NULL_SPAN
+    return _Span(name, _STATE)
+
+
+def count(name: str, n, at_most: int | None = None) -> None:
+    """Add ``n`` (a host number, or a device scalar read later by
+    :meth:`Record.snapshot`, capped at ``at_most``) to counter ``name``
+    while recording; nothing otherwise."""
+    if _STATE is None:
+        return
+    record = _STATE.record
+    if isinstance(n, torch.Tensor):
+        record.pending.setdefault(name, []).append((n.detach(), at_most))
+    else:
+        n = n if at_most is None else min(n, at_most)
+        record.counters[name] = record.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording(synchronize: torch.device | None = None,
+              record: Record | None = None):
+    """Record the spans and counters of the enclosed block into ``record``
+    (default: the shared record that :func:`snapshot` reads); yields it.
+    ``synchronize``, a device, closes every span with its synchronisation,
+    so a span's host seconds are its stage's work and not its enqueue."""
+    global _STATE
+    saved = _STATE
+    _STATE = _State(record if record is not None else _SHARED, synchronize)
+    try:
+        yield _STATE.record
+    finally:
+        _STATE = saved
+
+
+def snapshot() -> dict:
+    """The shared record's spans and counters (:meth:`Record.snapshot`)."""
+    return _SHARED.snapshot()
+
+
+def reset() -> None:
+    """Clear the shared record."""
+    _SHARED.reset()
 
 
 class Timer:

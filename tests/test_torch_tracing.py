@@ -1,0 +1,191 @@
+"""The port's span-and-counter recorder (``utils/profiling.py``) on the CPU:
+off, a round and a fused step record nothing and add no profiler range,
+operation or synchronisation; on, the spans nest as the stages do, the
+counters count the walked rows and the real failures among them, a
+profiler's trace holds every span as a ``sldpc.*`` range, and a round's
+outputs are the same bit for bit."""
+
+import collections
+import contextlib
+import json
+
+import pytest
+import torch
+
+from short_ldpc_decoding_osd_tpu_torch import system
+from short_ldpc_decoding_osd_tpu_torch.codes import get_code
+from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge
+from short_ldpc_decoding_osd_tpu_torch.utils import profiling
+
+from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
+
+CAP_B, CAP = 1024, 64  # ~100 failures a round: the buffer overflows
+# each span's enclosing span in a round and in a fused step
+TREE = {
+    "round": None,
+    "capture": "round",
+    "capture.sample": "capture",
+    "capture.decode": "capture",
+    "capture.compact": "capture",
+    "phase2": "round",
+    "redecode": "phase2",
+    "detect": "phase2",
+    "dia": "phase2",
+    "prepare": "phase2",
+    "osd": "phase2",
+    "minima": "osd",
+    "minima.terms": "minima",
+    "minima.k5": "minima",
+    "minima.reduce": "minima",
+    "walk": "osd",
+    "select": "osd",
+    "mc.step": None,
+    "mc.setup": "mc.step",
+}
+
+
+@pytest.fixture(scope="module")
+def two_phase():
+    return system.TwoPhase(cap_b=CAP_B, cap=CAP, device="cpu", seed=5)
+
+
+@pytest.fixture(autouse=True)
+def _clean_record():
+    profiling.reset()
+    yield
+    profiling.reset()
+
+
+def _step():
+    return nms_edge.fused_counters_edge_compact(
+        get_code("ccsds_128_64"), nms.init_params("NMS-1"), "NMS-1", 8, 3.0, 64,
+        seed=3, block_frames=32, schedule=((4, 0.5),), device="cpu")
+
+
+def _flat(out):
+    """A round's or a step's outputs as one tuple of tensors."""
+    return out if isinstance(out, tuple) else (out,)
+
+
+def test_span_off_is_the_shared_null_object():
+    assert profiling.span("round") is profiling.span("minima.k5")
+    with profiling.span("round") as got:
+        assert got is None
+    profiling.count("osd.rows", 5)
+    profiling.count("osd.failures", torch.tensor(3), at_most=2)
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
+
+
+@pytest.mark.parametrize("unit", ["round", "step"])
+def test_off_unit_records_nothing(two_phase, unit, monkeypatch):
+    """Off, a unit opens no profiler range and synchronises nothing
+    (either would raise here) and leaves no aggregate and no counter."""
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("called while nothing records")
+
+    monkeypatch.setattr(profiling, "record_function", forbidden)
+    monkeypatch.setattr(profiling, "synchronize", forbidden)
+    monkeypatch.setattr(profiling, "_Span", forbidden)
+    if unit == "round":
+        two_phase.full_round(0)
+    else:
+        _step()
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
+
+
+def _op_counts(fn):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return collections.Counter(e.name for e in prof.events())
+
+
+@pytest.mark.parametrize("unit", ["round", "step"])
+def test_off_path_adds_no_operation(two_phase, unit, monkeypatch):
+    """The profiler sees the same operations, one for one, with the spans
+    off as with every span replaced by a bare null context."""
+    run = (lambda: two_phase.full_round(1)) if unit == "round" else _step
+    off = _op_counts(run)
+    monkeypatch.setattr(profiling, "span", lambda name: contextlib.nullcontext())
+    bare = _op_counts(run)
+    assert off == bare
+    assert not any(name.startswith("sldpc.") for name in off)
+
+
+def test_spans_nest_as_the_stages(two_phase):
+    with profiling.recording() as record:
+        for i in range(2):
+            two_phase.full_round(i)
+        _step()
+    assert record is profiling._SHARED
+    spans = profiling.snapshot()["spans"]
+    assert set(spans) == set(TREE)
+    for name, parent in TREE.items():
+        calls = 1 if name.startswith("mc.") else 2
+        assert spans[name]["calls"] == calls, name
+        assert spans[name]["parents"] == {parent: calls}, name
+        assert 0.0 <= spans[name]["self_seconds"] <= spans[name]["seconds"]
+    for name, parent in TREE.items():
+        if parent is not None:
+            assert spans[name]["seconds"] <= spans[parent]["seconds"], name
+    children = sum(spans[c]["seconds"] for c, p in TREE.items() if p == "round")
+    assert spans["round"]["self_seconds"] == pytest.approx(
+        spans["round"]["seconds"] - children, abs=1e-9)
+
+
+def test_counters_walked_rows_and_real_failures(two_phase):
+    with profiling.recording():
+        got = [two_phase.full_round(i) for i in range(3)]
+    counts = [int(out[1]) for out in got]
+    assert max(counts) > CAP  # the overflow is capped, not counted
+    assert profiling.snapshot()["counters"] == {
+        "osd.rows": 3 * CAP,
+        "osd.failures": sum(min(c, CAP) for c in counts)}
+    # a snapshot reads the device counts once and keeps the sums
+    assert profiling.snapshot()["counters"]["osd.rows"] == 3 * CAP
+    profiling.reset()
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
+
+
+def test_recording_into_a_record_of_its_own(two_phase):
+    """``stage_times`` times one round by its spans and leaves the shared
+    record as it was."""
+    with profiling.recording():
+        two_phase.full_round(0)
+    before = profiling.snapshot()
+    times = two_phase.stage_times(1)
+    assert [k for k, _ in system.STAGE_SPANS] == list(times)
+    assert all(t > 0 for t in times.values())
+    assert times["sliding_osd_total"] >= times["disc_minima_k5"]
+    assert profiling.snapshot() == before
+
+
+def test_profiler_trace_holds_the_spans_nested(two_phase, tmp_path):
+    with profiling.trace(str(tmp_path)), profiling.recording():
+        two_phase.full_round(0)
+        _step()
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation"
+              and e.get("name", "").startswith("sldpc.")]
+    found = {e["name"][len("sldpc."):]: e for e in events}
+    assert set(found) == set(TREE) and len(events) == len(TREE)
+    for name, parent in TREE.items():
+        if parent is None:
+            continue
+        e, p = found[name], found[parent]
+        assert p["ts"] <= e["ts"] and e["ts"] + e["dur"] <= p["ts"] + p["dur"], name
+        assert e["tid"] == p["tid"]
+
+
+@pytest.mark.parametrize("unit", ["round", "step"])
+def test_outputs_bit_identical_with_recording(two_phase, unit):
+    run = (lambda: two_phase.full_round(2)) if unit == "round" else _step
+    off = _flat(run())
+    with profiling.recording(synchronize=torch.device("cpu")):
+        on = _flat(run())
+    assert len(off) == len(on)
+    for a, b in zip(off, on):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
