@@ -149,7 +149,11 @@ Phases (each raises on failure, so the script never exits 0 after one):
     yardstick chained over TEP chunks, the GE kernel against its twin and
     the dense route, timed; walk decisions card == CPU on 32 captured rows
     over the full path (a frame that differs passes only where its two
-    best f64 discrepancies tie at f32 precision);
+    best f64 discrepancies tie at f32 precision); then K5's general plan
+    (``phase_k5_general``): its IMMA and IGMMA counts, K5 on a round's rows
+    against twin, f64 and walk, the path's T and a dense random T timed in
+    turns (within 3%), the multicode and two ragged shapes against twin and
+    f64, and ``k5.general`` 1 in a recorded WiMAX round, 0 in a CCSDS one;
 16. the multi-code recipe (``pipeline/multicode.py``) for ``qc_96_48``,
     ``array_121_60`` (rank-deficient H, OSD on its 61-row basis),
     ``wimaxlike_384_192`` and ``regular_256_128``: (a) the eval sweep on the
@@ -213,7 +217,7 @@ Phases (each raises on failure, so the script never exits 0 after one):
     the system at 3.0 dB, ``sample_fer`` and ``system_fer_nms`` against
     their records by 99.9% Wilson overlap, 49,152 algorithmic flops a
     frame, the TF baseline, launches exactly K3 9, K1 18, K2 10, GE 10, K5
-    11 and nothing else, phase 1's and the system's rates at least half of
+    10 and nothing else, phase 1's and the system's rates at least half of
     phase 4's and phase 3's in this process (the ``bench_cli`` entries of the
     K1, K2, K3, K5 and GE rows); (b) ``sldpc-torch train-dia`` then
     ``train-stopper`` with ``runs/r4_pipeline/config.json``'s flags on one
@@ -275,6 +279,7 @@ from short_ldpc_decoding_osd_tpu_torch.pipeline import multicode, rayleigh, reci
 from short_ldpc_decoding_osd_tpu_torch.train import (NMSTrainConfig, StaircaseAdam,
                                                      dia_train, nms_train)
 from short_ldpc_decoding_osd_tpu_torch.utils.metrics import wilson_interval
+from short_ldpc_decoding_osd_tpu_torch.utils import profiling
 from short_ldpc_decoding_osd_tpu_torch.utils.profiling import Timer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -499,20 +504,32 @@ def k5_check(label, m_mat, u_l, t_flat, twin_rows: int | None = None,
     plan = osd_disc.lterm_plan(b, m, k, t_flat.shape[0])
     log(f"K5 lterm {label} {shape}: max_abs_err vs plain {err:.3g}, vs f64 "
         f"{err64:.3g} (the plain twin's own worst relative error vs f64 "
-        f"{twin_exact:.3g}); plan {'resident' if plan.resident else 'general'}"
-        f" kch {plan.kch} tn {plan.tn}, {plan.nt} TEPs x {plan.n_tiles} tiles, "
-        f"{plan.nbuf} frame buffer(s), {plan.smem_bytes} shared bytes, grid "
-        f"{plan.grid}")
+        f"{twin_exact:.3g}); plan {k5_plan_text(plan)}")
     return err
 
 
+def k5_plan_text(plan) -> str:
+    """A K5 plan in words: resident (kch, tn, frame buffers) or general
+    (frame padding, k-slice and stages a ring), tiles and grid."""
+    if plan.resident:
+        text = (f"resident (kch {plan.kch}, tn {plan.tn}), {plan.nt} TEPs a "
+                f"tile x {plan.n_tiles} tiles, {plan.nbuf} frame buffer(s)")
+    else:
+        text = (f"general (frame {plan.m_pad} x {plan.k_pad}, k-slice "
+                f"{plan.stride} bytes, {plan.stages} stages a ring), {plan.nt} "
+                f"TEPs a unit x {plan.n_tiles} units a frame")
+    return f"{text}, {plan.smem_bytes} dynamic shared bytes, grid {plan.grid}"
+
+
 def k5_build_lines():
-    """K5's ptxas lines (registers, spills, shared bytes) and the count of
-    IMMA (integer tensor-core MMA) instructions in the built library's SASS."""
+    """K5's ptxas lines (registers, spills, shared bytes, wgmma
+    serialisation warnings) and the counts of IMMA (the resident plan's
+    mma.sync) and IGMMA (the general plan's wgmma) instructions in the built
+    library's SASS."""
     text = _kernels.BUILD_LOG.get("osd_disc", "")
     keep = [ln.strip() for ln in text.splitlines()
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln
-            or "smem" in ln]
+            or "smem" in ln or "wgmma" in ln]
     log("K5 osd_disc.cu ptxas: " + " | ".join(keep))
     tool = os.path.join(os.path.dirname(os.path.dirname(_kernels._nvcc())),
                         "bin", "cuobjdump")
@@ -520,9 +537,12 @@ def k5_build_lines():
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     imma = sum(1 for ln in sass.splitlines() if "IMMA" in ln)
-    log(f"K5 SASS: {imma} IMMA instructions in libosd_disc (cuobjdump)")
-    if imma == 0:
-        raise AssertionError("K5: no IMMA instruction in the built kernel")
+    gmma = sum(1 for ln in sass.splitlines() if "IGMMA" in ln)
+    log(f"K5 SASS: {imma} IMMA and {gmma} IGMMA instructions in libosd_disc "
+        "(cuobjdump)")
+    if imma == 0 or gmma == 0:
+        raise AssertionError("K5: no IMMA or no IGMMA instruction in the built "
+                             "kernels")
 
 
 def k5_minima(prep, lterm_vals, layout, k):
@@ -596,13 +616,10 @@ def k5_launch_shape(b, m, k, ntot, label=""):
     plan = osd_disc.lterm_plan(b, m, k, ntot)
     occ = osd_disc.lterm_occupancy(plan, torch.cuda.current_device())
     log(f"K5 launch shape {label}({b}, {m}, {k}) x {ntot}: "
-        f"{'resident' if plan.resident else 'general'} (kch {plan.kch}, tn "
-        f"{plan.tn}), {plan.nt} TEPs a tile x {plan.n_tiles} tiles, "
-        f"{plan.nbuf} frame buffer(s), {occ['threads']} threads, "
+        f"{k5_plan_text(plan)}; {occ['threads']} threads, "
         f"{occ['registers']} registers and {occ['local_bytes']} local bytes a "
-        f"thread, {plan.smem_bytes} dynamic shared bytes a block, "
-        f"{occ['blocks_per_sm']} resident block(s) per SM on {occ['sms']} SMs, "
-        f"grid {plan.grid}")
+        f"thread, {occ['blocks_per_sm']} resident block(s) per SM on "
+        f"{occ['sms']} SMs")
 
 
 def k5_library(m_mat, u_l, t_flat, teps_a_call: int | None = None):
@@ -3163,6 +3180,116 @@ def phase_wimax_system(dev, rows, smi):
         "card_vs_cpu_ties": ties, "card": smi}))
 
 
+# K5's general plan off the WiMAX round: the multicode eval steps' shapes
+# (captured rows, the path's padded TEPs), then two ragged ones (m not a
+# multiple of 16, k not of 16; N not a multiple of the 64-TEP tile)
+K5_GENERAL_SHAPES = (("multicode wimaxlike_384_192", 400, 192, 192, 58_368),
+                     ("multicode regular_256_128", 200, 128, 128, 8_192))
+K5_RAGGED = ((5, 61, 100, 130), (3, 170, 300, 1_000))
+K5_SAME_TIME = 0.03  # the path's T against a dense random T
+
+
+def k5_f64_only(label, inputs, f64_rows: int = 1024):
+    """K5 on N(0, 1.5) weights against the f64 evaluation alone (1e-6)."""
+    m_mat, _, t_flat = inputs
+    got = osd_disc.lterm(*inputs)
+    err = compare(f"K5 lterm {label} N(0, 1.5) vs f64", got.double(),
+                  lterm_f64(*inputs, f64_rows), rel=True, tol=1e-6)
+    log(f"K5 lterm {label} M {tuple(m_mat.shape)} x T {tuple(t_flat.shape)}, "
+        f"u_l N(0, 1.5): max_abs_err vs f64 {err:.3g}")
+
+
+def k5_recorded_general(tp, i: int) -> int:
+    """``k5.general`` counted in one recorded full round of ``tp``."""
+    with profiling.recording(record=profiling.Record()) as rec:
+        tp.full_round(i)
+    torch.cuda.synchronize()
+    return rec.snapshot()["counters"].get("k5.general", 0)
+
+
+def phase_k5_general(dev, rows, smi):
+    """K5's general plan (frame-stationary, TEPs by TMA into wgmma): the
+    build's ptxas and IMMA/IGMMA lines; on one WiMAX 3.5 dB round's 1,024
+    prepared rows over the path's 102,912 padded TEPs, K5 against its twin
+    (1e-5) and the f64 evaluation (1e-6), the walk, its launch shape and
+    times (``k5_entry``); the same shape timed with the path's T and with a
+    dense random 0/1 T in turns, the medians within 3% (the kernel skips
+    nothing by content); wimaxlike's and regular's multicode shapes and two
+    ragged ones against the f64 evaluation on N(0, 1.5) weights, and against
+    twin and f64 on weights drawn from the round's u_l, the first two timed
+    against their bounds; ``k5.general`` 1 in a recorded WiMAX round and 0
+    in a CCSDS one.
+    The K5 row gets the entries under ``k5_general``."""
+    t0 = time.perf_counter()
+    k5_build_lines()
+    tp = system.TwoPhase(WIMAX_RUN, 4_096, 1_024, 3.5, dev, 77)
+    tp.full_round(0)
+    _, buf = tp.capture_round(1)
+    code = tp.code
+    refined = wimax_step(tp, buf["llr"], buf["labels"])[1]
+    prep = engine.prepare(refined, buf["llr"], buf["labels"], code.h_osd, code.k)
+    run = {"code": code, "fcn": tp.fcn,
+           "config": {"window": tp.window, "soft_margin": tp.soft_margin}}
+    entry = {"wimax_system": k5_entry(
+        "wimax system (general plan)", run, prep, (tp.teps, tp.mask, tp.bounds),
+        smi, WIMAX_TWIN_ROWS, WIMAX_F64_ROWS, WIMAX_LIB_TEPS)}
+    # the round's own weights: the twin's f32 sum holds 1e-5 on them (on
+    # N(0, 1.5) weights, whose sums cancel, only the f64 evaluation does)
+    u_pool = engine._discrepancy_terms(prep, code.k)[1].flatten().cpu().numpy()
+    del refined, prep
+    t_path = tp.teps.reshape(-1, tp.code.k).to(torch.int8).contiguous()
+    ntot = t_path.shape[0]
+    m_mat, u_l, t_dense = k5_inputs(dev, 1_024, tp.code.h_osd.shape[0],
+                                    tp.code.k, ntot, 40)
+    times = {"path": [], "dense": []}
+    for which in ("path", "dense", "dense", "path"):
+        t_flat = t_path if which == "path" else t_dense
+        times[which].append(cuda_ms(lambda: osd_disc.lterm(m_mat, u_l, t_flat), 5))
+    path_ms, dense_ms = (statistics.median(times[w]) for w in ("path", "dense"))
+    gap = abs(path_ms - dense_ms) / min(path_ms, dense_ms)
+    log(f"K5 general plan at M (1024, {m_mat.shape[1]}, {tp.code.k}) x "
+        f"{ntot} on {smi}: the path's T {path_ms:.4f} ms, a dense random T "
+        f"{dense_ms:.4f} ms (turns {json.dumps(times)}), {100 * gap:.2f}% apart")
+    if gap > K5_SAME_TIME:
+        raise AssertionError(f"K5: the path's T and a dense T {100 * gap:.2f}% "
+                             "apart: the kernel's time depends on T's bits")
+    entry["content"] = {"path_ms": path_ms, "dense_ms": dense_ms, "gap": gap}
+    del m_mat, u_l, t_dense
+    for i, (name, b_, m_, k_, n_) in enumerate(K5_GENERAL_SHAPES):
+        twin_rows, f64_rows, lib_teps = k5_chunks(b_, m_, n_)
+        k5_f64_only(name, k5_inputs(dev, b_, m_, k_, n_, 60 + i), f64_rows)
+        inputs = k5_inputs(dev, b_, m_, k_, n_, 41 + i, u_pool)
+        err = k5_check(f"{name} (u_l from the WiMAX round)", *inputs, twin_rows,
+                       f64_rows)
+        k5_launch_shape(b_, m_, k_, n_, f"{name} ")
+        entry[name] = {"max_abs_err": err} | k5_timed(
+            name, *inputs, twin_rows, lib_teps)
+        log(f"K5 lterm {name} on {smi}: kernel {entry[name]['ms']:.4f} ms, "
+            f"bound {entry[name]['bound_ms']:.4f} ms "
+            f"({entry[name]['bound_by']}), plain {entry[name]['plain_ms']:.4f} "
+            f"ms, library {entry[name]['library_ms']:.4f} ms")
+        del inputs
+    for i, shape in enumerate(K5_RAGGED):
+        k5_f64_only("ragged", k5_inputs(dev, *shape, 70 + i))
+        k5_check("ragged (u_l from the WiMAX round)",
+                 *k5_inputs(dev, *shape, 50 + i, u_pool))
+        k5_launch_shape(*shape, "ragged ")
+    counts = {"wimax": k5_recorded_general(tp, 2)}
+    del tp, buf
+    torch.cuda.empty_cache()
+    counts["ccsds"] = k5_recorded_general(system.TwoPhase(R4, device=dev), 0)
+    log(f"K5 k5.general counted in a recorded round: {json.dumps(counts)}")
+    if counts != {"wimax": 1, "ccsds": 0}:
+        raise AssertionError(f"k5.general {counts}: expected WiMAX 1, CCSDS 0")
+    for row in rows:
+        if row["name"] == "K5 lterm":
+            row["k5_general"] = entry
+    log("k5 general: " + json.dumps({
+        "seconds": time.perf_counter() - t0, "card": smi}))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 # runs/r5_multicode: the JAX package's multi-code records (NMS-1, 12
 # iterations, model_cnn, (3, 30, 6), window 5, soft margin 0.9), in the
 # phase's order; the SNR of each code's kernel checks (2.5 dB, or
@@ -4286,11 +4413,11 @@ TPU_BENCH_KEYS = {"flops_per_frame_model", "effective_tflops",
                   "mfu_pct_vs_bf16_peak", "mfu_pct_algorithmic"}
 # launches of one bench process: K3 a phase-1 step (warm-up + 8); the
 # system's warm-up round, 8 capture-only and 8 full rounds, and the stage
-# round (K5 twice: the minima stage, then sliding_osd_total)
+# round (one full round timed by its spans: K5 once)
 BENCH_CLI_LAUNCHES = {"mc_compact": 1 + PH1_STEPS,
                       "nms_edge_final": 1 + 2 * ROUNDS + 1,
                       "nms_edge_traj": 1 + ROUNDS + 1, "ge_packed": 1 + ROUNDS + 1,
-                      "lterm": 1 + ROUNDS + 2}
+                      "lterm": 1 + ROUNDS + 1}
 
 
 def cli_json(label, lines):
@@ -4488,6 +4615,7 @@ def main():
     phase_mesh(dev, rows, smi)
     phase_experimental(dev, rows, smi)
     phase_wimax_system(dev, rows, smi)
+    phase_k5_general(dev, rows, smi)
     phase_multicode(dev, rows, smi)
     phase_rayleigh(dev, rows, smi)
     phase_variants(dev, rows, smi)

@@ -5,7 +5,11 @@
 Builds three variants of ``short_ldpc_decoding_osd_tpu_torch/csrc/osd_disc.cu``
 beside the kernel itself, each by a text substitution of the source, and
 times all four with CUDA events at K5's shapes (the main path's 32,768 x 64
-x 64 x 1,536, wimaxlike_384_192's and wimax_1056_880's), in turns:
+x 64 x 1,536, which runs the resident plan, and wimaxlike_384_192's
+multicode 400 x 192 x 192 x 58,368 and the WiMAX round's 1,024 x 176 x 880
+x 102,912, which run the general plan), in turns.  The substitutions hit
+the epilogue both plans share (``Partials``, ``add_if_odd``), so each
+variant changes the resident and the general kernel alike:
 
 * ``kernel``: the source as it is (exact f64 sum, predicated adds);
 * ``f32_sum``: the same sum in f32 (faster, not exact);
@@ -33,7 +37,7 @@ import torch
 from short_ldpc_decoding_osd_tpu_torch import _kernels
 from short_ldpc_decoding_osd_tpu_torch.ops import osd_disc
 
-SHAPES = ((32768, 64, 64, 1536), (4096, 192, 192, 1536), (256, 176, 880, 1536))
+SHAPES = ((32768, 64, 64, 1536), (400, 192, 192, 58368), (1024, 176, 880, 102912))
 OUT_DIR = os.path.join(os.path.dirname(_kernels.BUILD_DIR), "k5_breakdown")
 PREDICATED_ADD = '''  asm("{\\n"
       "  .reg .pred p;\\n"
@@ -96,22 +100,19 @@ def build(sources: dict) -> dict:
                 if "Used" in ln]
         print(f"{name}: ptxas {regs}", flush=True)
         libs[name] = ctypes.CDLL(lib)
-        libs[name].lterm_launch.argtypes = \
-            _kernels._SIGNATURES["osd_disc"]["lterm_launch"]
+        for entry in ("lterm_launch", "lterm_general_launch"):
+            getattr(libs[name], entry).argtypes = \
+                _kernels._SIGNATURES["osd_disc"][entry]
     return libs
 
 
 def launch(lib, m_mat, u_l, teps, out):
     b, m, k = m_mat.shape
-    ntot = teps.shape[0]
-    plan = osd_disc.lterm_plan(b, m, k, ntot, torch.cuda.get_device_properties(
-        m_mat.device).multi_processor_count)
-    status = lib.lterm_launch(
-        m_mat.data_ptr(), u_l.data_ptr(), teps.data_ptr(), out.data_ptr(), b, m,
-        k, ntot, plan.kch, plan.tn, plan.m_pad, plan.k_pad, plan.nt,
-        plan.n_tiles, plan.nbuf, plan.grid[0], plan.smem_bytes,
-        _kernels.stream_handle(m_mat.device))
-    _kernels.check(status, "lterm_launch")
+    plan = osd_disc.lterm_plan(b, m, k, teps.shape[0],
+                               torch.cuda.get_device_properties(
+                                   m_mat.device).multi_processor_count)
+    _kernels.check(osd_disc.launch(lib, plan, m_mat, u_l, teps, out),
+                   "lterm_launch")
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -127,8 +128,11 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def exact(m_mat, u_l, teps, chunk: int = 1024):
+def exact(m_mat, u_l, teps):
+    """f64 evaluation, as many frames a call as keep its products under
+    2 GiB."""
     t = teps.double()
+    chunk = max(1, 2**31 // (8 * m_mat.shape[1] * teps.shape[0]))
     outs = []
     for s in range(0, m_mat.shape[0], chunk):
         prods = torch.einsum("bmk,nk->bmn", m_mat[s:s + chunk].double(), t)

@@ -56,12 +56,18 @@ _SIGNATURES = {
                             _F, _F, _F, _I, _I, _I, _I, _VP],
     },
     "osd_disc": {
-        # m_matrix, u_l, teps, out, batch, m, k, ntot, then the plan (kch,
-        # tn, m_pad, k_pad, nt, n_tiles, nbuf, grid_x, smem_bytes), stream
+        # m_matrix, u_l, teps, out, batch, m, k, ntot, then the resident
+        # plan (kch, tn, m_pad, k_pad, nt, n_tiles, nbuf, grid_x,
+        # smem_bytes), stream
         "lterm_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _VP],
-        # kch, tn, smem_bytes, device, out (int32 [6])
-        "lterm_occupancy": [_I, _I, _I, _I, _VP],
+        # m_matrix, u_l, teps, out, batch, m, k, ntot, t_cols, then the
+        # general plan (m_pad, k_pad, kslice, stages, nt, n_tiles, grid_x,
+        # smem_bytes), stream
+        "lterm_general_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _I, _VP],
+        # kch, tn, m_pad, smem_bytes, device, out (int32 [6])
+        "lterm_occupancy": [_I, _I, _I, _I, _I, _VP],
     },
     "mc_fused": {
         # bucket, warps, frames, k, stage, out (int32 [6])

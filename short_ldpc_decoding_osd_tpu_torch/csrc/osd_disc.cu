@@ -10,47 +10,78 @@
 // (B, N) f32 result; the (B, m, N) parity intermediate never reaches device
 // memory.
 //
-// What bounds it on H100: 2 B m k N int8 operations (412 G at the main
-// path's B = 32768, N = 1536, m = k = 64: 0.208 ms at 1,979 TOP/s), against
-// 0.34 GB of compulsory traffic (0.10 ms) and B m N weighted adds (0.10 ms
-// on the f32 pipe): it is bound by operations.
+// What bounds it on H100: 2 B m k N int8 operations at 1,979 TOP/s (412 G
+// at the main path's B = 32768, N = 1536, m = k = 64: 0.208 ms; 327 T at
+// WiMAX's B = 1024, m = 176, k = 880, N = 102912: 16.5 ms), against the
+// compulsory traffic (0.34 GB at the main path: 0.10 ms) and B m N
+// weighted adds: it is bound by operations.  Large frames add a second
+// limit: every frame meets every TEP, so a kernel that holds a frame reads
+// all of T once a frame (94 GB a WiMAX round), which has to come from L2
+// (50 MB) at up to 23 bytes a clock an SM, near what L2 gives.
 //
-// Design.  The inner sums are exact small integers, so they run as
-// mma.sync m16n8k32 s8 x s8 -> s32 and `acc & 1` is the parity.  The MMA's
-// rows are 16 TEPs (A, a tile of T) and its columns 8 check rows of one
-// frame (B, M[b] as it lies: row-major (m, k) is the "col" operand), so a
-// thread's accumulators are two TEPs x two check rows, and the u_l-weighted
-// sum over check rows is a predicated add per accumulator plus two quad
-// shuffles.  The host's plan (ops/osd_disc.py lterm_plan) fixes the tiles;
-// this file checks it.
+// Two plans (ops/osd_disc.py lterm_plan), one per shape of frame:
+//
+// Resident (m, k <= 64, the main path).  The inner sums are exact small
+// integers, so they run as mma.sync m16n8k32 s8 x s8 -> s32 and `acc & 1`
+// is the parity.  The MMA's rows are 16 TEPs (A, a tile of T) and its
+// columns 8 check rows of one frame (B, M[b] as it lies: row-major (m, k)
+// is the "col" operand), so a thread's accumulators are two TEPs x two
+// check rows, and the u_l-weighted sum over check rows is a predicated add
+// per accumulator plus two quad shuffles.
 // - Operands read about once: a block keeps a tile of T (every TEP at the
 //   main path, 1536 x 80 bytes) in shared memory for its whole life and
 //   walks frames block-strided (persistent), M[b] and u_l[b] streamed in by
 //   cp.async (16-byte chunks, zero-filled padding) into two buffers, the
-//   next frame landing while this one computes: M is read once per TEP tile
-//   of the plan (once at the main path) instead of 12 times, and nothing is
-//   packed.  Fragments come from shared memory by ldmatrix (rows padded by
-//   16 bytes, so conflict-free).
-// - The inner loop on the tensor cores: one MMA replaces the 4096 AND/XOR/
-//   POPC products of a 16 x 8 x 32 tile.  Where a frame's B fragments fit
-//   in registers (m <= 64, k <= 64: "resident", the main path) a warp loads
-//   them and the frame's u_l once and runs every TEP tile it owns against
-//   them, reading only A (64 bytes of shared memory per MMA); larger frames
-//   ("general") loop over 32-row groups and 32-byte k chunks with A and B
-//   from shared memory.
-// - Every shape: k is padded with zeros to 32, m with zero rows whose u is
-//   0, the ragged N and B edges are masked; a frame larger than shared
-//   memory (far above every packaged code; WiMAX's 176 x 880 takes 175 KB)
+//   next frame landing while this one computes.  Fragments come from
+//   shared memory by ldmatrix (rows padded by 16 bytes, so conflict-free).
+// - A warp loads a frame's B fragments and u_l once and runs every TEP
+//   tile it owns against them, reading only A (64 bytes of shared memory
+//   per MMA).  k is padded with zeros to 64, m with zero rows whose u is 0,
+//   the ragged N and B edges are masked.
+//
+// General (any m > 64 or k > 64; m <= 256): frame-stationary, the TEPs
+// streamed.  A block (persistent, one an SM) takes units of work, each one
+// frame against one chunk of TEP tiles; it stages the frame's M once per
+// unit into shared memory (m padded to a multiple of 16 with zero rows and
+// u = 0, k to the plan's k-slice of 32, 64 or 128 bytes), in the swizzled
+// K-major layout that wgmma reads, and runs every TEP of the chunk against
+// it.  M is read from device memory once a unit instead of once per TEP
+// tile, and T streams through the SMs in the same order on every block, so
+// a wave of blocks reads each T tile from HBM about once.
+// - Warp specialisation: two producer warps each drive a ring of stages (a
+//   stage: 64 TEPs x one k-slice, brought by one TMA load with the same
+//   swizzle, zero-filled beyond N and k, completion on an mbarrier); two
+//   consumer warpgroups each own one ring and every other TEP tile of the
+//   block's sequence.  A consumer issues wgmma.m64nNk32.s32.s8.s8 with A
+//   the stage (64 TEPs) and B the frame (N = m_pad check rows, one
+//   instruction a 32-byte k step), one commit group a k-slice, two groups
+//   left in flight while it issues the next; a stage is freed once its
+//   group is done.  The two warpgroups issue freely: while one runs its
+//   epilogue the other's wgmmas use the tensor cores.  (Taking turns by
+//   named barriers, a tile or half a tile a turn, or staggering their
+//   starts, measured 8-26% slower at WiMAX's shape: one warpgroup alone
+//   does not keep the tensor cores fed.)  The wgmma accumulator layout is
+//   the mma.sync one repeated over 8-column groups, so the epilogue is the
+//   resident plan's.
+// - Nothing depends on the bits of T or M: every tile is multiplied whole.
+// - T's traffic is not what bounds it: loading every tile from the same
+//   few rows of T (all from L2) left the time unchanged, so the TEP tiles
+//   are not multicast across a cluster.
+// - A frame whose padded M does not fit beside two rings of three stages
 //   is refused by the plan.
-// Summation order, all in f64: a thread adds its check rows 8j + 2t and
-// 8j + 2t + 1 in two chains over ascending j (then row 2t's chain plus row
-// 2t + 1's), the quad adds lanes t^1 then t^2, and the sum is rounded once
-// to f32.  Every term is an exact f32 value, so the result is the exact sum
-// rounded (up to f64 rounding, ~1e-16 relative): its difference from the
-// plain twin is the twin's own f32 rounding.  An f32 sum is faster (about
-// a third of the kernel at the main path on an H100) and gives that up.
+//
+// Summation order, all in f64 and the same in both plans: a thread adds its
+// check rows 8j + 2t and 8j + 2t + 1 in two chains over ascending j (then
+// row 2t's chain plus row 2t + 1's), the quad adds lanes t^1 then t^2, and
+// the sum is rounded once to f32.  Every term is an exact f32 value, so the
+// result is the exact sum rounded (up to f64 rounding, ~1e-16 relative):
+// its difference from the plain twin is the twin's own f32 rounding.  An
+// f32 sum is faster (about a third of the kernel at the main path on an
+// H100) and gives that up.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
@@ -217,52 +248,7 @@ __device__ __forceinline__ void frame_resident(const int8_t* s_t,
   }
 }
 
-// one frame, general: groups of 8 * TN rows, k in 32-byte chunks, A and B
-// from shared memory
-template <int TN>
-__device__ __forceinline__ void frame_general(const int8_t* s_t,
-                                              const int8_t* s_mf,
-                                              const double* s_uf,
-                                              float* outrow, int S, int kch,
-                                              int groups, int nt0, int ntot,
-                                              int tiles) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int t = lane & 3;
-  const int brow = (lane & 7) + 8 * (lane >> 4);
-  const int bcol = 16 * ((lane >> 3) & 1);
-  const int arow = (lane & 7) + 8 * ((lane >> 3) & 1);
-  const int acol = 16 * (lane >> 4);
-  for (int tile = warp; tile < tiles; tile += kWarps) {
-    const int8_t* a_base = s_t + (16 * tile + arow) * S + acol;
-    Partials part;
-    for (int grp = 0; grp < groups; ++grp) {
-      const int row0 = 8 * TN * grp;
-      const int8_t* b_base = s_mf + (row0 + brow) * S + bcol;
-      int acc[TN][4];
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-      for (int kc = 0; kc < kch; ++kc) {
-        uint32_t af[4];
-        ldsm_x4(smem_addr(a_base + 32 * kc), af[0], af[1], af[2], af[3]);
-#pragma unroll
-        for (int jj = 0; jj < TN / 2; ++jj) {
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4(smem_addr(b_base + 16 * jj * S + 32 * kc), b0, b1, b2, b3);
-          mma_s8(acc[2 * jj], af, b0, b1);
-          mma_s8(acc[2 * jj + 1], af, b2, b3);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        part.weigh(acc[j], *reinterpret_cast<const double2*>(
-                               s_uf + row0 + 8 * j + 2 * t));
-    }
-    part.finish(outrow, nt0 + 16 * tile, lane, ntot);
-  }
-}
-
-// KCH > 0: resident (m_pad == 8 TN, k_pad == 32 KCH); KCH == 0: general
+// the resident plan: m_pad == 8 TN, k_pad == 32 KCH
 template <int KCH, int TN>
 __global__ void __launch_bounds__(kThreads, 1)
     lterm_kernel(const int8_t* __restrict__ mm, const float* __restrict__ ul,
@@ -307,11 +293,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int8_t* s_mf = s_m + cur * m_pad * S;
     const double* s_uf = s_u + cur * m_pad;
     float* outrow = out + f * ntot;
-    if constexpr (KCH > 0)
-      frame_resident<KCH, TN>(s_t, s_mf, s_uf, outrow, S, nt0, ntot, tiles);
-    else
-      frame_general<TN>(s_t, s_mf, s_uf, outrow, S, k_pad / 32,
-                        m_pad / (8 * TN), nt0, ntot, tiles);
+    frame_resident<KCH, TN>(s_t, s_mf, s_uf, outrow, S, nt0, ntot, tiles);
     if (nbuf == 2) {
       if (tid < m_pad) s_u[(cur ^ 1) * m_pad + tid] = u_next;
     } else {
@@ -327,15 +309,388 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_async_wait_all();
 }
 
+
+// ---------------------------------------------------------------------------
+// The general plan: frame-stationary, TEPs streamed by TMA into wgmma.
+
+constexpr int kGenThreads = 320;  // consumer warpgroups 0-1, producer warps 8-9
+constexpr int kTepTile = 64;      // TEPs a wgmma tile (its M)
+// wgmma groups (one a k-slice) a consumer leaves in flight while it issues
+// the next, so a ring needs kLookahead + 1 stages at least (ops/osd_disc.py
+// MIN_STAGES); at WiMAX's shape 1 and 3 took 8% and 20% longer than 2
+constexpr int kLookahead = 2;
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// spin until the phase of parity `parity` of the barrier has completed; a
+// wait of 2^26 polls (far beyond any stage's latency) traps instead of
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  for (int polls = 0; !done; ++polls) {
+    if (polls == (1 << 26)) __trap();
+    asm volatile(
+        "{\n"
+        "  .reg .pred p;\n"
+        "  mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "  selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// rows [row, row + 64) x bytes [col, col + box width) of the TEPs, by TMA
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// a wgmma shared-memory descriptor: K-major, swizzled rows of `row_bytes`
+// (32, 64 or 128), 8-row groups `8 row_bytes` apart
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, int row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>((8 * row_bytes) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma
+template <int kR>
+__device__ __forceinline__ void fence_regs(int (&d)[kR]) {
+#pragma unroll
+  for (int i = 0; i < kR; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x kN s32, wgmma fragment) += A (64 x 32 s8) * B (kN x 32 s8)^T,
+// both K-major in shared memory; one instruction, its operand list spelled
+// out for each width
+#define K5_O0 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define K5_O1 "%8, %9, %10, %11, %12, %13, %14, %15"
+#define K5_O2 "%16, %17, %18, %19, %20, %21, %22, %23"
+#define K5_O3 "%24, %25, %26, %27, %28, %29, %30, %31"
+#define K5_O4 "%32, %33, %34, %35, %36, %37, %38, %39"
+#define K5_O5 "%40, %41, %42, %43, %44, %45, %46, %47"
+#define K5_O6 "%48, %49, %50, %51, %52, %53, %54, %55"
+#define K5_O7 "%56, %57, %58, %59, %60, %61, %62, %63"
+#define K5_O8 "%64, %65, %66, %67, %68, %69, %70, %71"
+#define K5_O9 "%72, %73, %74, %75, %76, %77, %78, %79"
+#define K5_O10 "%80, %81, %82, %83, %84, %85, %86, %87"
+#define K5_O11 "%88, %89, %90, %91, %92, %93, %94, %95"
+#define K5_O12 "%96, %97, %98, %99, %100, %101, %102, %103"
+#define K5_O13 "%104, %105, %106, %107, %108, %109, %110, %111"
+#define K5_O14 "%112, %113, %114, %115, %116, %117, %118, %119"
+#define K5_O15 "%120, %121, %122, %123, %124, %125, %126, %127"
+#define K5_OL1 K5_O0
+#define K5_OL2 K5_OL1 ", " K5_O1
+#define K5_OL3 K5_OL2 ", " K5_O2
+#define K5_OL4 K5_OL3 ", " K5_O3
+#define K5_OL5 K5_OL4 ", " K5_O4
+#define K5_OL6 K5_OL5 ", " K5_O5
+#define K5_OL7 K5_OL6 ", " K5_O6
+#define K5_OL8 K5_OL7 ", " K5_O7
+#define K5_OL9 K5_OL8 ", " K5_O8
+#define K5_OL10 K5_OL9 ", " K5_O9
+#define K5_OL11 K5_OL10 ", " K5_O10
+#define K5_OL12 K5_OL11 ", " K5_O11
+#define K5_OL13 K5_OL12 ", " K5_O12
+#define K5_OL14 K5_OL13 ", " K5_O13
+#define K5_OL15 K5_OL14 ", " K5_O14
+#define K5_OL16 K5_OL15 ", " K5_O15
+#define K5_D8(i)                                                          \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),            \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define K5_DL1 K5_D8(0)
+#define K5_DL2 K5_DL1, K5_D8(8)
+#define K5_DL3 K5_DL2, K5_D8(16)
+#define K5_DL4 K5_DL3, K5_D8(24)
+#define K5_DL5 K5_DL4, K5_D8(32)
+#define K5_DL6 K5_DL5, K5_D8(40)
+#define K5_DL7 K5_DL6, K5_D8(48)
+#define K5_DL8 K5_DL7, K5_D8(56)
+#define K5_DL9 K5_DL8, K5_D8(64)
+#define K5_DL10 K5_DL9, K5_D8(72)
+#define K5_DL11 K5_DL10, K5_D8(80)
+#define K5_DL12 K5_DL11, K5_D8(88)
+#define K5_DL13 K5_DL12, K5_D8(96)
+#define K5_DL14 K5_DL13, K5_D8(104)
+#define K5_DL15 K5_DL14, K5_D8(112)
+#define K5_DL16 K5_DL15, K5_D8(120)
+// width N = 16 Q: accumulators %0 .. %(8Q - 1), the two descriptors, then
+// scale-d (1: accumulate)
+#define K5_WGMMA(N, Q, RA, RB, RS)                                        \
+  if constexpr (kN == N)                                                  \
+    asm volatile("{\n"                                                    \
+                 "  .reg .pred p;\n"                                      \
+                 "  setp.ne.b32 p, %" #RS ", 0;\n"                        \
+                 "  wgmma.mma_async.sync.aligned.m64n" #N                 \
+                 "k32.s32.s8.s8 {" K5_OL##Q "}, %" #RA ", %" #RB ", p;\n" \
+                 "}\n"                                                    \
+                 : K5_DL##Q                                               \
+                 : "l"(da), "l"(db), "r"(1));
+
+template <int kN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[kN / 2], uint64_t da,
+                                         uint64_t db) {
+  K5_WGMMA(16, 1, 8, 9, 10)
+  K5_WGMMA(32, 2, 16, 17, 18)
+  K5_WGMMA(48, 3, 24, 25, 26)
+  K5_WGMMA(64, 4, 32, 33, 34)
+  K5_WGMMA(80, 5, 40, 41, 42)
+  K5_WGMMA(96, 6, 48, 49, 50)
+  K5_WGMMA(112, 7, 56, 57, 58)
+  K5_WGMMA(128, 8, 64, 65, 66)
+  K5_WGMMA(144, 9, 72, 73, 74)
+  K5_WGMMA(160, 10, 80, 81, 82)
+  K5_WGMMA(176, 11, 88, 89, 90)
+  K5_WGMMA(192, 12, 96, 97, 98)
+  K5_WGMMA(208, 13, 104, 105, 106)
+  K5_WGMMA(224, 14, 112, 113, 114)
+  K5_WGMMA(240, 15, 120, 121, 122)
+  K5_WGMMA(256, 16, 128, 129, 130)
+}
+
+// one frame's M (rows, k) into shared memory as k_pad / slice regions of
+// kN rows x `slice` bytes, each swizzled as TMA's and wgmma's
+// CU_TENSOR_MAP_SWIZZLE_<slice>B (16-byte chunk c of row r at chunk
+// c ^ (r / (128 / slice) mod (slice / 16))), zero beyond (rows, k); its u
+// as f64, 0 beyond rows.  16-byte cp.async where rows are 16-byte aligned
+// (vec), else byte loads and one 16-byte store a chunk.  Threads 0-255.
+template <int kN>
+__device__ void stage_frame(int8_t* s_m, double* s_u, const int8_t* src,
+                            const float* usrc, int rows, int k, int k_pad,
+                            int slice, bool vec, int tid) {
+  const int cpr = k_pad / 16, cps = slice / 16, mask = cps - 1;
+  for (int i = tid; i < kN * cpr; i += 256) {
+    const int r = i / cpr;
+    const int c = i - r * cpr;
+    const int s = c / cps;
+    int o = r * slice + (c - s * cps) * 16;
+    o ^= ((o >> 7) & mask) << 4;
+    int8_t* dst = s_m + s * kN * slice + o;
+    const bool in = r < rows && c * 16 < k;
+    if (vec) {
+      cp_async16(smem_addr(dst),
+                 in ? src + static_cast<long long>(r) * k + c * 16 : src,
+                 in ? 16 : 0);
+    } else {
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+      if (in) {
+        const int8_t* row = src + static_cast<long long>(r) * k + c * 16;
+        for (int q = 0; q < 16 && c * 16 + q < k; ++q)
+          w[q >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(row[q]))
+                       << (8 * (q & 3));
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+  for (int i = tid; i < kN; i += 256)
+    s_u[i] = i < rows ? static_cast<double>(usrc[i]) : 0.0;
+  cp_async_commit();
+  cp_async_wait_all();
+}
+
+// Units u = blockIdx.x, + gridDim.x, ...: frame u / chunks against TEP tiles
+// [c tpc, min((c + 1) tpc, tiles)) of 64, c = u % chunks.  Shared memory
+// (from a 1024-aligned base): two rings of `stages` stages of 64 x slice
+// bytes, the frame (kN x k_pad), its u (kN f64), the full and empty
+// barriers.
+template <int kN>
+__global__ void __launch_bounds__(kGenThreads, 1)
+    lterm_general_kernel(const __grid_constant__ CUtensorMap tmap,
+                         const int8_t* __restrict__ mm,
+                         const float* __restrict__ ul, float* __restrict__ out,
+                         int batch, int m, int k, int ntot, int k_pad,
+                         int slice, int stages, int tpc, int chunks, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int stage_bytes = kTepTile * slice;
+  int8_t* ring = reinterpret_cast<int8_t*>(base);
+  int8_t* s_m = ring + 2 * stages * stage_bytes;
+  double* s_u = reinterpret_cast<double*>(s_m + kN * k_pad);
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_u + kN);
+  uint64_t* empty = full + 2 * stages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = (ntot + kTepTile - 1) / kTepTile;
+  const long long units = static_cast<long long>(batch) * chunks;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // lane 0 of each warp of the consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 8) {
+    // producer of ring r: the tiles seq r, r + 2, ... of the block's units
+    // (numbered across units), slice by slice, each into the next free stage
+    if (lane == 0) {
+      const int r = warp - 8;
+      int stage = 0, seq = 0;
+      uint32_t phase = 0;
+      for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+        const int c = static_cast<int>(u % chunks);
+        const int t_end = min((c + 1) * tpc, tiles);
+        for (int tile = c * tpc; tile < t_end; ++tile, ++seq) {
+          if ((seq & 1) != r) continue;
+          for (int col = 0; col < k_pad; col += slice) {
+            mbar_wait(&empty[r * stages + stage], phase ^ 1);
+            mbar_expect_tx(&full[r * stages + stage], stage_bytes);
+            tma_load_tile(ring + (r * stages + stage) * stage_bytes, &tmap,
+                          &full[r * stages + stage], col, tile * kTepTile);
+            if (++stage == stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: ring wg, the tiles seq wg, wg + 2, ...
+  const int wg = warp >> 2;
+  const int wq = warp & 3;
+  const uint32_t ring0 = smem_addr(ring + wg * stages * stage_bytes);
+  const uint32_t frame0 = smem_addr(s_m);
+  const int ksteps = slice / 32;
+  const int slices = k_pad / slice;
+  int stage = 0, seq = 0;
+  uint32_t phase = 0;
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    const long long f = u / chunks;
+    const int c = static_cast<int>(u % chunks);
+    // both warpgroups are done with the last frame (wgmma and epilogue)
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    stage_frame<kN>(s_m, s_u, mm + f * m * k, ul + f * m, m, k, k_pad, slice,
+                    vec != 0, threadIdx.x);
+    // the frame's generic-proxy writes, visible to wgmma's async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float* outrow = out + f * ntot;
+    const int t_end = min((c + 1) * tpc, tiles);
+    for (int tile = c * tpc; tile < t_end; ++tile, ++seq) {
+      if ((seq & 1) != wg) continue;
+      int acc[kN / 2];
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) acc[i] = 0;
+      const int first = stage;  // the stage of the tile's first slice
+      for (int sl = 0; sl < slices; ++sl) {
+        mbar_wait(&full[wg * stages + stage], phase);
+        const uint32_t a0 = ring0 + stage * stage_bytes;
+        const uint32_t b0 = frame0 + sl * kN * slice;
+        fence_regs(acc);
+        wgmma_fence();
+        for (int ks = 0; ks < ksteps; ++ks)
+          wgmma_s8<kN>(acc, wgmma_desc(a0 + 32 * ks, slice),
+                       wgmma_desc(b0 + 32 * ks, slice));
+        wgmma_commit();
+        fence_regs(acc);
+        if (sl >= kLookahead) {
+          // slice sl - kLookahead is done: its stage is free
+          wgmma_wait<kLookahead>();
+          fence_regs(acc);
+          if (lane == 0)
+            mbar_arrive(&empty[wg * stages + (first + sl - kLookahead) % stages]);
+        }
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0)
+        for (int sl = max(0, slices - kLookahead); sl < slices; ++sl)
+          mbar_arrive(&empty[wg * stages + (first + sl) % stages]);
+      Partials part;
+      const int t = lane & 3;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const int q[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                          acc[4 * j + 3]};
+        part.weigh(q, *reinterpret_cast<const double2*>(s_u + 8 * j + 2 * t));
+      }
+      part.finish(outrow, tile * kTepTile + 16 * wq, lane, ntot);
+    }
+  }
+}
+
 using Kernel = void (*)(const int8_t*, const float*, const int8_t*, float*,
                         int, int, int, int, int, int, int, int, int);
+using GeneralKernel = void (*)(const CUtensorMap, const int8_t*, const float*,
+                               float*, int, int, int, int, int, int, int, int,
+                               int, int);
 
-// the instantiation a plan names: (kch, tn) = (2, 8) resident, or (0, 4)
-// general
+// the resident instantiation: (kch, tn) = (2, 8)
 Kernel pick(int kch, int tn) {
   if (kch == 2 && tn == 8) return lterm_kernel<2, 8>;
-  if (kch == 0 && tn == 4) return lterm_kernel<0, 4>;
   return nullptr;
+}
+
+// the general instantiation for a padded frame of m_pad rows
+GeneralKernel pick_general(int m_pad) {
+  switch (m_pad) {
+    case 16: return lterm_general_kernel<16>;
+    case 32: return lterm_general_kernel<32>;
+    case 48: return lterm_general_kernel<48>;
+    case 64: return lterm_general_kernel<64>;
+    case 80: return lterm_general_kernel<80>;
+    case 96: return lterm_general_kernel<96>;
+    case 112: return lterm_general_kernel<112>;
+    case 128: return lterm_general_kernel<128>;
+    case 144: return lterm_general_kernel<144>;
+    case 160: return lterm_general_kernel<160>;
+    case 176: return lterm_general_kernel<176>;
+    case 192: return lterm_general_kernel<192>;
+    case 208: return lterm_general_kernel<208>;
+    case 224: return lterm_general_kernel<224>;
+    case 240: return lterm_general_kernel<240>;
+    case 256: return lterm_general_kernel<256>;
+    default: return nullptr;
+  }
 }
 
 long long plan_smem(int m_pad, int k_pad, int nt, int nbuf) {
@@ -343,10 +698,41 @@ long long plan_smem(int m_pad, int k_pad, int nt, int nbuf) {
   return S * nt + nbuf * (S * m_pad + 8LL * m_pad);
 }
 
+long long general_smem(int m_pad, int k_pad, int slice, int stages) {
+  return 1024LL + 2LL * stages * (kTepTile * slice + 16) +
+         static_cast<long long>(m_pad) * k_pad + 8LL * m_pad;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the process has already
+// loaded
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+int set_smem(const void* kern, int smem_bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
+}
+
 }  // namespace
 
-// The launch of one plan (ops/osd_disc.py lterm_plan); returns a cudaError
-// code, cudaErrorInvalidValue for a plan that does not fit the shape.
+// The launch of one resident plan (ops/osd_disc.py lterm_plan); returns a
+// cudaError code, cudaErrorInvalidValue for a plan that does not fit the
+// shape.
 extern "C" int lterm_launch(const void* m_matrix, const void* u_l,
                             const void* teps, void* out, int batch, int m,
                             int k, int ntot, int kch, int tn, int m_pad,
@@ -355,19 +741,16 @@ extern "C" int lterm_launch(const void* m_matrix, const void* u_l,
   const Kernel kern = pick(kch, tn);
   const bool ok =
       kern != nullptr && batch > 0 && ntot > 0 && m > 0 && k > 0 &&
-      k_pad % 32 == 0 && k <= k_pad && m <= m_pad && m_pad % (8 * tn) == 0 &&
-      (kch == 0 || (k_pad == 32 * kch && m_pad == 8 * tn)) && nt % 16 == 0 &&
-      nt > 0 && static_cast<long long>(nt) * n_tiles >= ntot &&
+      k <= k_pad && m <= m_pad && k_pad == 32 * kch && m_pad == 8 * tn &&
+      nt % 16 == 0 && nt > 0 && static_cast<long long>(nt) * n_tiles >= ntot &&
       static_cast<long long>(nt) * (n_tiles - 1) < ntot &&
       (nbuf == 1 || nbuf == 2) && grid_x >= 1 && grid_x <= batch &&
-      m_pad <= kThreads &&
       plan_smem(m_pad, k_pad, nt, nbuf) == smem_bytes &&
       smem_bytes <= kMaxSmem;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   // the limit belongs to the kernel: set it before every launch
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = set_smem(reinterpret_cast<const void*>(kern), smem_bytes);
+  if (err != 0) return err;
   const int8_t* mm = static_cast<const int8_t*>(m_matrix);
   const int8_t* tt = static_cast<const int8_t*>(teps);
   const int vec = (k % 16 == 0 && reinterpret_cast<uintptr_t>(mm) % 16 == 0 &&
@@ -379,30 +762,89 @@ extern "C" int lterm_launch(const void* m_matrix, const void* u_l,
   return static_cast<int>(cudaGetLastError());
 }
 
-// What the card makes of an instantiation at smem_bytes of dynamic shared
-// memory: out = {registers, local bytes a thread, threads a block,
+// The launch of one general plan: T (ntot, k) read through a tensor map
+// with rows t_cols bytes apart (t_cols >= k, a multiple of 16, zero beyond
+// k); nt TEPs (tpc tiles of 64) a unit, n_tiles units a frame, grid_x
+// persistent blocks.  Returns a cudaError code (cudaErrorInvalidValue for
+// a plan that does not fit the shape, cudaErrorNotSupported where
+// libcuda gives no tensor map).
+extern "C" int lterm_general_launch(const void* m_matrix, const void* u_l,
+                                    const void* teps, void* out, int batch,
+                                    int m, int k, int ntot, int t_cols,
+                                    int m_pad, int k_pad, int slice,
+                                    int stages, int nt, int n_tiles,
+                                    int grid_x, int smem_bytes, void* stream) {
+  const GeneralKernel kern = pick_general(m_pad);
+  const int tiles = (ntot + kTepTile - 1) / kTepTile;
+  const int tpc = nt / kTepTile;
+  const bool ok =
+      kern != nullptr && batch > 0 && ntot > 0 && m > 0 && k > 0 &&
+      m <= m_pad && m_pad - m < 16 &&
+      (slice == 32 || slice == 64 || slice == 128) && k_pad % slice == 0 &&
+      k <= k_pad && k_pad - k < slice && t_cols >= k && t_cols % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(teps) % 16 == 0 && stages > kLookahead &&
+      nt % kTepTile == 0 && nt > 0 && n_tiles == (tiles + tpc - 1) / tpc &&
+      grid_x >= 1 &&
+      static_cast<long long>(grid_x) <= static_cast<long long>(batch) * n_tiles &&
+      general_smem(m_pad, k_pad, slice, stages) == smem_bytes &&
+      smem_bytes <= kMaxSmem;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  alignas(64) CUtensorMap tmap;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(t_cols),
+                              static_cast<cuuint64_t>(ntot)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(t_cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(slice),
+                             static_cast<cuuint32_t>(kTepTile)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle =
+      slice == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                   : slice == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+  if (encode(&tmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(teps),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_smem(reinterpret_cast<const void*>(kern), smem_bytes);
+  if (err != 0) return err;
+  const int8_t* mm = static_cast<const int8_t*>(m_matrix);
+  const int vec = (k % 16 == 0 && reinterpret_cast<uintptr_t>(mm) % 16 == 0)
+                      ? 1 : 0;
+  kern<<<grid_x, kGenThreads, smem_bytes,
+         static_cast<cudaStream_t>(stream)>>>(
+      tmap, mm, static_cast<const float*>(u_l), static_cast<float*>(out),
+      batch, m, k, ntot, k_pad, slice, stages, tpc, n_tiles, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What the card makes of a plan's kernel at smem_bytes of dynamic shared
+// memory: the resident (kch, tn) = (2, 8), or (kch 0) the general one for
+// m_pad rows.  out = {registers, local bytes a thread, threads a block,
 // resident blocks per SM, SMs, static shared bytes}; returns a cudaError.
-extern "C" int lterm_occupancy(int kch, int tn, int smem_bytes, int device,
-                               int* out) {
-  const Kernel kern = pick(kch, tn);
+extern "C" int lterm_occupancy(int kch, int tn, int m_pad, int smem_bytes,
+                               int device, int* out) {
+  const void* kern = kch == 0 ? reinterpret_cast<const void*>(pick_general(m_pad))
+                              : reinterpret_cast<const void*>(pick(kch, tn));
+  const int threads = kch == 0 ? kGenThreads : kThreads;
   if (kern == nullptr || smem_bytes > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int err = set_smem(kern, smem_bytes);
+  if (err != 0) return err;
   cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kern);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return static_cast<int>(e);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads,
-                                                      smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, threads,
+                                                    smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
-  out[2] = kThreads;
+  out[2] = threads;
   out[3] = blocks;
   out[4] = sms;
   out[5] = static_cast<int>(attr.sharedSizeBytes);

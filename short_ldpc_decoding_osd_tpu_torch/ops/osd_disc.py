@@ -8,7 +8,11 @@ Port of ``short_ldpc_decoding_osd_tpu/ops/osd_disc_pallas.py``
 The kernel (``csrc/osd_disc.cu``) runs the parity products on the int8
 tensor cores and never writes the (B, m, Ntot) parity intermediate to
 device memory; it takes any (m, k) whose padded frame fits shared memory
-(every packaged code).  Its tiles come from :func:`lterm_plan`.  The caller
+and has at most 256 rows (every packaged code).  Its tiles come from
+:func:`lterm_plan`: the resident plan (``mma.sync``) for m, k <= 64, the
+general plan (frame-stationary, TMA and ``wgmma``) for the rest; each
+launch of the general plan adds 1 to the ``k5.general`` counter of a
+recording (``utils/profiling.py``).  The caller
 adds ``c0 + u_m @ T^T`` (``osd/engine.py``).  The wrapper runs the plain
 twin ``lterm_reference`` only for CPU tensors; for CUDA tensors it launches
 the kernel or raises.
@@ -18,37 +22,58 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
 from .. import _kernels
+from ..utils import profiling
 
-THREADS = 512  # a block: 16 warps
+THREADS = 512  # a block of the resident plan: 16 warps
 SMEM_MAX = 232_448  # bytes of shared memory a block may opt in to on H100
 H100_SMS = 132
+TEP_TILE = 64  # TEPs a wgmma tile of the general plan
+MAX_STAGES = 8  # stages a ring of the general plan
+MIN_STAGES = 3  # two wgmma groups in flight beside the one being issued
+MAX_ROWS = 256  # check rows a general frame (one wgmma's widest N)
 
 
 @dataclasses.dataclass(frozen=True)
 class LtermPlan:
-    """One launch of K5.  ``kch`` > 0: "resident" (m, k <= 64: the frame's
-    B fragments, ``m_pad`` x ``k_pad`` = 8 ``tn`` x 32 ``kch``, held in
-    registers);
-    ``kch`` == 0: "general" (groups of 8 ``tn`` check rows, k in 32-byte
-    chunks, both operands from shared memory).  A block holds ``nt`` TEPs
-    (rows of T, zero-padded to k_pad) in shared memory and walks frames
-    ``grid[0]`` apart through ``nbuf`` frame buffers; ``grid[1]`` =
-    ``n_tiles`` blocks cover the TEPs."""
+    """One launch of K5.
+
+    ``kch`` > 0: "resident" (m, k <= 64: the frame's B fragments,
+    ``m_pad`` x ``k_pad`` = 8 ``tn`` x 32 ``kch``, held in registers).  A
+    block holds ``nt`` TEPs (rows of T, zero-padded to k_pad, rows
+    ``stride`` bytes apart) in shared memory and walks frames ``grid[0]``
+    apart through ``nbuf`` frame buffers; ``grid[1]`` = ``n_tiles`` blocks
+    cover the TEPs.
+
+    ``kch`` == 0: "general" (any m > 64 or k > 64, m <= 256).  What bounds
+    it: 2 b m k N int8 MACs at 1,979 TOP/s, and all of T once a frame
+    through L2 (every frame meets every TEP; 94 GB a WiMAX round).  The
+    design: a block holds one frame's M in shared memory (``m_pad`` = m
+    rounded up to 16 rows, the wgmma width; ``k_pad`` = k rounded up to the
+    k-slice ``stride`` of 32, 64 or 128 bytes, the row of the swizzled
+    layout) and streams TEP tiles of 64 x ``stride`` bytes through two
+    rings of ``stages`` stages by TMA into wgmma, so M is read once a unit
+    and the blocks sweep T in step (served from L2: T's traffic measured
+    no bound).  A unit is one frame against ``nt`` TEPs (``nt`` / 64
+    tiles); ``n_tiles`` units cover a frame's TEPs, and ``grid[0]``
+    persistent blocks (one an SM) walk the b x ``n_tiles`` units; ``tn``
+    0, ``nbuf`` 1, ``grid[1]`` 1."""
 
     kch: int
     tn: int
     m_pad: int
     k_pad: int
-    stride: int  # shared-memory row stride in bytes (k_pad + 16)
+    stride: int  # resident: k_pad + 16; general: the k-slice in bytes
     nt: int
     n_tiles: int
     nbuf: int
     smem_bytes: int
     grid: tuple[int, int]
+    stages: int = 0  # general: stages a ring
 
     @property
     def resident(self) -> bool:
@@ -60,21 +85,26 @@ def _smem(stride: int, m_pad: int, nt: int, nbuf: int) -> int:
     return stride * nt + nbuf * (stride * m_pad + 8 * m_pad)
 
 
+def general_smem(m_pad: int, k_pad: int, kslice: int, stages: int) -> int:
+    """Shared bytes of a general block: 1,024 of alignment slack, two rings
+    of ``stages`` stages (64 TEPs x ``kslice`` bytes, two 8-byte barriers
+    each), the frame's M and its u as f64."""
+    return 1024 + 2 * stages * (TEP_TILE * kslice + 16) + m_pad * k_pad + 8 * m_pad
+
+
+@functools.lru_cache(maxsize=256)
 def lterm_plan(b: int, m: int, k: int, ntot: int,
                sms: int = H100_SMS) -> LtermPlan | None:
     """The tile plan of K5 for M (b, m, k) and T (ntot, k) on a card with
     ``sms`` SMs, or None where a padded frame does not fit a block's
-    shared memory (far above every packaged code)."""
+    shared memory (far above every packaged code) or has more than 256
+    check rows."""
     if min(b, m, k, ntot) < 1:
         raise ValueError(f"lterm_plan needs positive sizes, got {(b, m, k, ntot)}")
-    if k <= 64 and m <= 64:
-        kch, tn, m_pad, k_pad = 2, 8, 64, 64
-    else:
-        kch, tn = 0, 4
-        m_pad, k_pad = -(-m // 32) * 32, -(-k // 32) * 32
+    if k > 64 or m > 64:
+        return _general_plan(b, m, k, ntot, sms)
+    kch, tn, m_pad, k_pad = 2, 8, 64, 64
     stride = k_pad + 16  # odd multiple of 16 bytes: ldmatrix conflict-free
-    if m_pad > THREADS:
-        return None
     n16 = -(-ntot // 16) * 16
     choice = None
     for nbuf in (2, 1):
@@ -92,6 +122,39 @@ def lterm_plan(b: int, m: int, k: int, ntot: int,
                      nt=nt, n_tiles=n_tiles, nbuf=nbuf,
                      smem_bytes=_smem(stride, m_pad, nt, nbuf),
                      grid=(grid_x, n_tiles))
+
+
+def _general_plan(b: int, m: int, k: int, ntot: int,
+                  sms: int) -> LtermPlan | None:
+    m_pad = -(-m // 16) * 16
+    if m_pad > MAX_ROWS:
+        return None
+    # the widest k-slice among those that pad k least (WiMAX's 880: 128;
+    # wimaxlike's 192: 64)
+    kslice = min((128, 64, 32), key=lambda s: -(-k // s) * s)
+    k_pad = -(-k // kslice) * kslice
+    stages = min(MAX_STAGES, (SMEM_MAX - general_smem(m_pad, k_pad, kslice, 0))
+                 // (2 * (TEP_TILE * kslice + 16)))
+    if stages < MIN_STAGES:
+        return None
+    tiles = -(-ntot // TEP_TILE)
+    # TEP tiles a unit: the least makespan of ceil(units / sms) waves, a
+    # unit costing its tiles plus ~3 tiles of staging and drain, among the
+    # cuts that give every SM a unit wherever b x tiles allows
+    need = min(sms, b * tiles)
+    best = None
+    for tpc in range(1, tiles + 1):
+        chunks = -(-tiles // tpc)
+        if b * chunks < need:
+            break
+        cost = -(-(b * chunks) // sms) * (tpc + 3)
+        if best is None or cost <= best[0]:
+            best = cost, tpc, chunks
+    _, tpc, chunks = best
+    return LtermPlan(kch=0, tn=0, m_pad=m_pad, k_pad=k_pad, stride=kslice,
+                     nt=TEP_TILE * tpc, n_tiles=chunks, nbuf=1,
+                     smem_bytes=general_smem(m_pad, k_pad, kslice, stages),
+                     grid=(min(sms, b * chunks), 1), stages=stages)
 
 
 def lterm_reference(m_matrix: torch.Tensor, u_l: torch.Tensor,
@@ -113,10 +176,35 @@ def lterm_occupancy(plan: LtermPlan, device: int = 0) -> dict:
     bytes."""
     out = (ctypes.c_int * 6)()
     status = _kernels.library("osd_disc").lterm_occupancy(
-        plan.kch, plan.tn, plan.smem_bytes, device, out)
+        plan.kch, plan.tn, plan.m_pad, plan.smem_bytes, device, out)
     _kernels.check(status, "lterm_occupancy")
     return dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm",
                      "sms", "static_smem_bytes"), list(out)))
+
+
+def launch(lib, plan: LtermPlan, m_matrix: torch.Tensor, u_l: torch.Tensor,
+           teps_flat: torch.Tensor, out: torch.Tensor) -> int:
+    """Launch ``plan`` from ``lib`` (the built ``osd_disc`` library, or a
+    variant of it with the same entry points) into ``out``; returns its
+    status.  The general plan reads T through a tensor map, whose rows must
+    be 16-byte multiples on a 16-byte boundary: T of another width (the
+    ragged case) is copied with zero columns up to the next 16 bytes."""
+    b, m, k = m_matrix.shape
+    ntot = teps_flat.shape[0]
+    stream = _kernels.stream_handle(m_matrix.device)
+    if plan.resident:
+        return lib.lterm_launch(
+            m_matrix.data_ptr(), u_l.data_ptr(), teps_flat.data_ptr(),
+            out.data_ptr(), b, m, k, ntot, plan.kch, plan.tn, plan.m_pad,
+            plan.k_pad, plan.nt, plan.n_tiles, plan.nbuf, plan.grid[0],
+            plan.smem_bytes, stream)
+    if k % 16 or teps_flat.data_ptr() % 16:
+        teps_flat = torch.nn.functional.pad(teps_flat, (0, -(-k // 16) * 16 - k))
+    return lib.lterm_general_launch(
+        m_matrix.data_ptr(), u_l.data_ptr(), teps_flat.data_ptr(),
+        out.data_ptr(), b, m, k, ntot, teps_flat.shape[1], plan.m_pad,
+        plan.k_pad, plan.stride, plan.stages, plan.nt, plan.n_tiles,
+        plan.grid[0], plan.smem_bytes, stream)
 
 
 def lterm(m_matrix: torch.Tensor, u_l: torch.Tensor,
@@ -155,15 +243,13 @@ def lterm(m_matrix: torch.Tensor, u_l: torch.Tensor,
                       torch.cuda.get_device_properties(dev).multi_processor_count)
     if plan is None:
         raise ValueError(f"lterm: a padded ({m}, {k}) frame does not fit a "
-                         f"block's {SMEM_MAX} bytes of shared memory")
+                         f"block's {SMEM_MAX} bytes of shared memory, or has "
+                         f"more than {MAX_ROWS} rows")
     out = torch.empty((b, ntot), dtype=torch.float32, device=m_matrix.device)
-    lib = _kernels.library("osd_disc")
-    status = lib.lterm_launch(
-        m_matrix.data_ptr(), u_l.data_ptr(), teps_flat.data_ptr(),
-        out.data_ptr(), b, m, k, ntot, plan.kch, plan.tn, plan.m_pad,
-        plan.k_pad, plan.nt, plan.n_tiles, plan.nbuf, plan.grid[0],
-        plan.smem_bytes, _kernels.stream_handle(m_matrix.device),
-    )
+    status = launch(_kernels.library("osd_disc"), plan, m_matrix, u_l,
+                    teps_flat, out)
     _kernels.check(status, "lterm_launch")
     _kernels.LAUNCHES["lterm"] += 1
+    if not plan.resident:
+        profiling.count("k5.general", 1)
     return out

@@ -126,13 +126,18 @@ def test_lterm_reference_matches_jax_kernel(b, m, k, ntot, seed):
     ("array_121_60",), ("array_121_80",), ("ccsds_128_64",), ("code1_64_32",),
     ("qc_96_48",), ("wimax_1056_880",), ("wimaxlike_384_192",),
     (32768, 64, 64, 1536),  # the main path: 32,768 captured rows, 1,536 TEPs
-    (5, 61, 60, 130), (256, 176, 880, 1536), (1, 1, 1, 1)],
+    (5, 61, 60, 130), (256, 176, 880, 1536), (1, 1, 1, 1),
+    (1024, 176, 880, 102912),  # the WiMAX system: a round's rows, the full path
+    (4096, 192, 192, 1536),  # wimaxlike_384_192
+    (5, 61, 100, 130)],  # ragged: k not a multiple of 16, a small B and N
     ids=lambda s: s[0] if len(s) == 1 else "x".join(map(str, s)))
 def test_lterm_plan_covers_every_code(shape):
     """K5's tile plan takes every packaged code's (m, k) = (n - k, k) at the
     main path's batch and TEP count, WiMAX included: it fits a block's
     shared memory, its tiles cover (B, m, k, N), and its launch is one the
-    kernel has (resident (kch, 8) or general (0, 4))."""
+    kernel has (resident (2, 8), or the general plan: a frame of m rounded
+    up to 16 rows and k to its k-slice beside two rings of TEP stages, the
+    grid filling the SMs)."""
     if len(shape) == 1:
         code = get_code(shape[0])
         shape = (32768, code.n - code.k, code.k, 1536)
@@ -140,27 +145,83 @@ def test_lterm_plan_covers_every_code(shape):
     plan = osd_disc.lterm_plan(b, m, k, ntot)
     assert plan is not None
     assert plan.smem_bytes <= 232_448
-    assert plan.smem_bytes == (plan.stride * plan.nt + plan.nbuf * (
-        plan.stride * plan.m_pad + 8 * plan.m_pad))
-    assert plan.stride == plan.k_pad + 16 and (plan.stride // 16) % 2 == 1
-    assert m <= plan.m_pad and plan.m_pad % (8 * plan.tn) == 0
-    assert plan.m_pad <= osd_disc.THREADS
-    if plan.resident:  # the one resident launch: a 64 x 64 frame
+    if plan.resident:
+        assert plan.smem_bytes == (plan.stride * plan.nt + plan.nbuf * (
+            plan.stride * plan.m_pad + 8 * plan.m_pad))
+        assert plan.stride == plan.k_pad + 16 and (plan.stride // 16) % 2 == 1
+        assert m <= plan.m_pad and plan.m_pad % (8 * plan.tn) == 0
+        assert plan.m_pad <= osd_disc.THREADS
+        # the one resident launch: a 64 x 64 frame
         assert m <= 64 and k <= 64
         assert (plan.kch, plan.tn, plan.m_pad, plan.k_pad) == (2, 8, 64, 64)
-    else:
-        assert (plan.kch, plan.tn) == (0, 4)
-        assert plan.k_pad % 32 == 0 and k <= plan.k_pad < k + 32
-    # TEP tiles: multiples of 16 that cover N, none empty
-    assert plan.nt % 16 == 0 and plan.nt * plan.n_tiles >= ntot
+        # TEP tiles: multiples of 16 that cover N, none empty
+        assert plan.nt % 16 == 0 and plan.nt * plan.n_tiles >= ntot
+        assert plan.nt * (plan.n_tiles - 1) < ntot
+        assert plan.nbuf in (1, 2)
+        assert plan.grid[1] == plan.n_tiles and 1 <= plan.grid[0] <= b
+        assert plan.grid[0] * plan.grid[1] <= osd_disc.H100_SMS or plan.grid[0] == 1
+        if shape == (32768, 64, 64, 1536):
+            # every TEP resident in one tile, two frame buffers, a block an SM
+            assert (plan.kch, plan.nt, plan.n_tiles, plan.nbuf, plan.grid) == (
+                2, 1536, 1, 2, (132, 1))
+        return
+    assert m > 64 or k > 64
+    assert (plan.kch, plan.tn, plan.nbuf, plan.grid[1]) == (0, 0, 1, 1)
+    # k_pad: the least multiple of the k-slice at or above k, the slice the
+    # widest of those that pad k least; m_pad: the least multiple of 16
+    assert plan.stride in (32, 64, 128)
+    assert plan.k_pad % plan.stride == 0 and k <= plan.k_pad < k + plan.stride
+    assert plan.k_pad == min(-(-k // s) * s for s in (32, 64, 128))
+    assert plan.m_pad % 16 == 0 and m <= plan.m_pad < m + 16
+    # the frame beside two rings of 64-TEP stages (and their barriers)
+    assert osd_disc.MIN_STAGES <= plan.stages <= osd_disc.MAX_STAGES
+    assert plan.smem_bytes == (1024 + 2 * plan.stages * (64 * plan.stride + 16)
+                               + plan.m_pad * plan.k_pad + 8 * plan.m_pad)
+    if plan.stages < osd_disc.MAX_STAGES:  # as many stages as fit
+        assert plan.smem_bytes + 2 * (64 * plan.stride + 16) > 232_448
+    # TEP tiles of 64 in units of nt that cover N, none empty
+    tiles = -(-ntot // 64)
+    assert plan.nt % 64 == 0 and plan.nt * plan.n_tiles >= ntot
     assert plan.nt * (plan.n_tiles - 1) < ntot
-    assert plan.nbuf in (1, 2)
-    assert plan.grid[1] == plan.n_tiles and 1 <= plan.grid[0] <= b
-    assert plan.grid[0] * plan.grid[1] <= osd_disc.H100_SMS or plan.grid[0] == 1
-    if shape == (32768, 64, 64, 1536):
-        # every TEP resident in one tile, two frame buffers, a block an SM
-        assert (plan.kch, plan.nt, plan.n_tiles, plan.nbuf, plan.grid) == (
-            2, 1536, 1, 2, (132, 1))
+    # the grid fills the SMs wherever b times the TEP tiles allows
+    assert plan.grid[0] == min(osd_disc.H100_SMS, b * tiles)
+    assert plan.grid[0] <= b * plan.n_tiles
+    if shape == (1024, 176, 880, 102912):
+        assert (plan.m_pad, plan.k_pad, plan.stride, plan.stages) == (
+            176, 896, 128, 4)
+    if shape == (4096, 192, 192, 1536):
+        assert (plan.m_pad, plan.k_pad, plan.stride, plan.stages) == (
+            192, 192, 64, 8)
+
+
+@pytest.mark.parametrize("shape", [
+    (1024, 176, 880, 102912), (400, 192, 192, 58368), (5, 61, 100, 130),
+    (3, 250, 96, 200), (200, 128, 128, 8192)],
+    ids=lambda s: "x".join(map(str, s)))
+def test_lterm_general_units_cover_every_tile_once(shape):
+    """The general kernel's loops, written out: persistent blocks take units
+    blockIdx.x, + grid, ...; a unit is frame u // n_tiles against its chunk
+    of nt / 64 TEP tiles, which the two warpgroups split by parity (each
+    fed by its own producer ring, stage by stage).  Every (frame, TEP
+    tile) is computed exactly once and the blocks' loads differ by at most
+    one unit."""
+    b, m, k, ntot = shape
+    plan = osd_disc.lterm_plan(b, m, k, ntot)
+    tiles, tpc = -(-ntot // 64), plan.nt // 64
+    units = b * plan.n_tiles
+    seen = np.zeros((b, tiles), np.int64)
+    per_block = []
+    for blk in range(plan.grid[0]):
+        done = 0
+        for u in range(blk, units, plan.grid[0]):
+            f, c = divmod(u, plan.n_tiles)
+            for wg in (0, 1):
+                for tile in range(c * tpc + wg, min((c + 1) * tpc, tiles), 2):
+                    seen[f, tile] += 1
+            done += 1
+        per_block.append(done)
+    assert (seen == 1).all()
+    assert max(per_block) - min(per_block) <= 1
 
 
 def test_lterm_plan_refuses_only_what_does_not_fit():
