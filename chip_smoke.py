@@ -153,7 +153,16 @@ Phases (each raises on failure, so the script never exits 0 after one):
     (``phase_k5_general``): its IMMA and IGMMA counts, K5 on a round's rows
     against twin, f64 and walk, the path's T and a dense random T timed in
     turns (within 3%), the multicode and two ragged shapes against twin and
-    f64, and ``k5.general`` 1 in a recorded WiMAX round, 0 in a CCSDS one;
+    f64, and ``k5.general`` and ``k5.minima_decode`` 1 in a recorded WiMAX
+    round, 0 in a CCSDS one (``k5.block_minima`` 1 in both); wherever K5
+    runs on a path's rows (the main path, the WiMAX round, the multi-code,
+    Rayleigh and NMS-r rows), its block-minima entry against the unfused
+    path (``k5_block_minima``: argmins equal but at a 1e-5 tie, minima
+    within 2 f32 ulps, both timed); on the main path's and the WiMAX
+    round's rows, at both plans and both ways a block closes, the epilogue
+    on its own terms (``k5_block_minima_exact``: a dense random T within
+    the f64 allowance of its arithmetic, exact ties from duplicated rows,
+    frames of signed zeros, an empty block);
 16. the multi-code recipe (``pipeline/multicode.py``) for ``qc_96_48``,
     ``array_121_60`` (rank-deficient H, OSD on its 61-row basis),
     ``wimaxlike_384_192`` and ``regular_256_128``: (a) the eval sweep on the
@@ -545,24 +554,19 @@ def k5_build_lines():
                              "kernels")
 
 
-def k5_minima(prep, lterm_vals, layout, k):
+def k5_minima(prep, lterm_vals, layout, k, tables=None):
     """Block minima and first argmins of the main path's discrepancies from
-    a given parity term: ``engine._disc_flat_chunked`` and
-    ``block_discrepancy_minima`` written out (c0 + lterm + u_m @ T^T, the
-    mask, the per-block minima)."""
+    a given parity term: the unfused path (c0 + lterm + u_m @ T^T, then the
+    per-block ``amin`` and ``first_argmin``), ``osd_disc``'s plain twin, on
+    the layout's ``engine.minima_tables`` (built where not given)."""
     teps, mask, bounds = layout
-    c0, _, u_m, _ = engine._discrepancy_terms(prep, k)
+    c0, u_l, u_m, _ = engine._discrepancy_terms(prep, k)
+    if tables is None:
+        tables = engine.minima_tables(teps, mask, bounds)
     t_flat = teps.reshape(-1, k).to(torch.int8)
-    disc = c0[:, None] + lterm_vals + u_m @ t_flat.T.to(torch.float32)
-    flat = torch.where(mask.reshape(-1)[None, :], disc, engine._BIG)
-    b = flat.shape[0]
-    big = torch.full((b,), engine._BIG, dtype=flat.dtype, device=flat.device)
-    zero = torch.zeros((b,), dtype=torch.int64, device=flat.device)
-    minima = torch.stack([big if e == s else flat[:, s:e].amin(1)
-                          for s, e in bounds], 1)
-    argmins = torch.stack([zero if e == s else engine.first_argmin(flat[:, s:e], 1)
-                           for s, e in bounds], 1)
-    return minima, argmins
+    return osd_disc.block_minima_reference(
+        prep.m_matrix, u_l, c0, u_m, t_flat, tables.block_of, tables.starts,
+        tables.ntot, lterm_vals)
 
 
 def walk_picks(run, prep, minima, argmins, bounds):
@@ -610,12 +614,236 @@ def k5_walk(run, prep, u_l, layout, label="main path",
     return (sk != sk_ref) | (su != su_ref) | (tp != tp_ref), torch.maximum(dl, dl_ref)
 
 
-def k5_launch_shape(b, m, k, ntot, label=""):
+# the block-minima entry against the unfused path: argmins may differ only
+# where the unfused discrepancies of the two picks are this close (relative
+# to the larger of the minimum and 1), minima by this many f32 ulps
+K5_MINIMA_TIE = 1e-5
+K5_MINIMA_ULPS = 2
+
+
+def k5_block_minima(label, prep, layout, k, card=None) -> dict:
+    """K5's block-minima entry (``engine.block_discrepancy_minima`` on the
+    chunked layout: ``osd_disc.block_minima``, its f32 discrepancy formed
+    and reduced in the kernel) against the unfused path on the card (K5's
+    ``lterm``, then ``c0 + lterm + u_m @ T^T``, the mask and the per-block
+    ``amin``/``first_argmin``: :func:`k5_minima`): argmins equal except where
+    the unfused discrepancies at the two picks lie within
+    :data:`K5_MINIMA_TIE`, minima within :data:`K5_MINIMA_ULPS` f32 ulps.
+    Both timed (the whole minima stage, and K5's launch alone) against K5's
+    bound; the entry of the kernel row."""
+    teps, mask, bounds = layout
+    m_mat = prep.m_matrix.contiguous()
+    c0, u_l, u_m, _ = engine._discrepancy_terms(prep, k)
+    u_l = u_l.contiguous()
+    tables = engine.minima_tables(teps, mask, bounds)
+    t_flat = teps.reshape(-1, k).to(torch.int8).contiguous()
+    b, m, _ = m_mat.shape
+    ntot = t_flat.shape[0]
+    got_min, got_arg = engine.block_discrepancy_minima(prep, teps, mask, k,
+                                                       bounds, tables)
+    ref_min, ref_arg = k5_minima(prep, osd_disc.lterm(m_mat, u_l, t_flat),
+                                 layout, k, tables)
+    ref64 = ref_min.double()
+    ulp = (torch.nextafter(ref_min.abs(), torch.full_like(ref_min, math.inf))
+           - ref_min.abs()).double()
+    ulps = float(((got_min.double() - ref64).abs() / ulp).max())
+    differ = got_arg != ref_arg
+    n_differ, closest_split = int(differ.sum()), 0.0
+    if n_differ:
+        disc = (c0[:, None] + osd_disc.lterm(m_mat, u_l, t_flat)
+                + u_m @ t_flat.T.to(torch.float32)).double()
+        rows, blocks = differ.nonzero(as_tuple=True)
+        base = tables.starts[blocks]
+        at_got = disc[rows, base + got_arg[rows, blocks]]
+        at_ref = disc[rows, base + ref_arg[rows, blocks]]
+        split = (at_got - at_ref).abs() / at_ref.abs().clamp(min=1.0)
+        closest_split = float(split.max())
+        del disc
+    stage = {"fused_ms": cuda_ms(lambda: engine.block_discrepancy_minima(
+                 prep, teps, mask, k, bounds, tables), 10),
+             "unfused_ms": cuda_ms(lambda: k5_minima(
+                 prep, osd_disc.lterm(m_mat, u_l, t_flat), layout, k, tables),
+                 10)}
+    args = (m_mat, u_l, c0.contiguous(), u_m.contiguous(), t_flat,
+            tables.positions, tables.block_of, tables.starts, tables.ntot)
+    kernel = {"block_minima_ms": cuda_ms(lambda: osd_disc.block_minima(*args), 10),
+              "lterm_ms": cuda_ms(lambda: osd_disc.lterm(m_mat, u_l, t_flat), 10)}
+    # read M, u_l, c0, u_m and T; write the (B, P) minima and argmins
+    nbytes = (m_mat.numel() + 4 * (u_l.numel() + b + b * k) + t_flat.numel()
+              + 12 * b * len(bounds))
+    bms, bound_by = bound_ms(nbytes, 2.0 * b * m * k * ntot / INT8_OPS,
+                             1.0 * b * m * ntot / F32_INSTR)
+    plan = osd_disc.lterm_plan(b, m, k, ntot, blocks=len(bounds))
+    entry = {"shape": f"M ({b}, {m}, {k}) x T ({ntot}, {k}), {len(bounds)} blocks",
+             "plan": k5_plan_text(plan), "max_ulps": ulps,
+             "argmins_differ": n_differ, "widest_split": closest_split,
+             "bound_ms": bms, "bound_by": bound_by} | stage | kernel
+    log(f"K5 block minima {label} {entry['shape']}"
+        f"{' on ' + card if card else ''}: minima within {ulps:.3g} ulps of "
+        f"the unfused path's; argmins differ at {n_differ} (widest split of "
+        f"the two picks' unfused discrepancies {closest_split:.3g}); minima "
+        f"stage fused {stage['fused_ms']:.4f} ms, unfused "
+        f"{stage['unfused_ms']:.4f} ms; K5 block_minima "
+        f"{kernel['block_minima_ms']:.4f} ms, lterm {kernel['lterm_ms']:.4f} "
+        f"ms; bound {bms:.4f} ms ({bound_by}); plan {entry['plan']}")
+    if ulps > K5_MINIMA_ULPS or closest_split >= K5_MINIMA_TIE:
+        raise AssertionError(
+            f"K5 block minima {label}: {ulps:.3g} ulps from the unfused path "
+            f"(at most {K5_MINIMA_ULPS}), argmins split {closest_split:.3g} "
+            f"apart (under {K5_MINIMA_TIE} allowed)")
+    del got_min, got_arg, ref_min, ref_arg, args
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _block_minima_on(m_mat, u_l, c0, u_m, blocks):
+    """K5's block-minima entry over the TEP ``blocks`` (host 0/1 arrays)
+    packed as the main path packs its path: (minima, argmins, T (N, k)
+    int8, tables)."""
+    teps, mask, bounds = segments.pack_tep_chunks(blocks)
+    dev = m_mat.device
+    teps, mask = torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev)
+    tables = engine.minima_tables(teps, mask, bounds)
+    t_flat = teps.reshape(-1, teps.shape[-1]).contiguous()
+    minima, argmins = osd_disc.block_minima(
+        m_mat, u_l, c0, u_m, t_flat, tables.positions, tables.block_of,
+        tables.starts, tables.ntot)
+    return minima, argmins, t_flat, tables
+
+
+def _sparse_rows(rng, rows, k):
+    """``rows`` TEP rows of 1-3 set columns, as the decoding paths have."""
+    t = np.zeros((rows, k), np.int8)
+    for r in range(rows):
+        t[r, rng.choice(k, rng.integers(1, 4), replace=False)] = 1
+    return t
+
+
+def k5_block_minima_exact(label, prep, k, rows, dense_teps, seed, card=None):
+    """K5's block-minima epilogue checked on its own terms, on ``rows`` of
+    a batch's prepared frames (their real c0, u_l and u_m):
+
+    * a dense random T (``dense_teps`` rows, blocks of uneven sizes, one
+      empty): each block's minimum against the f64 evaluation of d at the
+      kernel's pick, within the rounding the epilogue's arithmetic allows
+      there (lterm rounded once, two f32 adds, the MRB term's f32 sum over
+      n set columns: gamma(n - 1) of its absolute sum), and the pick's f64
+      value within the two picks' allowances of the block's f64 minimum;
+      the unfused path (K5's lterm, the GEMM) read the same way, and the
+      two apart in f32 ulps (the sums' orders differ on a dense T);
+    * exact ties from duplicated TEP rows (a block, the same block again,
+      the block twice over, one row repeated past a 64-TEP tile): equal
+      minima, the first index of each tie; an empty block (``_BIG``, 0);
+    * frames whose c0, u_l and u_m are all -0.0 or all +0.0: every block's
+      minimum 0 and argmin 0 (-0 ties with +0, the first index wins).
+
+    Returns the entry of the kernel row."""
+    rng = np.random.default_rng(seed)
+    c0, u_l, u_m, _ = engine._discrepancy_terms(prep, k)
+    m_mat = prep.m_matrix[:rows].contiguous()
+    c0, u_l, u_m = (t[:rows].contiguous() for t in (c0, u_l, u_m))
+    b, m, _ = m_mat.shape
+    u32 = 2.0 ** -24
+
+    # the dense T against f64
+    sizes = [int(x) for x in rng.multinomial(dense_teps - 1, [0.1, 0.3, 0.15, 0.45])]
+    sizes.insert(2, 0)
+    sizes[0] += 1
+    blocks = [rng.integers(0, 2, (n, k)).astype(np.int8) for n in sizes]
+    got_min, got_arg, t_flat, tables = _block_minima_on(m_mat, u_l, c0, u_m, blocks)
+    t64 = t_flat.double()
+    big_l = lterm_f64(m_mat, u_l, t_flat)
+    mrb_abs = u_m.double().abs() @ t64.T
+    exact = c0.double()[:, None] + big_l + u_m.double() @ t64.T
+    n_set = t64.sum(1)[None, :]
+    gamma = (n_set - 1).clamp(min=0) * u32 / (1 - n_set * u32)
+    outer = c0.double().abs()[:, None] + big_l.abs()
+    # lterm: its f64 sum (m terms) and one rounding; (c0 + l): one rounding;
+    # the MRB sum; (a + mrb): one rounding; 1e-3 over for second-order terms
+    allow = (1 + 1e-3) * (u32 * big_l.abs()
+                          + m * 2.0 ** -53 * u_l.double().abs().sum(1)[:, None]
+                          + u32 * outer + gamma * mrb_abs
+                          + u32 * (outer + mrb_abs))
+    zero_b, zero_bk = torch.zeros_like(c0), torch.zeros_like(u_m)
+    _, opt_arg = osd_disc.block_minima_reference(
+        None, None, zero_b, zero_bk, t_flat, tables.block_of, tables.starts,
+        tables.ntot, exact)
+    unf_min, unf_arg = osd_disc.block_minima_reference(
+        m_mat, u_l, c0, u_m, t_flat, tables.block_of, tables.starts, tables.ntot,
+        osd_disc.lterm(m_mat, u_l, t_flat))
+    full = torch.tensor([n > 0 for n in sizes], device=c0.device)
+    rows_i = torch.arange(b, device=c0.device)[:, None]
+    t_opt = tables.starts[None, :] + opt_arg
+
+    def reading(minima, argmins):
+        t_at = tables.starts[None, :] + argmins
+        value_err = (minima.double() - exact[rows_i, t_at]).abs() / allow[rows_i, t_at]
+        pick_err = ((exact[rows_i, t_at] - exact[rows_i, t_opt])
+                    / (allow[rows_i, t_at] + allow[rows_i, t_opt]))
+        return (float(value_err[:, full].max()), float(pick_err[:, full].max()))
+
+    kernel_read, unfused_read = reading(got_min, got_arg), reading(unf_min, unf_arg)
+    ulp = (torch.nextafter(unf_min.abs(), torch.full_like(unf_min, math.inf))
+           - unf_min.abs()).double()
+    ulps = float(((got_min.double() - unf_min.double()).abs() / ulp)[:, full].max())
+    empty_ok = bool((got_min[:, ~full] == engine._BIG).all()
+                    and (got_arg[:, ~full] == 0).all())
+    log(f"K5 block minima {label}, dense random T ({b}, {m}, {k}) x "
+        f"{t_flat.shape[0]}, blocks {sizes}: kernel minima within "
+        f"{kernel_read[0]:.3g} of their f64 allowance at the pick, picks within "
+        f"{kernel_read[1]:.3g} of the two picks' allowances; unfused path "
+        f"{unfused_read[0]:.3g} / {unfused_read[1]:.3g}; kernel vs unfused "
+        f"{ulps:.3g} f32 ulps (sum orders differ); largest MRB term count "
+        f"{int(n_set.max())}; empty block (BIG, 0): {empty_ok}")
+    del big_l, mrb_abs, exact, allow, t64
+    if max(kernel_read) > 1.0 or not empty_ok:
+        raise AssertionError(f"K5 block minima {label}: dense T off its f64 "
+                             f"allowance {kernel_read}, empty block {empty_ok}")
+
+    # exact ties from duplicated rows, and an empty block
+    base = _sparse_rows(rng, 50, k)
+    single = np.repeat(_sparse_rows(rng, 1, k), 70, axis=0)
+    # the last block fills the layout to ``dense_teps``: one tile of the
+    # resident plan, or several and the device keys
+    blocks = [_sparse_rows(rng, 37, k), base, base.copy(), np.concatenate([base, base]),
+              single, np.zeros((0, k), np.int8),
+              _sparse_rows(rng, max(300, dense_teps - 307), k)]
+    got_min, got_arg, _, _ = _block_minima_on(m_mat, u_l, c0, u_m, blocks)
+    ties = {"repeat_block": bool(torch.equal(got_min[:, 1], got_min[:, 2])
+                                 and torch.equal(got_arg[:, 1], got_arg[:, 2])),
+            "doubled_block": bool(torch.equal(got_min[:, 1], got_min[:, 3])
+                                  and torch.equal(got_arg[:, 1], got_arg[:, 3])),
+            "repeated_row": bool((got_arg[:, 4] == 0).all()),
+            "empty": bool((got_min[:, 5] == engine._BIG).all()
+                          and (got_arg[:, 5] == 0).all())}
+    # the same blocks on frames of signed zeros
+    sign = torch.where(torch.arange(b, device=c0.device) < b // 2,
+                       torch.tensor(-0.0, device=c0.device),
+                       torch.tensor(0.0, device=c0.device))
+    zmin, zarg, _, _ = _block_minima_on(
+        m_mat, sign[:, None].expand(b, m).contiguous(), sign.clone(),
+        sign[:, None].expand(b, k).contiguous(), blocks)
+    live = [p for p, blk in enumerate(blocks) if len(blk)]
+    ties["signed_zero"] = bool((zmin[:, live] == 0).all() and (zarg[:, live] == 0).all()
+                               and (zmin[:, 5] == engine._BIG).all())
+    log(f"K5 block minima {label}, ties on ({b}, {m}, {k}) x "
+        f"{sum(map(len, blocks))} (blocks {[len(x) for x in blocks]}){' on ' + card if card else ''}: "
+        f"{json.dumps(ties)}")
+    if not all(ties.values()):
+        raise AssertionError(f"K5 block minima {label}: ties {ties}")
+    torch.cuda.empty_cache()
+    return {"dense_allowance_used": kernel_read[0], "dense_pick": kernel_read[1],
+            "dense_unfused": list(unfused_read), "dense_ulps_vs_unfused": ulps,
+            "ties": ties}
+
+
+def k5_launch_shape(b, m, k, ntot, label="", blocks=0):
     """Log K5's plan at M (b, m, k) x T (ntot, k) and what the card makes of
     it (registers, local bytes, resident blocks per SM)."""
-    plan = osd_disc.lterm_plan(b, m, k, ntot)
+    plan = osd_disc.lterm_plan(b, m, k, ntot, blocks=blocks)
     occ = osd_disc.lterm_occupancy(plan, torch.cuda.current_device())
-    log(f"K5 launch shape {label}({b}, {m}, {k}) x {ntot}: "
+    log(f"K5 launch shape {label}({b}, {m}, {k}) x {ntot}"
+        f"{f', block minima of {blocks}' if blocks else ''}: "
         f"{k5_plan_text(plan)}; {occ['threads']} threads, "
         f"{occ['registers']} registers and {occ['local_bytes']} local bytes a "
         f"thread, {occ['blocks_per_sm']} resident block(s) per SM on "
@@ -668,7 +896,9 @@ def k5_row(dev, run, prep, u_l, t_flat, layout):
     the main path's input, the ragged (5, 61, 60) x 130 and the other codes'
     shapes (synthetic, u_l from the main path's values), the same shapes
     with N(0, 1.5) weights against f64, the walk on the real batch, the
-    launch shape of each plan, and the timed row."""
+    block-minima entry against the unfused path (``k5_block_minima``), the
+    launch shape of each plan, the epilogue on its own terms at the resident
+    plan's two closes (``k5_block_minima_exact``), and the timed row."""
     k5_build_lines()
     m_mat = prep.m_matrix.contiguous()
     err = k5_check("main path", m_mat, u_l, t_flat)
@@ -685,16 +915,23 @@ def k5_row(dev, run, prep, u_l, t_flat, layout):
             f"N(0, 1.5): max_abs_err vs f64 {err64:.3g}")
         del inputs, got
     k5_walk(run, prep, u_l, layout)
+    minima = k5_block_minima("main path", prep, layout, run["code"].k)
+    minima["exact"] = {
+        f"{n} TEPs": k5_block_minima_exact(f"main path rows ({n} TEPs)", prep,
+                                           run["code"].k, 512, n, 91 + i)
+        for i, n in enumerate((1_200, 6_000))}
     for b_, m_, k_, n_ in ((*m_mat.shape, t_flat.shape[0]),
                            *(s[1:] for s in K5_SHAPES)):
         k5_launch_shape(b_, m_, k_, n_)
+    k5_launch_shape(*m_mat.shape, t_flat.shape[0], "main path ",
+                    len(layout[2]))
 
     row = {
         "name": "K5 lterm", "route": "cuda",
         "source": "short_ldpc_decoding_osd_tpu_torch/csrc/osd_disc.cu",
         "replaces": "short_ldpc_decoding_osd_tpu/ops/osd_disc_pallas.py:40",
         "launches": None, "max_abs_err": err,
-    } | k5_timed("main path", m_mat, u_l, t_flat)
+    } | k5_timed("main path", m_mat, u_l, t_flat) | {"block_minima": minima}
     log(f"K5 lterm: max_abs_err {err:.3g}, kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -3028,8 +3265,9 @@ def k5_entry(label, run, prep, layout, card, twin_rows=None, f64_rows=1024,
     """K5 on a batch's prepared rows over its path's TEPs: against its twin
     and the f64 evaluation, the block minima and walk from K5 against those
     from the twin (a differing frame passes only at an f64 tie,
-    ``ties_only``), its launch shape, timed against its bound and the fp16
-    yardstick; the kernel row's entry for one path."""
+    ``ties_only``), the block-minima entry against the unfused path
+    (``k5_block_minima``), its launch shapes, timed against its bound and
+    the fp16 yardstick; the kernel row's entry for one path."""
     k = run["code"].k
     teps, _, bounds = layout
     m_mat = prep.m_matrix.contiguous()
@@ -3039,9 +3277,12 @@ def k5_entry(label, run, prep, layout, card, twin_rows=None, f64_rows=1024,
     differ, deep = k5_walk(run, prep, u_l, layout, label, twin_rows)
     ties = ties_only(f"K5 vs its twin, {label} walk", prep, differ, deep, t_flat,
                      bounds, k)
+    minima = k5_block_minima(label, prep, layout, k, card)
     k5_launch_shape(*m_mat.shape, t_flat.shape[0], f"{label} ")
+    k5_launch_shape(*m_mat.shape, t_flat.shape[0], f"{label} ", len(bounds))
     k5 = {"max_abs_err": err, "walk_ties": ties} | k5_timed(
-        label, m_mat, u_l, t_flat, twin_rows, lib_teps)
+        label, m_mat, u_l, t_flat, twin_rows, lib_teps) | {
+            "block_minima": minima}
     if lib_teps:
         k5["library"] = (f"fp16 einsum + mod 2 + einsum chained over "
                          f"{lib_teps} TEPs a call")
@@ -3199,12 +3440,15 @@ def k5_f64_only(label, inputs, f64_rows: int = 1024):
         f"u_l N(0, 1.5): max_abs_err vs f64 {err:.3g}")
 
 
-def k5_recorded_general(tp, i: int) -> int:
-    """``k5.general`` counted in one recorded full round of ``tp``."""
+def k5_recorded_general(tp, i: int) -> dict:
+    """``k5.general`` and ``k5.block_minima`` counted in one recorded full
+    round of ``tp``."""
     with profiling.recording(record=profiling.Record()) as rec:
         tp.full_round(i)
     torch.cuda.synchronize()
-    return rec.snapshot()["counters"].get("k5.general", 0)
+    counters = rec.snapshot()["counters"]
+    return {key: counters.get(key, 0)
+            for key in ("k5.general", "k5.block_minima", "k5.minima_decode")}
 
 
 def phase_k5_general(dev, rows, smi):
@@ -3218,7 +3462,9 @@ def phase_k5_general(dev, rows, smi):
     ragged ones against the f64 evaluation on N(0, 1.5) weights, and against
     twin and f64 on weights drawn from the round's u_l, the first two timed
     against their bounds; ``k5.general`` 1 in a recorded WiMAX round and 0
-    in a CCSDS one.
+    in a CCSDS one, ``k5.block_minima`` 1 in both, ``k5.minima_decode`` as
+    ``k5.general``; the block-minima epilogue on its own terms on 256 of the
+    round's rows (``k5_block_minima_exact``).
     The K5 row gets the entries under ``k5_general``."""
     t0 = time.perf_counter()
     k5_build_lines()
@@ -3236,6 +3482,8 @@ def phase_k5_general(dev, rows, smi):
     # the round's own weights: the twin's f32 sum holds 1e-5 on them (on
     # N(0, 1.5) weights, whose sums cancel, only the f64 evaluation does)
     u_pool = engine._discrepancy_terms(prep, code.k)[1].flatten().cpu().numpy()
+    entry["wimax_system"]["block_minima"]["exact"] = k5_block_minima_exact(
+        "wimax round rows (general plan)", prep, code.k, 256, 4_096, 95, smi)
     del refined, prep
     t_path = tp.teps.reshape(-1, tp.code.k).to(torch.int8).contiguous()
     ntot = t_path.shape[0]
@@ -3278,9 +3526,15 @@ def phase_k5_general(dev, rows, smi):
     del tp, buf
     torch.cuda.empty_cache()
     counts["ccsds"] = k5_recorded_general(system.TwoPhase(R4, device=dev), 0)
-    log(f"K5 k5.general counted in a recorded round: {json.dumps(counts)}")
-    if counts != {"wimax": 1, "ccsds": 0}:
-        raise AssertionError(f"k5.general {counts}: expected WiMAX 1, CCSDS 0")
+    log(f"K5 k5.general and k5.block_minima counted in a recorded round: "
+        f"{json.dumps(counts)}")
+    if counts != {"wimax": {"k5.general": 1, "k5.block_minima": 1,
+                            "k5.minima_decode": 1},
+                  "ccsds": {"k5.general": 0, "k5.block_minima": 1,
+                            "k5.minima_decode": 0}}:
+        raise AssertionError(f"K5 counters {counts}: expected k5.general and "
+                             "k5.minima_decode 1 (WiMAX) and 0 (CCSDS), "
+                             "k5.block_minima 1 in both")
     for row in rows:
         if row["name"] == "K5 lterm":
             row["k5_general"] = entry

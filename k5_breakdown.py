@@ -64,16 +64,15 @@ def variants(src: str) -> dict:
     f32 = src
     for old, new in (("double2", "float2"), ("double", "float"),
                      ("add.f64", "add.f32"), ('"+d"', '"+f"'),
-                     ('"d"(u)', '"f"(u)'), ("__float2float_rn(s0)", "s0"),
-                     ("__float2float_rn(s1)", "s1")):
+                     ('"d"(u)', '"f"(u)'), ("__float2float_rn(", "(")):
         f32 = f32.replace(old, new)
     no_sum = _replace(src, WEIGH, "    ip[0] += acc[0] ^ acc[1];\n"
                                   "    ip[1] += acc[2] ^ acc[3];")
     no_sum = _replace(no_sum, "  double s[4] = {0.0, 0.0, 0.0, 0.0};",
                       "  double s[4] = {0.0, 0.0, 0.0, 0.0};\n"
                       "  int ip[2] = {0, 0};")
-    no_sum = _replace(no_sum, "double s0 = s[0] + s[1], s1 = s[2] + s[3];",
-                      "double s0 = ip[0], s1 = ip[1];")
+    no_sum = _replace(no_sum, "    s0 = s[0] + s[1];\n    s1 = s[2] + s[3];",
+                      "    s0 = ip[0];\n    s1 = ip[1];")
     return {"kernel": src, "f32_sum": f32,
             "select_sum": _replace(src, PREDICATED_ADD, "  if (acc & 1) s += u;"),
             "no_sum": no_sum}

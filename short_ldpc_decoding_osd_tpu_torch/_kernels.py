@@ -66,8 +66,19 @@ _SIGNATURES = {
         # smem_bytes), stream
         "lterm_general_launch": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _I, _I, _I, _I, _VP],
-        # kch, tn, m_pad, smem_bytes, device, out (int32 [6])
-        "lterm_occupancy": [_I, _I, _I, _I, _I, _VP],
+        # m_matrix, u_l, teps, c0, u_m, offsets, cols, block_of, starts,
+        # keys, minima, argmins, batch, m, k, ntot, nreal, blocks, then the
+        # resident plan (kch, tn, m_pad, k_pad, nt, n_tiles, nbuf, grid_x,
+        # smem_bytes), stream
+        "block_minima_launch": [_VP] * 12 + [_I] * 15 + [_VP],
+        # m_matrix, u_l, teps, c0, u_m, offsets, cols, block_of, keys, batch,
+        # m, k, ntot, nreal, blocks, t_cols, then the general plan (m_pad,
+        # k_pad, kslice, stages, nt, n_tiles, grid_x, smem_bytes), stream
+        "block_minima_general_launch": [_VP] * 9 + [_I] * 15 + [_VP],
+        # keys, starts, minima, argmins, batch, blocks, stream
+        "minima_decode": [_VP, _VP, _VP, _VP, _I, _I, _VP],
+        # kch, tn, m_pad, smem_bytes, minima, device, out (int32 [6])
+        "lterm_occupancy": [_I, _I, _I, _I, _I, _I, _VP],
     },
     "mc_fused": {
         # bucket, warps, frames, k, stage, out (int32 [6])

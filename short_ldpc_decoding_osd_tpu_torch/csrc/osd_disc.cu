@@ -70,6 +70,27 @@
 // - A frame whose padded M does not fit beside two rings of three stages
 //   is refused by the plan.
 //
+// Block minima (the second entry, block_minima_*): the same mainloops, and
+// an epilogue that finishes the discrepancy map and reduces it, so that only
+// the (B, P) block minima and first argmins leave the kernel.  Per (frame b,
+// TEP t) it rounds the parity sum l to f32 as above and forms
+// d = (c0[b] + l) + mrb(b, t) in IEEE f32 in that order, mrb(b, t) = u_m[b] . t
+// summed in f32 over t's set columns in ascending order.  Those come from a
+// per-TEP position list (CSR), whose head (offset, count and the first three
+// columns: the path's TEPs have 1-3) is one 16-byte load issued before the
+// tile's MMAs; it is exact for any T, a long list read on from the CSR.  A
+// TEP in no block (the mask, past the real TEPs) is skipped.  Each lane
+// keeps a running minimum of the 64-bit key (order-preserving bits << 32 |
+// flat index) over its TEPs of one block, and atomicMin's it into the
+// block's key when it moves to another block and at the end of the frame:
+// the smallest d, the first index on ties (-0 counted as +0, as == does).
+// Where one block holds all of a frame's TEPs (the resident plan with one
+// tile) the keys close in shared memory, two buffers a frame apart, and the
+// block writes the decoded minima and block-local argmins; otherwise into a
+// (B, P) key array in device memory, filled before the launch and decoded
+// after it (minima_decode).  Either way the result does not depend on the
+// order of arrival.  An empty block reads (3.4e38, 0), as engine._BIG.
+//
 // Summation order, all in f64 and the same in both plans: a thread adds its
 // check rows 8j + 2t and 8j + 2t + 1 in two chains over ascending j (then
 // row 2t's chain plus row 2t + 1's), the quad adds lanes t^1 then t^2, and
@@ -187,15 +208,22 @@ struct Partials {
     add_if_odd(s[3], acc[3], u.y);
   }
 
-  // the quad's sum for TEPs g and g + 8, rounded once; lanes t = 0 and 1
-  // write 16 consecutive floats
-  __device__ __forceinline__ void finish(float* outrow, int tep0, int lane,
-                                        int ntot) const {
-    double s0 = s[0] + s[1], s1 = s[2] + s[3];
+  // the quad's sums for TEPs g (s0) and g + 8 (s1), in every lane of it
+  __device__ __forceinline__ void sums(double& s0, double& s1) const {
+    s0 = s[0] + s[1];
+    s1 = s[2] + s[3];
     s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
     s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
     s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
     s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+  }
+
+  // the quad's sum for TEPs g and g + 8, rounded once; lanes t = 0 and 1
+  // write 16 consecutive floats
+  __device__ __forceinline__ void finish(float* outrow, int tep0, int lane,
+                                        int ntot) const {
+    double s0, s1;
+    sums(s0, s1);
     const int g = lane >> 2, t = lane & 3;
     if (t == 0 && tep0 + g < ntot) outrow[tep0 + g] = __double2float_rn(s0);
     if (t == 1 && tep0 + g + 8 < ntot)
@@ -203,14 +231,130 @@ struct Partials {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The block-minima epilogue.
+
+// What the block-minima instantiations read and write beyond lterm's
+// operands (all zero for lterm's).
+struct MinimaArgs {
+  const float* c0;           // (batch,)
+  const float* um;           // (batch, k)
+  const int4* heads;         // (ntot,): TEP t's position list (o, n, c0 |
+                             //   c1 << 16, c2), its first three columns
+  const int16_t* cols;       //   of cols[o .. o + n), ascending
+  const int* block_of;       // (ntot,): t's block, -1 where it has none
+  const long long* starts;   // (blocks,): each block's first flat index
+  long long* keys;           // (batch, blocks) running keys; null: direct
+  float* minima;             // (batch, blocks), written where direct
+  long long* argmins;        // (batch, blocks), written where direct
+  int blocks;
+  int nreal;                 // TEPs at or past it are skipped
+};
+
+constexpr long long kNoKey = 0x7fffffffffffffffLL;  // a block with no TEP
+constexpr float kBig = 3.4e38f;                     // osd/engine.py _BIG
+
+// f32 bits as an int that orders as the floats do, -0 as +0 (an involution
+// on the bits: the same map decodes)
+__device__ __forceinline__ int order_bits(int i) {
+  return i ^ ((i >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ void decode_key(long long key, long long start,
+                                           float& v, long long& a) {
+  if (key == kNoKey) {
+    v = kBig;
+    a = 0;
+    return;
+  }
+  v = __int_as_float(order_bits(static_cast<int>(key >> 32)));
+  a = static_cast<long long>(static_cast<unsigned>(key & 0xffffffffLL)) - start;
+}
+
+// A lane's TEP (lanes t = 0, 1 of a quad; none for t = 2, 3), its block
+// (-1: none) and the head of its position list: two independent loads,
+// issued before the tile's MMAs so that the epilogue does not wait on them.
+struct TepPos {
+  int tep, blk;
+  int4 head;
+
+  __device__ __forceinline__ void load(const MinimaArgs& ma, int t,
+                                       bool mine) {
+    tep = t;
+    blk = -1;
+    head = make_int4(0, 0, 0, 0);
+    if (mine && t < ma.nreal) {
+      blk = __ldg(ma.block_of + t);
+      head = __ldg(ma.heads + t);
+    }
+  }
+
+  // u_m . t in f32 (s_um the frame's u_m), the set columns in ascending
+  // order: the first three from the head, the rest from the list
+  __device__ __forceinline__ float mrb(const MinimaArgs& ma,
+                                       const float* s_um) const {
+    const int n = head.y;
+    float s = 0.f;
+    if (n > 0) s = s_um[head.z & 0xffff];
+    if (n > 1) s = __fadd_rn(s, s_um[head.z >> 16]);
+    if (n > 2) s = __fadd_rn(s, s_um[head.w]);
+    for (int j = head.x + 3; j < head.x + n; ++j)
+      s = __fadd_rn(s, s_um[__ldg(ma.cols + j)]);
+    return s;
+  }
+};
+
+// A lane's running minimum key (order bits << 32 | TEP) over the TEPs it
+// holds of one block: folded into keys[block] (shared or device memory) by
+// atomicMin when the lane meets another block, and by flush() at the end of
+// the frame's TEPs.  The lane's TEPs ascend, so it changes block a few times
+// a frame, and the fold asks nothing of the other lanes.  (Folding each
+// tile's 16 TEPs across the warp instead, by match_any and redux, measured
+// 13% slower at the main path and 9% at WiMAX's shape; combining the lanes
+// that fold at once, 15% and 1% slower, or at the frame's end alone, 3% and
+// 0%.)
+struct RunMin {
+  int blk = -1;
+  long long key = kNoKey;
+
+  // the discrepancy d (l rounded from the parity sum s, plus the frame's c0
+  // and the TEP's mrb) of the lane's TEP pos
+  __device__ __forceinline__ void add(const MinimaArgs& ma, const TepPos& pos,
+                                      const float* s_um, float c0f, double s,
+                                      long long* keys) {
+    if (pos.blk < 0) return;
+    const float l = __double2float_rn(s);
+    const float d = __fadd_rn(__fadd_rn(c0f, l), pos.mrb(ma, s_um));
+    const int ord = order_bits(__float_as_int(d == 0.f ? 0.f : d));
+    const long long k = static_cast<long long>(
+        (static_cast<unsigned long long>(static_cast<unsigned>(ord)) << 32) |
+        static_cast<unsigned>(pos.tep));
+    if (pos.blk != blk) {
+      flush(keys);
+      blk = pos.blk;
+      key = k;
+    } else if (k < key) {
+      key = k;
+    }
+  }
+
+  __device__ __forceinline__ void flush(long long* keys) {
+    if (blk >= 0) atomicMin(keys + blk, key);
+    blk = -1;
+  }
+};
+
 // one frame, resident: the frame's 8 * TN rows x 32 * KCH bytes of B
-// fragments and its u in registers, every TEP tile of the warp against them
-template <int KCH, int TN>
-__device__ __forceinline__ void frame_resident(const int8_t* s_t,
-                                               const int8_t* s_mf,
-                                               const double* s_uf,
-                                               float* outrow, int S, int nt0,
-                                               int ntot, int tiles) {
+// fragments and its u in registers, every TEP tile of the warp against them;
+// lterm writes the tiles' sums to outrow (the warp's tiles warp, warp + 16,
+// ...); block minima fold them into keys (the frame's u_m s_umf, its c0f),
+// the warp's tiles contiguous, so that a lane's TEPs stay in a block long
+// (lanes t = 0 and 1 hold TEPs g and g + 8 of each tile)
+template <int KCH, int TN, bool kMinima>
+__device__ __forceinline__ void frame_resident(
+    const int8_t* s_t, const int8_t* s_mf, const double* s_uf, float* outrow,
+    int S, int nt0, int ntot, int tiles, const MinimaArgs& ma,
+    const float* s_umf, float c0f, long long* keys) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane & 3;
   uint32_t bf[TN][KCH][2];
@@ -229,7 +373,18 @@ __device__ __forceinline__ void frame_resident(const int8_t* s_t,
     uu[j] = *reinterpret_cast<const double2*>(s_uf + 8 * j + 2 * t);
   const int arow = (lane & 7) + 8 * ((lane >> 3) & 1);
   const int acol = 16 * (lane >> 4);
-  for (int tile = warp; tile < tiles; tile += kWarps) {
+  int lo = warp, hi = tiles, step = kWarps;
+  if constexpr (kMinima) {
+    const int per = (tiles + kWarps - 1) / kWarps;
+    lo = warp * per;
+    hi = min(tiles, lo + per);
+    step = 1;
+  }
+  TepPos pos;
+  RunMin run;
+  for (int tile = lo; tile < hi; tile += step) {
+    if constexpr (kMinima)
+      pos.load(ma, nt0 + 16 * tile + (lane >> 2) + 8 * t, t < 2);
     uint32_t af[KCH][4];
 #pragma unroll
     for (int kc = 0; kc < KCH; ++kc)
@@ -244,22 +399,50 @@ __device__ __forceinline__ void frame_resident(const int8_t* s_t,
         mma_s8(acc, af[kc], bf[j][kc][0], bf[j][kc][1]);
       part.weigh(acc, uu[j]);
     }
-    part.finish(outrow, nt0 + 16 * tile, lane, ntot);
+    if constexpr (kMinima) {
+      double s0, s1;
+      part.sums(s0, s1);
+      run.add(ma, pos, s_umf, c0f, t == 0 ? s0 : s1, keys);
+    } else {
+      part.finish(outrow, nt0 + 16 * tile, lane, ntot);
+    }
+  }
+  if constexpr (kMinima) run.flush(keys);
+}
+
+// frame f's keys of the block's TEPs (s_key), then reset: decoded into the
+// outputs where the block holds all of the frame's TEPs, else folded into the
+// device keys
+__device__ void flush_minima(const MinimaArgs& ma, long long* s_key,
+                             long long f) {
+  for (int p = threadIdx.x; p < ma.blocks; p += kThreads) {
+    const long long key = s_key[p];
+    s_key[p] = kNoKey;
+    if (ma.keys == nullptr) {
+      decode_key(key, ma.starts[p], ma.minima[f * ma.blocks + p],
+                 ma.argmins[f * ma.blocks + p]);
+    } else if (key != kNoKey) {
+      atomicMin(ma.keys + f * ma.blocks + p, key);
+    }
   }
 }
 
-// the resident plan: m_pad == 8 TN, k_pad == 32 KCH
-template <int KCH, int TN>
+// the resident plan: m_pad == 8 TN, k_pad == 32 KCH.  Shared memory: the
+// TEP tile, nbuf frames of M, their u as f64, and for block minima two
+// buffers of keys (frames i and i - 1) and nbuf frames' u_m as f32.
+template <int KCH, int TN, bool kMinima>
 __global__ void __launch_bounds__(kThreads, 1)
     lterm_kernel(const int8_t* __restrict__ mm, const float* __restrict__ ul,
                  const int8_t* __restrict__ tt, float* __restrict__ out,
                  int batch, int m, int k, int ntot, int m_pad, int k_pad,
-                 int nt, int nbuf, int vec) {
+                 int nt, int nbuf, int vec, const MinimaArgs ma) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = k_pad + 16;
   int8_t* s_t = reinterpret_cast<int8_t*>(smem);     // nt rows of T
   int8_t* s_m = s_t + nt * S;                        // nbuf frames of M
   double* s_u = reinterpret_cast<double*>(s_m + nbuf * m_pad * S);
+  long long* s_key = reinterpret_cast<long long*>(s_u + nbuf * m_pad);
+  float* s_um = reinterpret_cast<float*>(s_key + 2 * ma.blocks);
   const int tid = threadIdx.x;
   const int nt0 = blockIdx.y * nt;
   const int teps_here = min(nt, ntot - nt0);
@@ -276,26 +459,39 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid < m_pad)
     s_u[tid] = (f < batch && tid < m) ? static_cast<double>(ul[f * m + tid])
                                       : 0.0;
+  if constexpr (kMinima) {
+    for (int p = tid; p < 2 * ma.blocks; p += kThreads) s_key[p] = kNoKey;
+    if (tid < k_pad) s_um[tid] = (f < batch && tid < k) ? ma.um[f * k + tid] : 0.f;
+  }
 
-  for (int i = 0; f < batch; ++i, f += step) {
+  int i = 0;
+  for (; f < batch; ++i, f += step) {
     const int cur = nbuf == 2 ? (i & 1) : 0;
     cp_async_wait_all();
     __syncthreads();  // frame f landed; every warp is done with frame f - step
+    if constexpr (kMinima)
+      if (i > 0) flush_minima(ma, s_key + ((i - 1) & 1) * ma.blocks, f - step);
     const long long fn = f + step;
-    float u_next = 0.f;
+    float u_next = 0.f, um_next = 0.f;
     if (nbuf == 2) {
       if (fn < batch)
         stage_rows(s_m + (cur ^ 1) * m_pad * S, mm + fn * frame_bytes, m, k,
                    m_pad, k_pad, S, vec);
       cp_async_commit();
       if (tid < m && fn < batch) u_next = ul[fn * m + tid];
+      if constexpr (kMinima)
+        if (tid < k && fn < batch) um_next = ma.um[fn * k + tid];
     }
     const int8_t* s_mf = s_m + cur * m_pad * S;
     const double* s_uf = s_u + cur * m_pad;
-    float* outrow = out + f * ntot;
-    frame_resident<KCH, TN>(s_t, s_mf, s_uf, outrow, S, nt0, ntot, tiles);
+    float* outrow = kMinima ? nullptr : out + f * ntot;
+    frame_resident<KCH, TN, kMinima>(
+        s_t, s_mf, s_uf, outrow, S, nt0, ntot, tiles, ma, s_um + cur * k_pad,
+        kMinima ? ma.c0[f] : 0.f, s_key + (i & 1) * ma.blocks);
     if (nbuf == 2) {
       if (tid < m_pad) s_u[(cur ^ 1) * m_pad + tid] = u_next;
+      if constexpr (kMinima)
+        if (tid < k_pad) s_um[(cur ^ 1) * k_pad + tid] = um_next;
     } else {
       __syncthreads();  // every warp is done with the one buffer
       if (fn < batch)
@@ -304,9 +500,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (tid < m_pad)
         s_u[tid] = (fn < batch && tid < m)
                        ? static_cast<double>(ul[fn * m + tid]) : 0.0;
+      if constexpr (kMinima)
+        if (tid < k_pad)
+          s_um[tid] = (fn < batch && tid < k) ? ma.um[fn * k + tid] : 0.f;
     }
   }
   cp_async_wait_all();
+  if constexpr (kMinima) {
+    __syncthreads();  // every warp is done with the last frame
+    if (i > 0) flush_minima(ma, s_key + ((i - 1) & 1) * ma.blocks, f - step);
+  }
 }
 
 
@@ -493,11 +696,13 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[kN / 2], uint64_t da,
 // kN rows x `slice` bytes, each swizzled as TMA's and wgmma's
 // CU_TENSOR_MAP_SWIZZLE_<slice>B (16-byte chunk c of row r at chunk
 // c ^ (r / (128 / slice) mod (slice / 16))), zero beyond (rows, k); its u
-// as f64, 0 beyond rows.  16-byte cp.async where rows are 16-byte aligned
-// (vec), else byte loads and one 16-byte store a chunk.  Threads 0-255.
-template <int kN>
-__device__ void stage_frame(int8_t* s_m, double* s_u, const int8_t* src,
-                            const float* usrc, int rows, int k, int k_pad,
+// as f64, 0 beyond rows; for block minima its u_m (s_um, k_pad f32, 0
+// beyond k).  16-byte cp.async where rows are 16-byte aligned (vec), else
+// byte loads and one 16-byte store a chunk.  Threads 0-255.
+template <int kN, bool kMinima>
+__device__ void stage_frame(int8_t* s_m, double* s_u, float* s_um,
+                            const int8_t* src, const float* usrc,
+                            const float* umsrc, int rows, int k, int k_pad,
                             int slice, bool vec, int tid) {
   const int cpr = k_pad / 16, cps = slice / 16, mask = cps - 1;
   for (int i = tid; i < kN * cpr; i += 256) {
@@ -525,6 +730,8 @@ __device__ void stage_frame(int8_t* s_m, double* s_u, const int8_t* src,
   }
   for (int i = tid; i < kN; i += 256)
     s_u[i] = i < rows ? static_cast<double>(usrc[i]) : 0.0;
+  if constexpr (kMinima)
+    for (int i = tid; i < k_pad; i += 256) s_um[i] = i < k ? umsrc[i] : 0.f;
   cp_async_commit();
   cp_async_wait_all();
 }
@@ -533,14 +740,16 @@ __device__ void stage_frame(int8_t* s_m, double* s_u, const int8_t* src,
 // [c tpc, min((c + 1) tpc, tiles)) of 64, c = u % chunks.  Shared memory
 // (from a 1024-aligned base): two rings of `stages` stages of 64 x slice
 // bytes, the frame (kN x k_pad), its u (kN f64), the full and empty
-// barriers.
-template <int kN>
+// barriers, and for block minima the frame's u_m (k_pad f32).  Block minima
+// fold into the device keys ma.keys.
+template <int kN, bool kMinima>
 __global__ void __launch_bounds__(kGenThreads, 1)
     lterm_general_kernel(const __grid_constant__ CUtensorMap tmap,
                          const int8_t* __restrict__ mm,
                          const float* __restrict__ ul, float* __restrict__ out,
                          int batch, int m, int k, int ntot, int k_pad,
-                         int slice, int stages, int tpc, int chunks, int vec) {
+                         int slice, int stages, int tpc, int chunks, int vec,
+                         const MinimaArgs ma) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -550,6 +759,7 @@ __global__ void __launch_bounds__(kGenThreads, 1)
   double* s_u = reinterpret_cast<double*>(s_m + kN * k_pad);
   uint64_t* full = reinterpret_cast<uint64_t*>(s_u + kN);
   uint64_t* empty = full + 2 * stages;
+  float* s_um = reinterpret_cast<float*>(empty + 2 * stages);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tiles = (ntot + kTepTile - 1) / kTepTile;
   const long long units = static_cast<long long>(batch) * chunks;
@@ -604,15 +814,23 @@ __global__ void __launch_bounds__(kGenThreads, 1)
     const int c = static_cast<int>(u % chunks);
     // both warpgroups are done with the last frame (wgmma and epilogue)
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    stage_frame<kN>(s_m, s_u, mm + f * m * k, ul + f * m, m, k, k_pad, slice,
-                    vec != 0, threadIdx.x);
+    stage_frame<kN, kMinima>(s_m, s_u, s_um, mm + f * m * k, ul + f * m,
+                             kMinima ? ma.um + f * k : nullptr, m, k, k_pad,
+                             slice, vec != 0, threadIdx.x);
     // the frame's generic-proxy writes, visible to wgmma's async proxy
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync 1, 256;\n" ::: "memory");
-    float* outrow = out + f * ntot;
+    float* outrow = kMinima ? nullptr : out + f * ntot;
+    const float c0f = kMinima ? ma.c0[f] : 0.f;
+    long long* keys = kMinima ? ma.keys + f * ma.blocks : nullptr;
+    RunMin run;  // block minima: the lane's running key
     const int t_end = min((c + 1) * tpc, tiles);
     for (int tile = c * tpc; tile < t_end; ++tile, ++seq) {
       if ((seq & 1) != wg) continue;
+      TepPos pos;
+      if constexpr (kMinima)
+        pos.load(ma, tile * kTepTile + 16 * wq + (lane >> 2) + 8 * (lane & 3),
+                 (lane & 3) < 2);
       int acc[kN / 2];
 #pragma unroll
       for (int i = 0; i < kN / 2; ++i) acc[i] = 0;
@@ -653,54 +871,89 @@ __global__ void __launch_bounds__(kGenThreads, 1)
                           acc[4 * j + 3]};
         part.weigh(q, *reinterpret_cast<const double2*>(s_u + 8 * j + 2 * t));
       }
-      part.finish(outrow, tile * kTepTile + 16 * wq, lane, ntot);
+      if constexpr (kMinima) {
+        double s0, s1;
+        part.sums(s0, s1);
+        run.add(ma, pos, s_um, c0f, (lane & 3) == 0 ? s0 : s1, keys);
+      } else {
+        part.finish(outrow, tile * kTepTile + 16 * wq, lane, ntot);
+      }
     }
+    if constexpr (kMinima) run.flush(keys);
   }
 }
 
+// the decoded (batch, blocks) keys of the general route: minima and
+// block-local first argmins
+__global__ void minima_decode_kernel(const long long* __restrict__ keys,
+                                     const long long* __restrict__ starts,
+                                     float* __restrict__ minima,
+                                     long long* __restrict__ argmins,
+                                     long long n, int blocks) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
+    decode_key(keys[i], starts[i % blocks], minima[i], argmins[i]);
+}
+
 using Kernel = void (*)(const int8_t*, const float*, const int8_t*, float*,
-                        int, int, int, int, int, int, int, int, int);
+                        int, int, int, int, int, int, int, int, int,
+                        const MinimaArgs);
 using GeneralKernel = void (*)(const CUtensorMap, const int8_t*, const float*,
                                float*, int, int, int, int, int, int, int, int,
-                               int, int);
+                               int, int, const MinimaArgs);
 
-// the resident instantiation: (kch, tn) = (2, 8)
-Kernel pick(int kch, int tn) {
-  if (kch == 2 && tn == 8) return lterm_kernel<2, 8>;
+// the resident instantiation: (kch, tn) = (2, 8), lterm's or block minima's
+Kernel pick(int kch, int tn, bool minima) {
+  if (kch == 2 && tn == 8)
+    return minima ? lterm_kernel<2, 8, true> : lterm_kernel<2, 8, false>;
   return nullptr;
 }
 
-// the general instantiation for a padded frame of m_pad rows
-GeneralKernel pick_general(int m_pad) {
+template <bool kMinima>
+GeneralKernel pick_general_of(int m_pad) {
   switch (m_pad) {
-    case 16: return lterm_general_kernel<16>;
-    case 32: return lterm_general_kernel<32>;
-    case 48: return lterm_general_kernel<48>;
-    case 64: return lterm_general_kernel<64>;
-    case 80: return lterm_general_kernel<80>;
-    case 96: return lterm_general_kernel<96>;
-    case 112: return lterm_general_kernel<112>;
-    case 128: return lterm_general_kernel<128>;
-    case 144: return lterm_general_kernel<144>;
-    case 160: return lterm_general_kernel<160>;
-    case 176: return lterm_general_kernel<176>;
-    case 192: return lterm_general_kernel<192>;
-    case 208: return lterm_general_kernel<208>;
-    case 224: return lterm_general_kernel<224>;
-    case 240: return lterm_general_kernel<240>;
-    case 256: return lterm_general_kernel<256>;
+    case 16: return lterm_general_kernel<16, kMinima>;
+    case 32: return lterm_general_kernel<32, kMinima>;
+    case 48: return lterm_general_kernel<48, kMinima>;
+    case 64: return lterm_general_kernel<64, kMinima>;
+    case 80: return lterm_general_kernel<80, kMinima>;
+    case 96: return lterm_general_kernel<96, kMinima>;
+    case 112: return lterm_general_kernel<112, kMinima>;
+    case 128: return lterm_general_kernel<128, kMinima>;
+    case 144: return lterm_general_kernel<144, kMinima>;
+    case 160: return lterm_general_kernel<160, kMinima>;
+    case 176: return lterm_general_kernel<176, kMinima>;
+    case 192: return lterm_general_kernel<192, kMinima>;
+    case 208: return lterm_general_kernel<208, kMinima>;
+    case 224: return lterm_general_kernel<224, kMinima>;
+    case 240: return lterm_general_kernel<240, kMinima>;
+    case 256: return lterm_general_kernel<256, kMinima>;
     default: return nullptr;
   }
 }
 
-long long plan_smem(int m_pad, int k_pad, int nt, int nbuf) {
-  const long long S = k_pad + 16;
-  return S * nt + nbuf * (S * m_pad + 8LL * m_pad);
+// the general instantiation for a padded frame of m_pad rows
+GeneralKernel pick_general(int m_pad, bool minima) {
+  return minima ? pick_general_of<true>(m_pad) : pick_general_of<false>(m_pad);
 }
 
-long long general_smem(int m_pad, int k_pad, int slice, int stages) {
+// shared bytes of a resident block (ops/osd_disc.py _smem): the TEP tile,
+// nbuf frames and their u, and for block minima two buffers of keys and
+// nbuf frames' u_m
+long long plan_smem(int m_pad, int k_pad, int nt, int nbuf, int blocks) {
+  const long long S = k_pad + 16;
+  return S * nt + nbuf * (S * m_pad + 8LL * m_pad) +
+         (blocks > 0 ? 16LL * blocks + 4LL * nbuf * k_pad : 0);
+}
+
+// shared bytes of a general block (ops/osd_disc.py general_smem), and for
+// block minima the frame's u_m
+long long general_smem(int m_pad, int k_pad, int slice, int stages,
+                       int blocks) {
   return 1024LL + 2LL * stages * (kTepTile * slice + 16) +
-         static_cast<long long>(m_pad) * k_pad + 8LL * m_pad;
+         static_cast<long long>(m_pad) * k_pad + 8LL * m_pad +
+         (blocks > 0 ? 4LL * k_pad : 0);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -728,25 +981,24 @@ int set_smem(const void* kern, int smem_bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
 }
 
-}  // namespace
-
-// The launch of one resident plan (ops/osd_disc.py lterm_plan); returns a
-// cudaError code, cudaErrorInvalidValue for a plan that does not fit the
-// shape.
-extern "C" int lterm_launch(const void* m_matrix, const void* u_l,
-                            const void* teps, void* out, int batch, int m,
-                            int k, int ntot, int kch, int tn, int m_pad,
-                            int k_pad, int nt, int n_tiles, int nbuf,
-                            int grid_x, int smem_bytes, void* stream) {
-  const Kernel kern = pick(kch, tn);
+// one resident plan, lterm's (ma.blocks == 0) or block minima's
+int resident_launch(const void* m_matrix, const void* u_l, const void* teps,
+                    void* out, int batch, int m, int k, int ntot, int kch,
+                    int tn, int m_pad, int k_pad, int nt, int n_tiles,
+                    int nbuf, int grid_x, int smem_bytes, void* stream,
+                    const MinimaArgs& ma) {
+  const bool minima = ma.blocks > 0;
+  const Kernel kern = pick(kch, tn, minima);
   const bool ok =
       kern != nullptr && batch > 0 && ntot > 0 && m > 0 && k > 0 &&
       k <= k_pad && m <= m_pad && k_pad == 32 * kch && m_pad == 8 * tn &&
       nt % 16 == 0 && nt > 0 && static_cast<long long>(nt) * n_tiles >= ntot &&
       static_cast<long long>(nt) * (n_tiles - 1) < ntot &&
       (nbuf == 1 || nbuf == 2) && grid_x >= 1 && grid_x <= batch &&
-      plan_smem(m_pad, k_pad, nt, nbuf) == smem_bytes &&
-      smem_bytes <= kMaxSmem;
+      plan_smem(m_pad, k_pad, nt, nbuf, ma.blocks) == smem_bytes &&
+      smem_bytes <= kMaxSmem &&
+      // direct minima need the whole frame in one block
+      (!minima || ma.keys != nullptr || n_tiles == 1);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   // the limit belongs to the kernel: set it before every launch
   const int err = set_smem(reinterpret_cast<const void*>(kern), smem_bytes);
@@ -758,23 +1010,18 @@ extern "C" int lterm_launch(const void* m_matrix, const void* u_l,
   const dim3 grid(grid_x, n_tiles);
   kern<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       mm, static_cast<const float*>(u_l), tt, static_cast<float*>(out), batch,
-      m, k, ntot, m_pad, k_pad, nt, nbuf, vec);
+      m, k, ntot, m_pad, k_pad, nt, nbuf, vec, ma);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch of one general plan: T (ntot, k) read through a tensor map
-// with rows t_cols bytes apart (t_cols >= k, a multiple of 16, zero beyond
-// k); nt TEPs (tpc tiles of 64) a unit, n_tiles units a frame, grid_x
-// persistent blocks.  Returns a cudaError code (cudaErrorInvalidValue for
-// a plan that does not fit the shape, cudaErrorNotSupported where
-// libcuda gives no tensor map).
-extern "C" int lterm_general_launch(const void* m_matrix, const void* u_l,
-                                    const void* teps, void* out, int batch,
-                                    int m, int k, int ntot, int t_cols,
-                                    int m_pad, int k_pad, int slice,
-                                    int stages, int nt, int n_tiles,
-                                    int grid_x, int smem_bytes, void* stream) {
-  const GeneralKernel kern = pick_general(m_pad);
+// one general plan, lterm's (ma.blocks == 0) or block minima's
+int general_launch(const void* m_matrix, const void* u_l, const void* teps,
+                   void* out, int batch, int m, int k, int ntot, int t_cols,
+                   int m_pad, int k_pad, int slice, int stages, int nt,
+                   int n_tiles, int grid_x, int smem_bytes, void* stream,
+                   const MinimaArgs& ma) {
+  const bool minima = ma.blocks > 0;
+  const GeneralKernel kern = pick_general(m_pad, minima);
   const int tiles = (ntot + kTepTile - 1) / kTepTile;
   const int tpc = nt / kTepTile;
   const bool ok =
@@ -786,8 +1033,8 @@ extern "C" int lterm_general_launch(const void* m_matrix, const void* u_l,
       nt % kTepTile == 0 && nt > 0 && n_tiles == (tiles + tpc - 1) / tpc &&
       grid_x >= 1 &&
       static_cast<long long>(grid_x) <= static_cast<long long>(batch) * n_tiles &&
-      general_smem(m_pad, k_pad, slice, stages) == smem_bytes &&
-      smem_bytes <= kMaxSmem;
+      general_smem(m_pad, k_pad, slice, stages, ma.blocks) == smem_bytes &&
+      smem_bytes <= kMaxSmem && (!minima || ma.keys != nullptr);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -815,18 +1062,127 @@ extern "C" int lterm_general_launch(const void* m_matrix, const void* u_l,
   kern<<<grid_x, kGenThreads, smem_bytes,
          static_cast<cudaStream_t>(stream)>>>(
       tmap, mm, static_cast<const float*>(u_l), static_cast<float*>(out),
-      batch, m, k, ntot, k_pad, slice, stages, tpc, n_tiles, vec);
+      batch, m, k, ntot, k_pad, slice, stages, tpc, n_tiles, vec, ma);
+  return static_cast<int>(cudaGetLastError());
+}
+
+MinimaArgs minima_args(const void* c0, const void* u_m, const void* heads,
+                       const void* cols, const void* block_of,
+                       const void* starts, void* keys, void* minima,
+                       void* argmins, int blocks, int nreal) {
+  return MinimaArgs{static_cast<const float*>(c0),
+                    static_cast<const float*>(u_m),
+                    static_cast<const int4*>(heads),
+                    static_cast<const int16_t*>(cols),
+                    static_cast<const int*>(block_of),
+                    static_cast<const long long*>(starts),
+                    static_cast<long long*>(keys),
+                    static_cast<float*>(minima),
+                    static_cast<long long*>(argmins),
+                    blocks,
+                    nreal};
+}
+
+}  // namespace
+
+// The launch of one resident plan (ops/osd_disc.py lterm_plan); returns a
+// cudaError code, cudaErrorInvalidValue for a plan that does not fit the
+// shape.
+extern "C" int lterm_launch(const void* m_matrix, const void* u_l,
+                            const void* teps, void* out, int batch, int m,
+                            int k, int ntot, int kch, int tn, int m_pad,
+                            int k_pad, int nt, int n_tiles, int nbuf,
+                            int grid_x, int smem_bytes, void* stream) {
+  return resident_launch(m_matrix, u_l, teps, out, batch, m, k, ntot, kch, tn,
+                         m_pad, k_pad, nt, n_tiles, nbuf, grid_x, smem_bytes,
+                         stream, MinimaArgs{});
+}
+
+// The launch of one general plan: T (ntot, k) read through a tensor map
+// with rows t_cols bytes apart (t_cols >= k, a multiple of 16, zero beyond
+// k); nt TEPs (tpc tiles of 64) a unit, n_tiles units a frame, grid_x
+// persistent blocks.  Returns a cudaError code (cudaErrorInvalidValue for
+// a plan that does not fit the shape, cudaErrorNotSupported where
+// libcuda gives no tensor map).
+extern "C" int lterm_general_launch(const void* m_matrix, const void* u_l,
+                                    const void* teps, void* out, int batch,
+                                    int m, int k, int ntot, int t_cols,
+                                    int m_pad, int k_pad, int slice,
+                                    int stages, int nt, int n_tiles,
+                                    int grid_x, int smem_bytes, void* stream) {
+  return general_launch(m_matrix, u_l, teps, out, batch, m, k, ntot, t_cols,
+                        m_pad, k_pad, slice, stages, nt, n_tiles, grid_x,
+                        smem_bytes, stream, MinimaArgs{});
+}
+
+// Block minima on a resident plan (ops/osd_disc.py lterm_plan with
+// blocks): c0 (batch,) and u_m (batch, k) f32, the TEPs' position list
+// (heads int32 (ntot, 4), cols int16), block_of int32 (ntot,), starts
+// int64 (blocks,), TEPs at or past nreal skipped.  With keys null the block
+// writes minima (batch, blocks) f32 and argmins (batch, blocks) int64 itself
+// (n_tiles 1); else it folds into keys (batch, blocks) int64, filled with
+// INT64_MAX, for minima_decode.  Returns a cudaError code.
+extern "C" int block_minima_launch(
+    const void* m_matrix, const void* u_l, const void* teps, const void* c0,
+    const void* u_m, const void* heads, const void* cols,
+    const void* block_of, const void* starts, void* keys, void* minima,
+    void* argmins, int batch, int m, int k, int ntot, int nreal, int blocks,
+    int kch, int tn, int m_pad, int k_pad, int nt, int n_tiles, int nbuf,
+    int grid_x, int smem_bytes, void* stream) {
+  if (blocks < 1 || nreal < 0 || nreal > ntot)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return resident_launch(
+      m_matrix, u_l, teps, nullptr, batch, m, k, ntot, kch, tn, m_pad, k_pad,
+      nt, n_tiles, nbuf, grid_x, smem_bytes, stream,
+      minima_args(c0, u_m, heads, cols, block_of, starts, keys, minima,
+                  argmins, blocks, nreal));
+}
+
+// Block minima on a general plan, into keys (batch, blocks) int64 filled
+// with INT64_MAX (then minima_decode); the rest as block_minima_launch and
+// lterm_general_launch.
+extern "C" int block_minima_general_launch(
+    const void* m_matrix, const void* u_l, const void* teps, const void* c0,
+    const void* u_m, const void* heads, const void* cols,
+    const void* block_of, void* keys, int batch, int m, int k, int ntot,
+    int nreal, int blocks, int t_cols, int m_pad, int k_pad, int slice,
+    int stages, int nt, int n_tiles, int grid_x, int smem_bytes,
+    void* stream) {
+  if (blocks < 1 || nreal < 0 || nreal > ntot)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return general_launch(
+      m_matrix, u_l, teps, nullptr, batch, m, k, ntot, t_cols, m_pad, k_pad,
+      slice, stages, nt, n_tiles, grid_x, smem_bytes, stream,
+      minima_args(c0, u_m, heads, cols, block_of, nullptr, keys, nullptr,
+                  nullptr, blocks, nreal));
+}
+
+// keys (batch, blocks) -> minima f32 and argmins int64 (flat index minus
+// the block's start; an empty block (3.4e38, 0)).  Returns a cudaError code.
+extern "C" int minima_decode(const void* keys, const void* starts,
+                             void* minima, void* argmins, int batch,
+                             int blocks, void* stream) {
+  if (batch < 1 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = static_cast<long long>(batch) * blocks;
+  const int grid = static_cast<int>((n + 255) / 256 < 1024 ? (n + 255) / 256
+                                                            : 1024);
+  minima_decode_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(keys),
+      static_cast<const long long*>(starts), static_cast<float*>(minima),
+      static_cast<long long*>(argmins), n, blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
 // What the card makes of a plan's kernel at smem_bytes of dynamic shared
 // memory: the resident (kch, tn) = (2, 8), or (kch 0) the general one for
-// m_pad rows.  out = {registers, local bytes a thread, threads a block,
-// resident blocks per SM, SMs, static shared bytes}; returns a cudaError.
+// m_pad rows, lterm's or (minima 1) block minima's.  out = {registers, local
+// bytes a thread, threads a block, resident blocks per SM, SMs, static
+// shared bytes}; returns a cudaError.
 extern "C" int lterm_occupancy(int kch, int tn, int m_pad, int smem_bytes,
-                               int device, int* out) {
-  const void* kern = kch == 0 ? reinterpret_cast<const void*>(pick_general(m_pad))
-                              : reinterpret_cast<const void*>(pick(kch, tn));
+                               int minima, int device, int* out) {
+  const void* kern =
+      kch == 0 ? reinterpret_cast<const void*>(pick_general(m_pad, minima != 0))
+               : reinterpret_cast<const void*>(pick(kch, tn, minima != 0));
   const int threads = kch == 0 ? kGenThreads : kThreads;
   if (kern == nullptr || smem_bytes > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);

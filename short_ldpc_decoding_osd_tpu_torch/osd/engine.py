@@ -8,8 +8,9 @@ Port of ``short_ldpc_decoding_osd_tpu/osd/engine.py`` (reference
   is the bit-packed route, the CUDA kernel ``csrc/gf2_ge.cu``;
 * candidate re-encoding and the weighted-Hamming discrepancy fold into the
   affine map ``c0 + u_l @ mod2(M @ T^T) + u_m @ T^T`` (``x ^ y = x + y -
-  2xy``), whose parity term is the CUDA kernel K5 (``ops.osd_disc.lterm``)
-  in the chunked TEP layout;
+  2xy``); in the chunked TEP layout the CUDA kernel K5 computes it and
+  reduces it to the block minima (``ops.osd_disc.block_minima``), elsewhere
+  K5 gives its parity term (``ops.osd_disc.lterm``);
 * the sliding-window stopper walk is replayed for all frames at once.
 
 The JAX package demotes to a slower path when a fused kernel fails to
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .._device import full_f32
@@ -28,7 +30,7 @@ from ..ops import gf2ops, nms, nms_edge, nms_edge_padded, osd_disc
 from ..ops.nms import first_argmin, first_index
 from ..utils import profiling
 
-_BIG = 3.4e38  # f32-representable "no candidate" discrepancy
+_BIG = osd_disc.BIG  # f32-representable "no candidate" discrepancy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,12 +126,41 @@ def _tep_discrepancies(prep: PreparedBatch, t_flat: torch.Tensor,
     return c0[:, None] + lterm + u_m @ t_flat.T.to(torch.float32)
 
 
-def _disc_flat_chunked(prep: PreparedBatch, teps: torch.Tensor,
-                       mask: torch.Tensor, k: int) -> torch.Tensor:
-    """(B, C*chunk) masked discrepancies for the dense-chunked TEP layout."""
-    t_flat = teps.reshape(-1, teps.shape[-1]).to(torch.int8).contiguous()
-    disc = _tep_discrepancies(prep, t_flat, k)
-    return torch.where(mask.reshape(-1)[None, :], disc, _BIG)
+@dataclasses.dataclass(frozen=True)
+class MinimaTables:
+    """The static tables of K5's block minima for one chunked TEP layout
+    (:func:`minima_tables`)."""
+
+    positions: tuple  # ``osd_disc.tep_positions`` of the flat TEP rows
+    block_of: torch.Tensor  # (C*chunk,) int32, -1 where masked or in no block
+    starts: torch.Tensor  # (P,) int64, each block's first flat index
+    ntot: int  # the end of the last block
+
+
+def _flat_teps(teps: torch.Tensor) -> torch.Tensor:
+    """The (C*chunk, k) int8 rows of chunked TEPs (a view where it can)."""
+    return teps.reshape(-1, teps.shape[-1]).to(torch.int8).contiguous()
+
+
+def minima_tables(teps: torch.Tensor, mask: torch.Tensor,
+                  bounds: tuple) -> MinimaTables:
+    """:class:`MinimaTables` of the chunked layout ``teps`` (C, chunk, k) /
+    ``mask`` (C, chunk) / ``bounds`` (``segments.pack_tep_chunks``), on
+    ``teps``' device.  Building them reads the mask and T's set columns on
+    the host, so a caller that walks the same layout again builds them once,
+    beside ``bounds``, and passes them down as ``tables``."""
+    t_flat = _flat_teps(teps)
+    block_of = np.full(t_flat.shape[0], -1, dtype=np.int32)
+    for p, (s, e) in enumerate(bounds):
+        block_of[s:e] = p
+    block_of[~mask.reshape(-1).cpu().numpy()] = -1
+    dev = teps.device
+    return MinimaTables(
+        positions=osd_disc.tep_positions(t_flat),
+        block_of=torch.as_tensor(block_of, device=dev),
+        starts=torch.as_tensor([s for s, _ in bounds], dtype=torch.int64,
+                               device=dev),
+        ntot=max((e for _, e in bounds), default=0))
 
 
 def _selected_is_label(prep: PreparedBatch, tep_sel: torch.Tensor,
@@ -164,33 +195,40 @@ def _block_disc_scan(prep: PreparedBatch, teps, mask, k: int, post=None):
     return tuple(torch.stack(parts, 0) for parts in zip(*outs))
 
 
+@full_f32()
+def _chunked_minima(prep: PreparedBatch, teps: torch.Tensor,
+                    tables: MinimaTables, k: int):
+    with profiling.span("minima.terms"):
+        c0, u_l, u_m, _ = _discrepancy_terms(prep, k)
+    with profiling.span("minima.k5"):
+        return osd_disc.block_minima(
+            prep.m_matrix.contiguous(), u_l.contiguous(), c0.contiguous(),
+            u_m.contiguous(), _flat_teps(teps), tables.positions,
+            tables.block_of, tables.starts, tables.ntot)
+
+
 def block_discrepancy_minima(prep: PreparedBatch, teps: torch.Tensor,
                              mask: torch.Tensor, k: int,
-                             bounds: tuple | None = None):
+                             bounds: tuple | None = None,
+                             tables: MinimaTables | None = None):
     """Per-block minima (B, P) of the weighted discrepancy and the index of
-    the minimizing TEP inside each block (B, P).
+    the minimizing TEP inside each block (B, P), the first on ties; an
+    empty block gives (``_BIG``, 0).
 
-    ``teps``/``mask`` are (P, Nmax, k)/(P, Nmax) padded blocks, or — with
-    ``bounds`` from ``segments.pack_tep_chunks`` — (C, chunk, k)/(C, chunk)
-    dense chunks, the main path's layout (the kernel route), whose stages
-    are spans ``minima.terms`` (the affine map's terms), ``minima.k5`` (its
-    parity term) and ``minima.reduce`` (the per-block minima)."""
+    ``teps``/``mask`` are (P, Nmax, k)/(P, Nmax) padded blocks (the plain
+    scan), or — with ``bounds`` from ``segments.pack_tep_chunks`` — (C,
+    chunk, k)/(C, chunk) dense chunks, the main path's layout, whose minima
+    come out of kernel K5 whole (``osd_disc.block_minima``, no (B, N) map),
+    its stages spans ``minima.terms`` (the affine map's terms) and
+    ``minima.k5`` (the launch); ``tables`` are :func:`minima_tables` of the
+    layout, built here where the caller has none."""
     if bounds is None:
         minima, argmins = _block_disc_scan(
             prep, teps, mask, k, lambda d: (d.amin(1), first_argmin(d, 1)))
         return minima.T, argmins.T
-    flat = _disc_flat_chunked(prep, teps, mask, k)
-    with profiling.span("minima.reduce"):
-        b = flat.shape[0]
-        big = torch.full((b,), _BIG, dtype=flat.dtype, device=flat.device)
-        zero = torch.zeros((b,), dtype=torch.int64, device=flat.device)
-        # empty blocks mirror the padded path's all-masked result: _BIG, 0
-        minima = torch.stack(
-            [big if e == s else flat[:, s:e].amin(1) for s, e in bounds], 1)
-        argmins = torch.stack(
-            [zero if e == s else first_argmin(flat[:, s:e], 1)
-             for s, e in bounds], 1)
-    return minima, argmins
+    if tables is None:
+        tables = minima_tables(teps, mask, bounds)
+    return _chunked_minima(prep, teps, tables, k)
 
 
 @full_f32()
@@ -361,7 +399,8 @@ def pruned_batch_osd(prep: PreparedBatch, teps_all: torch.Tensor, k: int,
 def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
                 acc_block_sizes, fcn_params: dict, k: int, window: int = 5,
                 soft_margin: float = 0.9, rel_tol: float = 1e-3,
-                bounds: tuple | None = None) -> dict:
+                bounds: tuple | None = None,
+                tables: MinimaTables | None = None) -> dict:
     """Batched DL-OSD evaluation of one failure batch.
 
     ``success`` is the reference's oracle proxy ``global_min ==
@@ -370,10 +409,14 @@ def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
     checks that the argmin candidate within the expanded blocks equals the
     transmitted codeword.  Also returns the TEP complexity, window counts,
     the walk's global minimum and expanded depth, and the block minima.
-    Its stages are spans ``minima``, ``walk`` and ``select`` (the chosen
-    TEP and its codeword)."""
+    With ``bounds``, ``tables`` are :func:`minima_tables` of the layout
+    (built here where the caller has none).  Its stages are spans
+    ``minima``, ``walk`` and ``select`` (the chosen TEP and its codeword)."""
+    if bounds is not None and tables is None:
+        tables = minima_tables(teps, mask, bounds)
     with profiling.span("minima"):
-        minima, argmins = block_discrepancy_minima(prep, teps, mask, k, bounds)
+        minima, argmins = block_discrepancy_minima(prep, teps, mask, k, bounds,
+                                                   tables)
     with profiling.span("walk"):
         walk = sliding_walk(minima, fcn_params, window=window,
                             soft_margin=soft_margin)
@@ -392,8 +435,7 @@ def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
         if bounds is None:
             tep_sel = teps[best_block, best_inner]
         else:
-            starts = torch.as_tensor([s for s, _ in bounds], device=dev)
-            tep_sel = teps.reshape(-1, teps.shape[-1])[starts[best_block]
+            tep_sel = teps.reshape(-1, teps.shape[-1])[tables.starts[best_block]
                                                        + best_inner]
         strict = _selected_is_label(prep, tep_sel, k)
     return {
@@ -444,20 +486,22 @@ def redecode_trajectory(nms_params, decode_h, llr: torch.Tensor,
 
 
 def make_dl_osd_step(model, h, k: int, window: int = 5,
-                     soft_margin: float = 0.9, bounds: tuple | None = None):
+                     soft_margin: float = 0.9, bounds: tuple | None = None,
+                     tables: MinimaTables | None = None):
     """DIA-OSD evaluation of captured trajectories: ``model.refine_fast``
     -> :func:`prepare` (the channel slot 0 as the original metric) ->
     :func:`sliding_osd` (JAX ``osd/engine.py:558-607``, the trajectory
     form).
 
     Returns ``step(traj, labels, teps, mask, acc, fcn_params) ->
-    (outputs, refined)``; ``model`` carries its own weights."""
+    (outputs, refined)``; ``model`` carries its own weights.  ``tables``
+    are :func:`minima_tables` of the layout the step is given, if any."""
 
     def step(traj, labels, teps, mask, acc, fcn_params):
         refined = model.refine_fast(traj)
         prep = prepare(refined, traj[:, 0], labels, h, k)
         out = sliding_osd(prep, teps, mask, acc, fcn_params, k, window=window,
-                          soft_margin=soft_margin, bounds=bounds)
+                          soft_margin=soft_margin, bounds=bounds, tables=tables)
         return out, refined
 
     return step
@@ -482,7 +526,8 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
                               window: int = 5, soft_margin: float = 0.9,
                               bounds: tuple | None = None,
                               with_iteration_stats: bool = False,
-                              route: str | None = None):
+                              route: str | None = None,
+                              tables: MinimaTables | None = None):
     """Phase-2 step consuming RAW failure LLRs: the (T+1)-slot trajectory
     re-decode, DIA refinement (``model.refine_fast``), OSD preparation and
     the sliding walk.
@@ -498,6 +543,8 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
     The re-decode is :func:`redecode_trajectory` on the route of
     :func:`redecode_route` for the step's rows, or on ``route`` when the
     caller pins one (the mesh pins the route of the global batch).
+    ``tables`` are :func:`minima_tables` of the layout the step is given,
+    if any.
 
     The step is span ``phase2``, its stages ``redecode``, ``detect``,
     ``dia``, ``prepare`` and ``osd`` (:func:`sliding_osd`)."""
@@ -524,7 +571,7 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
             with profiling.span("osd"):
                 out = sliding_osd(prep, teps, mask, acc, fcn_params, k,
                                   window=window, soft_margin=soft_margin,
-                                  bounds=bounds)
+                                  bounds=bounds, tables=tables)
             if not with_iteration_stats:
                 return out, refined, st["detected_failure"]
             return (out, refined, st["detected_failure"],

@@ -183,7 +183,7 @@ def sharded_dl_osd_step_from_llr(model, code: Code, variant: str,
                                  num_iterations: int, mesh: Mesh,
                                  window: int = 5, soft_margin: float = 0.9,
                                  bounds: tuple | None = None,
-                                 route: str | None = None):
+                                 route: str | None = None, tables=None):
     """The raw-LLR phase-2 step with the failure batch split over the mesh:
     ``step(nms_params, llr, labels, teps, mask, acc, fcn_params) ->
     counters`` (5,) int64 = [rows, detected, success_detected, total_teps,
@@ -192,7 +192,8 @@ def sharded_dl_osd_step_from_llr(model, code: Code, variant: str,
 
     Every rank gets the global batch and takes its part.  The re-decode's
     route is ``engine.redecode_route``'s at the global row count (K2 on
-    the card), or ``route``; ``model`` carries its own weights."""
+    the card), or ``route``; ``model`` carries its own weights; ``tables``
+    are ``engine.minima_tables`` of the layout the step is given, if any."""
     decode_h = code.extended().h if variant == "ENMS" else code.h
     steps = {}
 
@@ -202,7 +203,8 @@ def sharded_dl_osd_step_from_llr(model, code: Code, variant: str,
         if chosen not in steps:
             steps[chosen] = engine.make_dl_osd_step_from_llr(
                 model, code, variant, num_iterations, window=window,
-                soft_margin=soft_margin, bounds=bounds, route=chosen)
+                soft_margin=soft_margin, bounds=bounds, route=chosen,
+                tables=tables)
         llr, labels = _osd_slice(mesh, llr, labels)
         cdt = count_dtype()
         if llr.shape[0] == 0:
@@ -281,7 +283,8 @@ def sharded_nms_train_step(code: Code, variant: str, num_iterations: int,
 
 
 def sharded_dl_osd_step(model, h, k: int, mesh: Mesh, window: int = 5,
-                        soft_margin: float = 0.9, bounds: tuple | None = None):
+                        soft_margin: float = 0.9, bounds: tuple | None = None,
+                        tables=None):
     """DIA-OSD evaluation of captured trajectories with the failure batch
     split over the mesh: ``step(traj, labels, teps, mask, acc, fcn_params)
     -> counters`` (4,) int64 = [success, failure, total_teps,
@@ -289,9 +292,11 @@ def sharded_dl_osd_step(model, h, k: int, mesh: Mesh, window: int = 5,
 
     ``engine.make_dl_osd_step``'s convention: ``model`` carries its own
     weights.  Every rank gets the global batch and takes its part with
-    ``torch.tensor_split``, so an uneven batch works."""
+    ``torch.tensor_split``, so an uneven batch works.  ``tables`` are
+    ``engine.minima_tables`` of the layout the step is given, if any."""
     inner = engine.make_dl_osd_step(model, h, k, window=window,
-                                    soft_margin=soft_margin, bounds=bounds)
+                                    soft_margin=soft_margin, bounds=bounds,
+                                    tables=tables)
 
     def step(traj, labels, teps, mask, acc, fcn_params):
         traj, labels = _osd_slice(mesh, traj, labels)

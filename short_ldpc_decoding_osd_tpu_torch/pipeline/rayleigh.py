@@ -54,10 +54,11 @@ def run_points(run_dir: str, snrs, budget: int = 500, fade_duration: int = 1,
     blocks, acc = segments.build_tep_blocks(
         run["path"], code.k, int(cfg.get("num_segments", 6)))
     teps, mask, bounds = segments.pack_tep_chunks(blocks)
+    teps_d, mask_d = torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev)
     step = engine.make_dl_osd_step_from_llr(
         run["dia"], code, variant, iters, window=int(cfg.get("window", 5)),
-        soft_margin=float(cfg.get("soft_margin", 0.9)), bounds=bounds)
-    teps_d, mask_d = torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev)
+        soft_margin=float(cfg.get("soft_margin", 0.9)), bounds=bounds,
+        tables=engine.minima_tables(teps_d, mask_d, bounds))
     acc_d = torch.as_tensor(acc, dtype=torch.int64, device=dev)
 
     points = []

@@ -374,7 +374,8 @@ def stage_eval_sweep(cfg: RecipeConfig, run: RunDir, nms_params, model, fcn,
     layout = (torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev),
               torch.as_tensor(acc, dtype=torch.int64, device=dev), fcn)
     fused_phase2 = dev.type == "cuda" and cfg.variant != "NMS-r"
-    walk = dict(window=cfg.window, soft_margin=cfg.soft_margin, bounds=bounds)
+    walk = dict(window=cfg.window, soft_margin=cfg.soft_margin, bounds=bounds,
+                tables=engine.minima_tables(layout[0], layout[1], bounds))
     if fused_phase2:
         osd_step_llr = engine.make_dl_osd_step_from_llr(
             model, code, cfg.variant, cfg.num_iterations,

@@ -82,6 +82,7 @@ class TwoPhase:
         teps, mask, self.bounds = segments.pack_tep_chunks(blocks)
         self.teps = torch.as_tensor(teps, device=dev)
         self.mask = torch.as_tensor(mask, device=dev)
+        self.tables = engine.minima_tables(self.teps, self.mask, self.bounds)
         self.acc = torch.as_tensor(acc, dtype=torch.int64, device=dev)
         self.window = int(cfg.get("window", 5))
         self.soft_margin = float(cfg.get("soft_margin", 0.9))
@@ -91,7 +92,7 @@ class TwoPhase:
             capture_capacity=cap, device=dev)
         self.phase2 = engine.make_dl_osd_step_from_llr(
             self.dia, self.code, self.variant, self.iters, window=self.window,
-            soft_margin=self.soft_margin, bounds=self.bounds)
+            soft_margin=self.soft_margin, bounds=self.bounds, tables=self.tables)
         self.generator = torch.Generator(device=dev)
 
     def capture_round(self, i: int):

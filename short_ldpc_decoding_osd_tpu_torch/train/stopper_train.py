@@ -64,6 +64,7 @@ def generate_stopper_samples(code: Code, dia_model: torch.nn.Module,
     teps, mask, bounds = segments.pack_tep_chunks(blocks)
     teps_d = torch.as_tensor(teps, device=dev)
     mask_d = torch.as_tensor(mask, device=dev)
+    tables = engine.minima_tables(teps_d, mask_d, bounds)
     h = code.h_osd  # full-rank basis for the OSD elimination
 
     rec_list = []
@@ -77,7 +78,7 @@ def generate_stopper_samples(code: Code, dia_model: torch.nn.Module,
             refined = dia_model.refine(traj)
             prep = engine.prepare(refined, traj[:, 0], labs, h, code.k)
             minima, _ = engine.block_discrepancy_minima(prep, teps_d, mask_d,
-                                                        code.k, bounds)
+                                                        code.k, bounds, tables)
             minima = minima.cpu().numpy()
             truth = prep.truth_discrepancy.cpu().numpy()
             overall = minima.min(axis=1)

@@ -5,6 +5,7 @@ gathers, so they must be bit-exact against both JAX GE routes (dense and
 bit-packed).  ``lterm`` sums in another order: 1e-5 relative, the bound of
 ``tests/test_osd_disc_pallas.py``."""
 
+import dataclasses
 import json
 import os
 
@@ -273,3 +274,291 @@ def test_block_minima_padded_equals_chunked():
     np.testing.assert_allclose(minima.numpy(), ref_min.numpy(), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_array_equal(argmins.numpy(), ref_arg.numpy())
+
+
+def _dyadic_prep(b, m, k, seed):
+    """A prepared batch whose weights are multiples of 1/8 below 8, so that
+    every discrepancy is exact in f32 whatever the order of its sums: ties
+    are exact on every route."""
+    rng = np.random.default_rng(seed)
+    n = m + k
+
+    def bits():
+        return torch.as_tensor(rng.integers(0, 2, (b, n)).astype(np.int8))
+
+    return engine.PreparedBatch(
+        order_updated=None, order_original=None, order_labels=None,
+        m_matrix=torch.as_tensor(rng.integers(0, 2, (b, m, k)).astype(np.int8)),
+        swap_len=None, lrb_ranks=None, hard_original=bits(),
+        hard_updated=bits(),
+        mag_original=torch.as_tensor(rng.integers(0, 64, (b, n)) / 8.0,
+                                     dtype=torch.float32),
+        truth_discrepancy=None)
+
+
+def _random_blocks(rng, sizes, k, weight=None, duplicates=False):
+    """TEP blocks of ``sizes`` rows: rows of ``weight`` ones, or dense random
+    rows (``weight`` None); with ``duplicates`` some rows repeat others in
+    the same block and in earlier blocks (exact ties)."""
+    blocks = []
+    for s in sizes:
+        if weight is None:
+            blk = rng.integers(0, 2, (s, k)).astype(np.int8)
+        else:
+            blk = np.zeros((s, k), np.int8)
+            for r in range(s):
+                blk[r, rng.choice(k, weight, replace=False)] = 1
+        if duplicates and s > 2:
+            blk[s - 1] = blk[0]
+            blk[s // 2] = blk[0]
+            if blocks and len(blocks[-1]):
+                blk[1] = blocks[-1][0]
+        blocks.append(blk)
+    if duplicates:  # a block of one row repeated: its minimum ties everywhere
+        blocks.append(np.repeat(blocks[-1][:1], 6, axis=0))
+    return blocks
+
+
+def _minima_case(name):
+    """(prep, blocks, k, chunk, exact): the prepared batch, the TEP blocks,
+    the chunk of the chunked layout, and whether the padded scan must
+    agree bit for bit (dyadic weights) or to f32 rounding."""
+    rng = np.random.default_rng(hash(name) % 2**32)
+    if name == "r4_path":
+        code = jax_get_code("ccsds_128_64")
+        refined, original, words = _frames(code, 6, seed=8)
+        prep = engine.prepare(torch.as_tensor(refined), torch.as_tensor(original),
+                              torch.as_tensor(words), code.h_osd, code.k)
+        with open(os.path.join(_ROOT, "runs", "r4_pipeline",
+                               "decoding_path.json")) as fh:
+            path = json.load(fh)["path"]
+        blocks, _ = segments.build_tep_blocks(path, code.k, 6)
+        assert (len(blocks), sum(len(b) for b in blocks)) == (30, 1439)
+        return prep, blocks, code.k, 256, False
+    if name == "straddle":  # blocks cut across 16- and 64-TEP tiles
+        sizes, weight, m, k = [1, 15, 17, 0, 63, 65, 129, 3, 31], 2, 64, 64
+    elif name == "empty":  # empty blocks first, inside and last
+        sizes, weight, m, k = [0, 5, 0, 0, 20, 40, 0], 1, 64, 64
+    elif name == "ties":
+        sizes, weight, m, k = [7, 24, 3, 50, 9], 3, 48, 48
+    else:  # "dense": a dense random T, on a general-plan shape
+        sizes, weight, m, k = [40, 0, 90, 11], None, 61, 100
+    blocks = _random_blocks(rng, sizes, k, weight, duplicates=name == "ties")
+    return _dyadic_prep(5, m, k, 9), blocks, k, 64, True
+
+
+def _unfused_minima(prep, teps, mask, bounds, k):
+    """The discrepancy minima as the port computed them before K5 took the
+    epilogue: the (B, N) map ``c0 + lterm + u_m @ T^T`` with K5's ``lterm``,
+    then each block's ``amin`` and ``first_argmin`` (the package's plain
+    twin, given that parity term)."""
+    c0, u_l, u_m, _ = engine._discrepancy_terms(prep, k)
+    tables = engine.minima_tables(teps, mask, bounds)
+    t_flat = teps.reshape(-1, k).to(torch.int8)
+    return osd_disc.block_minima_reference(
+        prep.m_matrix, u_l, c0, u_m, t_flat, tables.block_of, tables.starts,
+        tables.ntot, osd_disc.lterm(prep.m_matrix, u_l, t_flat))
+
+
+@pytest.mark.parametrize("name", ["r4_path", "straddle", "empty", "ties", "dense"])
+def test_block_minima_twin_equals_unfused_and_padded(name):
+    """The chunked route (``osd_disc.block_minima``'s plain twin on the
+    CPU) gives the unfused path's minima and first argmins bit for bit, and
+    the padded scan's (to f32 rounding, or exactly where every discrepancy
+    is exact)."""
+    prep, blocks, k, chunk, exact = _minima_case(name)
+    teps, mask, bounds = segments.pack_tep_chunks(blocks, chunk=chunk)
+    teps, mask = torch.as_tensor(teps), torch.as_tensor(mask)
+    got_min, got_arg = engine.block_discrepancy_minima(prep, teps, mask, k, bounds)
+    want_min, want_arg = _unfused_minima(prep, teps, mask, bounds, k)
+    assert got_min.dtype == torch.float32 and got_arg.dtype == torch.int64
+    assert torch.equal(got_min, want_min) and torch.equal(got_arg, want_arg)
+    padded, pmask = segments.stack_padded_blocks(blocks)
+    pad_min, pad_arg = engine.block_discrepancy_minima(
+        prep, torch.as_tensor(padded), torch.as_tensor(pmask), k)
+    if exact:
+        assert torch.equal(got_min, pad_min)
+    else:
+        np.testing.assert_allclose(got_min.numpy(), pad_min.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    assert torch.equal(got_arg, pad_arg)
+    empty = [i for i, (s, e) in enumerate(bounds) if s == e]
+    assert (got_min[:, empty] == engine._BIG).all()
+    assert (got_arg[:, empty] == 0).all()
+    if name == "ties":  # the repeated block ties everywhere: the first wins
+        s, e = bounds[-1]
+        flat = engine._tep_discrepancies(prep, teps.reshape(-1, k)[s:e].to(torch.int8),
+                                         k)
+        assert (flat == flat[:, :1]).all() and (got_arg[:, -1] == 0).all()
+
+
+def test_chunked_minima_build_no_discrepancy_map(monkeypatch):
+    """The chunked route reaches K5's block-minima entry alone: neither
+    ``lterm`` nor the unfused discrepancy map runs."""
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the chunked route built the (B, N) map")
+
+    prep, blocks, k, chunk, _ = _minima_case("straddle")
+    teps, mask, bounds = segments.pack_tep_chunks(blocks, chunk=chunk)
+    teps, mask = torch.as_tensor(teps), torch.as_tensor(mask)
+    want = _unfused_minima(prep, teps, mask, bounds, k)
+    seen = []
+    real = osd_disc.block_minima
+    monkeypatch.setattr(osd_disc, "lterm", forbidden)
+    monkeypatch.setattr(engine, "_tep_discrepancies", forbidden)
+    monkeypatch.setattr(osd_disc, "block_minima",
+                        lambda *a: seen.append(a) or real(*a))
+    got = engine.block_discrepancy_minima(prep, teps, mask, k, bounds)
+    assert len(seen) == 1
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_tep_positions_list_each_rows_set_columns():
+    rng = np.random.default_rng(4)
+    t = rng.integers(0, 2, (40, 70)).astype(np.int8)
+    t[3] = 0  # a row with no set column
+    t[7] = 1  # one with every column set
+    t[5, :] = 0
+    t[5, [69, 0, 33]] = 1
+    t[6, :] = 0
+    t[6, [12, 64]] = 1
+    heads, cols = osd_disc.tep_positions(torch.as_tensor(t))
+    assert heads.dtype == torch.int32 and cols.dtype == torch.int16
+    assert heads.shape == (40, 4) and int(heads[0, 0]) == 0
+    for r in range(40):
+        o, n, c01, c2 = heads[r].tolist()
+        want = np.flatnonzero(t[r])
+        assert n == len(want)
+        np.testing.assert_array_equal(cols[o:o + n].numpy(), want)
+        head = [c01 & 0xFFFF, c01 >> 16, c2][:min(n, 3)]
+        assert head == want[:3].tolist()
+        assert [c01 & 0xFFFF, c01 >> 16, c2][min(n, 3):] == [0] * (3 - min(n, 3))
+    assert cols[int(heads[5, 0]):int(heads[5, 0]) + 3].tolist() == [0, 33, 69]
+    assert heads[:, 1].sum() == int(t.sum()) == cols.numel()
+    empty, none = osd_disc.tep_positions(torch.zeros((3, 8), dtype=torch.int8))
+    assert empty.tolist() == [[0, 0, 0, 0]] * 3 and none.numel() == 0
+
+
+def test_block_minima_reference_ties_empty_blocks_and_ntot():
+    """The plain twin's reduction, on a given discrepancy map: negative
+    values below positive, ``_BIG`` a value like any other, the lowest
+    index on a tie (-0 and +0 tie), an empty block (``_BIG``, 0), TEPs in
+    no block or at or past ``ntot`` skipped, argmins less the block's
+    start."""
+    big = engine._BIG
+    vals = torch.tensor([[3.0, -1.5, -0.0, 0.0, big, -1.5, 2.5, 0.0, -0.0, -9.0],
+                         [0.0, -0.0, 7.0, -2.0, big, -2.0, -3e-30, -1e30, 1e-30,
+                          -9.0]], dtype=torch.float32)
+    b, n = vals.shape
+    zeros = torch.zeros((b, 4), dtype=torch.float32)
+    # blocks [0, 2) [2, 4) [4, 5) [5, 5) [5, 8) [8, 9); TEP 9 in no block
+    starts = torch.tensor([0, 2, 4, 5, 5, 8])
+    block_of = torch.tensor([0, 0, 1, 1, 2, 4, 4, 4, 5, -1], dtype=torch.int32)
+
+    def reduce(ntot, owner=block_of):
+        return osd_disc.block_minima_reference(
+            None, None, torch.zeros(b), zeros, torch.zeros((n, 4), dtype=torch.int8),
+            owner, starts, ntot, vals)
+
+    minima, argmins = reduce(n)
+    assert minima.dtype == torch.float32 and argmins.dtype == torch.int64
+    assert torch.equal(minima, torch.tensor(
+        [[-1.5, 0.0, big, big, -1.5, 0.0], [0.0, -2.0, big, big, -1e30, 1e-30]],
+        dtype=torch.float32))
+    assert argmins.tolist() == [[1, 0, 0, 0, 0, 0], [0, 1, 0, 0, 2, 0]]
+    assert argmins[0, 1] == 0  # -0.0 at 2 and +0.0 at 3 tie: 2 wins
+    assert (minima[:, 3] == big).all() and (argmins[:, 3] == 0).all()  # empty
+    # TEPs at or past ntot are skipped: block 4 keeps TEP 5 alone, 5 none
+    minima, argmins = reduce(6)
+    assert torch.equal(minima[:, 4], vals[:, 5]) and (argmins[:, 4] == 0).all()
+    assert (minima[:, 5] == big).all() and (argmins[:, 5] == 0).all()
+    # a hole in a block (a masked TEP): the rest of the block still counts
+    holes = block_of.clone()
+    holes[5] = -1
+    minima, argmins = reduce(n, holes)
+    assert minima[0, 4] == 0.0 and argmins[0, 4] == 2
+    assert minima[1, 4] == -1e30 and argmins[1, 4] == 2
+
+
+def test_minima_tables_of_a_chunked_layout():
+    blocks = _random_blocks(np.random.default_rng(2), [3, 0, 40, 9], 16, 2)
+    teps, mask, bounds = segments.pack_tep_chunks(blocks, chunk=16)
+    teps, mask = torch.as_tensor(teps), torch.as_tensor(mask)
+    tables = engine.minima_tables(teps, mask, bounds)
+    assert tables.ntot == 52 and tables.starts.tolist() == [0, 3, 3, 43]
+    assert tables.starts.dtype == torch.int64
+    want = np.full(64, -1)
+    for p, (s, e) in enumerate(bounds):
+        want[s:e] = p
+    assert tables.block_of.dtype == torch.int32
+    np.testing.assert_array_equal(tables.block_of.numpy(), want)
+    heads, cols = osd_disc.tep_positions(teps.reshape(-1, 16))
+    assert torch.equal(tables.positions[0], heads)
+    assert torch.equal(tables.positions[1], cols)
+    # a mask with holes: those TEPs in no block
+    holes = mask.clone()
+    holes.view(-1)[[0, 10]] = False
+    again = engine.minima_tables(teps, holes, bounds)
+    assert again.block_of[0] == -1 and again.block_of[10] == -1
+    assert again.block_of[1] == 0 and again.block_of[11] == 2
+
+
+def test_sliding_osd_walks_on_the_tables_it_is_given(monkeypatch):
+    """With ``tables`` from its caller, ``sliding_osd`` builds none (they
+    read the mask on the host) and walks as it does on tables of its own."""
+    prep, blocks, k, chunk, _ = _minima_case("straddle")
+    teps, mask, bounds = segments.pack_tep_chunks(blocks, chunk=chunk)
+    teps, mask = torch.as_tensor(teps), torch.as_tensor(mask)
+    prep = dataclasses.replace(prep, truth_discrepancy=torch.zeros(
+        prep.m_matrix.shape[0]), order_labels=prep.hard_updated)
+    w1, w2 = _fcn(3)
+    fcn = {"w1": torch.as_tensor(w1), "w2": torch.as_tensor(w2)}
+    acc = np.concatenate([[0], np.cumsum([len(b) for b in blocks])])
+    want = engine.sliding_osd(prep, teps, mask, acc, fcn, k, bounds=bounds)
+    tables = engine.minima_tables(teps, mask, bounds)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("sliding_osd built tables it was given")
+
+    monkeypatch.setattr(engine, "minima_tables", forbidden)
+    got = engine.sliding_osd(prep, teps, mask, acc, fcn, k, bounds=bounds,
+                             tables=tables)
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    ((32768, 64, 64, 1536), 30),  # the main path
+    ((1024, 176, 880, 102912), 15),  # the WiMAX round
+    ((4096, 64, 64, 40000), 7),  # resident, the frame split across tiles
+    ((400, 192, 192, 58368), 50), ((5, 61, 100, 130), 3)],
+    ids=lambda s: "x".join(map(str, s)) if isinstance(s, tuple) else str(s))
+def test_block_minima_plan_holds_keys_and_u_m(shape, blocks):
+    """A block-minima plan is lterm's with room for the epilogue: on the
+    resident plan two buffers of P keys and each frame buffer's u_m, on the
+    general plan the frame's u_m; the tiles as lterm's where that still
+    fits."""
+    b, m, k, ntot = shape
+    plan = osd_disc.lterm_plan(b, m, k, ntot, blocks=blocks)
+    base = osd_disc.lterm_plan(b, m, k, ntot)
+    assert plan.blocks == blocks and plan.smem_bytes <= 232_448
+    if plan.resident:
+        assert plan.smem_bytes == (plan.stride * plan.nt + plan.nbuf * (
+            plan.stride * plan.m_pad + 8 * plan.m_pad)
+            + 16 * blocks + 4 * plan.nbuf * plan.k_pad)
+        assert plan.nt * plan.n_tiles >= ntot
+    else:
+        assert plan.smem_bytes == (1024 + 2 * plan.stages * (64 * plan.stride + 16)
+                                   + plan.m_pad * plan.k_pad + 8 * plan.m_pad
+                                   + 4 * plan.k_pad)
+        assert plan.stages >= osd_disc.MIN_STAGES
+    if shape == (32768, 64, 64, 1536):  # every TEP in one tile: direct minima
+        assert (plan.nt, plan.n_tiles, plan.nbuf, plan.grid) == (
+            1536, 1, 2, (132, 1))
+    if shape == (1024, 176, 880, 102912):
+        assert (plan.stages, plan.nt, plan.n_tiles, plan.grid) == (
+            base.stages, base.nt, base.n_tiles, base.grid)
+    if shape == (4096, 64, 64, 40000):
+        assert plan.n_tiles > 1  # the device keys
