@@ -271,7 +271,7 @@ from short_ldpc_decoding_osd_tpu_torch._device import full_f32, synchronize
 from short_ldpc_decoding_osd_tpu_torch.channel import ChannelSpec, sample_batch
 from short_ldpc_decoding_osd_tpu_torch.channel.awgn import sigma_for_snr
 from short_ldpc_decoding_osd_tpu_torch.cli.main import main as cli_main
-from short_ldpc_decoding_osd_tpu_torch.codes import get_code
+from short_ldpc_decoding_osd_tpu_torch.codes import get_code, tables
 from short_ldpc_decoding_osd_tpu_torch.convert import load_jax_pickle, load_run
 from short_ldpc_decoding_osd_tpu_torch.mc import harness, ladder
 from short_ldpc_decoding_osd_tpu_torch.mc.harness import count_and_capture
@@ -446,12 +446,9 @@ def main_path_inputs(dev):
     refined = run["dia"].refine_fast(traj.permute(1, 0, 2))
     prep = engine.prepare(refined, cap["llr"], cap["labels"], code.h_osd, code.k)
     _, u_l, _, _ = engine._discrepancy_terms(prep, code.k)
-    blocks, _ = segments.build_tep_blocks(run["path"], code.k, 6)
-    teps, mask, bounds = segments.pack_tep_chunks(blocks)
-    t_flat = torch.as_tensor(teps.reshape(-1, code.k), device=dev)
-    layout = (torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev),
-              bounds)
-    return run, params, llr, cap, refined, prep, u_l.contiguous(), t_flat, layout
+    layout = segments.TepLayout.build(run["path"], code.k, 6, dev)
+    return (run, params, llr, cap, refined, prep, u_l.contiguous(), layout.flat,
+            layout)
 
 
 # K5 beside the main path: (code, frames, m, k, TEPs) at other codes' (m, k)
@@ -554,19 +551,15 @@ def k5_build_lines():
                              "kernels")
 
 
-def k5_minima(prep, lterm_vals, layout, k, tables=None):
+def k5_minima(prep, lterm_vals, layout, k):
     """Block minima and first argmins of the main path's discrepancies from
     a given parity term: the unfused path (c0 + lterm + u_m @ T^T, then the
     per-block ``amin`` and ``first_argmin``), ``osd_disc``'s plain twin, on
-    the layout's ``engine.minima_tables`` (built where not given)."""
-    teps, mask, bounds = layout
+    the ``segments.TepLayout``'s tables."""
     c0, u_l, u_m, _ = engine._discrepancy_terms(prep, k)
-    if tables is None:
-        tables = engine.minima_tables(teps, mask, bounds)
-    t_flat = teps.reshape(-1, k).to(torch.int8)
     return osd_disc.block_minima_reference(
-        prep.m_matrix, u_l, c0, u_m, t_flat, tables.block_of, tables.starts,
-        tables.ntot, lterm_vals)
+        prep.m_matrix, u_l, c0, u_m, layout.flat, layout.block_of,
+        layout.starts, layout.ntot, lterm_vals)
 
 
 def walk_picks(run, prep, minima, argmins, bounds):
@@ -594,14 +587,13 @@ def k5_walk(run, prep, u_l, layout, label="main path",
     success, chosen TEP (logged).  Returns the (B,) mask of those frames
     and each frame's deeper ``deep_limit`` of the two walks."""
     k = run["code"].k
-    teps, mask, bounds = layout
     m_mat = prep.m_matrix.contiguous()
-    t_flat = teps.reshape(-1, k).to(torch.int8).contiguous()
-    got_min, got_arg = engine.block_discrepancy_minima(prep, teps, mask, k, bounds)
+    t_flat = layout.flat
+    got_min, got_arg = engine.block_discrepancy_minima(prep, layout, k)
     ref_min, ref_arg = k5_minima(
         prep, lterm_twin(m_mat, u_l, t_flat, twin_rows), layout, k)
     err = compare(f"K5 block minima ({label})", got_min, ref_min, rel=True)
-    picks = [walk_picks(run, prep, minima, argmins, bounds)
+    picks = [walk_picks(run, prep, minima, argmins, layout.bounds)
              for minima, argmins in ((got_min, got_arg), (ref_min, ref_arg))]
     (sk, sk_ref), (su, su_ref), (tp, tp_ref), (dl, dl_ref) = zip(*picks)
     diffs = {"stop_k": int((sk != sk_ref).sum()),
@@ -631,18 +623,16 @@ def k5_block_minima(label, prep, layout, k, card=None) -> dict:
     :data:`K5_MINIMA_TIE`, minima within :data:`K5_MINIMA_ULPS` f32 ulps.
     Both timed (the whole minima stage, and K5's launch alone) against K5's
     bound; the entry of the kernel row."""
-    teps, mask, bounds = layout
+    bounds = layout.bounds
     m_mat = prep.m_matrix.contiguous()
     c0, u_l, u_m, _ = engine._discrepancy_terms(prep, k)
     u_l = u_l.contiguous()
-    tables = engine.minima_tables(teps, mask, bounds)
-    t_flat = teps.reshape(-1, k).to(torch.int8).contiguous()
+    t_flat = layout.flat
     b, m, _ = m_mat.shape
     ntot = t_flat.shape[0]
-    got_min, got_arg = engine.block_discrepancy_minima(prep, teps, mask, k,
-                                                       bounds, tables)
+    got_min, got_arg = engine.block_discrepancy_minima(prep, layout, k)
     ref_min, ref_arg = k5_minima(prep, osd_disc.lterm(m_mat, u_l, t_flat),
-                                 layout, k, tables)
+                                 layout, k)
     ref64 = ref_min.double()
     ulp = (torch.nextafter(ref_min.abs(), torch.full_like(ref_min, math.inf))
            - ref_min.abs()).double()
@@ -653,19 +643,18 @@ def k5_block_minima(label, prep, layout, k, card=None) -> dict:
         disc = (c0[:, None] + osd_disc.lterm(m_mat, u_l, t_flat)
                 + u_m @ t_flat.T.to(torch.float32)).double()
         rows, blocks = differ.nonzero(as_tuple=True)
-        base = tables.starts[blocks]
+        base = layout.starts[blocks]
         at_got = disc[rows, base + got_arg[rows, blocks]]
         at_ref = disc[rows, base + ref_arg[rows, blocks]]
         split = (at_got - at_ref).abs() / at_ref.abs().clamp(min=1.0)
         closest_split = float(split.max())
         del disc
     stage = {"fused_ms": cuda_ms(lambda: engine.block_discrepancy_minima(
-                 prep, teps, mask, k, bounds, tables), 10),
+                 prep, layout, k), 10),
              "unfused_ms": cuda_ms(lambda: k5_minima(
-                 prep, osd_disc.lterm(m_mat, u_l, t_flat), layout, k, tables),
-                 10)}
+                 prep, osd_disc.lterm(m_mat, u_l, t_flat), layout, k), 10)}
     args = (m_mat, u_l, c0.contiguous(), u_m.contiguous(), t_flat,
-            tables.positions, tables.block_of, tables.starts, tables.ntot)
+            layout.positions, layout.block_of, layout.starts, layout.ntot)
     kernel = {"block_minima_ms": cuda_ms(lambda: osd_disc.block_minima(*args), 10),
               "lterm_ms": cuda_ms(lambda: osd_disc.lterm(m_mat, u_l, t_flat), 10)}
     # read M, u_l, c0, u_m and T; write the (B, P) minima and argmins
@@ -699,16 +688,12 @@ def k5_block_minima(label, prep, layout, k, card=None) -> dict:
 def _block_minima_on(m_mat, u_l, c0, u_m, blocks):
     """K5's block-minima entry over the TEP ``blocks`` (host 0/1 arrays)
     packed as the main path packs its path: (minima, argmins, T (N, k)
-    int8, tables)."""
-    teps, mask, bounds = segments.pack_tep_chunks(blocks)
-    dev = m_mat.device
-    teps, mask = torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev)
-    tables = engine.minima_tables(teps, mask, bounds)
-    t_flat = teps.reshape(-1, teps.shape[-1]).contiguous()
+    int8, the ``segments.TepLayout``)."""
+    layout = segments.TepLayout.from_blocks(blocks, m_mat.device)
     minima, argmins = osd_disc.block_minima(
-        m_mat, u_l, c0, u_m, t_flat, tables.positions, tables.block_of,
-        tables.starts, tables.ntot)
-    return minima, argmins, t_flat, tables
+        m_mat, u_l, c0, u_m, layout.flat, layout.positions, layout.block_of,
+        layout.starts, layout.ntot)
+    return minima, argmins, layout.flat, layout
 
 
 def _sparse_rows(rng, rows, k):
@@ -750,7 +735,7 @@ def k5_block_minima_exact(label, prep, k, rows, dense_teps, seed, card=None):
     sizes.insert(2, 0)
     sizes[0] += 1
     blocks = [rng.integers(0, 2, (n, k)).astype(np.int8) for n in sizes]
-    got_min, got_arg, t_flat, tables = _block_minima_on(m_mat, u_l, c0, u_m, blocks)
+    got_min, got_arg, t_flat, layout = _block_minima_on(m_mat, u_l, c0, u_m, blocks)
     t64 = t_flat.double()
     big_l = lterm_f64(m_mat, u_l, t_flat)
     mrb_abs = u_m.double().abs() @ t64.T
@@ -766,17 +751,17 @@ def k5_block_minima_exact(label, prep, k, rows, dense_teps, seed, card=None):
                           + u32 * (outer + mrb_abs))
     zero_b, zero_bk = torch.zeros_like(c0), torch.zeros_like(u_m)
     _, opt_arg = osd_disc.block_minima_reference(
-        None, None, zero_b, zero_bk, t_flat, tables.block_of, tables.starts,
-        tables.ntot, exact)
+        None, None, zero_b, zero_bk, t_flat, layout.block_of, layout.starts,
+        layout.ntot, exact)
     unf_min, unf_arg = osd_disc.block_minima_reference(
-        m_mat, u_l, c0, u_m, t_flat, tables.block_of, tables.starts, tables.ntot,
+        m_mat, u_l, c0, u_m, t_flat, layout.block_of, layout.starts, layout.ntot,
         osd_disc.lterm(m_mat, u_l, t_flat))
     full = torch.tensor([n > 0 for n in sizes], device=c0.device)
     rows_i = torch.arange(b, device=c0.device)[:, None]
-    t_opt = tables.starts[None, :] + opt_arg
+    t_opt = layout.starts[None, :] + opt_arg
 
     def reading(minima, argmins):
-        t_at = tables.starts[None, :] + argmins
+        t_at = layout.starts[None, :] + argmins
         value_err = (minima.double() - exact[rows_i, t_at]).abs() / allow[rows_i, t_at]
         pick_err = ((exact[rows_i, t_at] - exact[rows_i, t_opt])
                     / (allow[rows_i, t_at] + allow[rows_i, t_opt]))
@@ -924,7 +909,7 @@ def k5_row(dev, run, prep, u_l, t_flat, layout):
                            *(s[1:] for s in K5_SHAPES)):
         k5_launch_shape(b_, m_, k_, n_)
     k5_launch_shape(*m_mat.shape, t_flat.shape[0], "main path ",
-                    len(layout[2]))
+                    len(layout.bounds))
 
     row = {
         "name": "K5 lterm", "route": "cuda",
@@ -1064,7 +1049,7 @@ def ge_host_breakdown(dev, perm, h, k, reps: int = 200):
     kernels queue behind, so no part waits on the card)."""
     b, n = perm.shape
     m = h.shape[0]
-    hcol = gf2_bitpack.packed_h_columns(h, dev)
+    hcol = tables.get(h, gf2_bitpack._packed_h_columns, dev)
     plan = gf2_bitpack.ge_plan(b, m, n)
     out = torch.empty((b, m, k), dtype=torch.int8, device=dev)
     order = torch.empty((b, n), dtype=torch.int32, device=dev)
@@ -1086,7 +1071,7 @@ def ge_host_breakdown(dev, perm, h, k, reps: int = 200):
         "reduce_from_perm": per_call(
             lambda: gf2_bitpack.reduce_from_perm(perm, h, k)),
         "packed_h_columns": per_call(
-            lambda: gf2_bitpack.packed_h_columns(h, dev)),
+            lambda: tables.get(h, gf2_bitpack._packed_h_columns, dev)),
         "ge_plan": per_call(lambda: gf2_bitpack.ge_plan(b, m, n)),
         "two torch.empty": per_call(lambda: (
             torch.empty((b, m, k), dtype=torch.int8, device=dev),
@@ -1483,7 +1468,7 @@ def phase_mc_other_codes(dev):
         h_ext = get_code(name).extended().h
         x = torch.randn((1024, h_ext.shape[1]), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(3)) + 1.0
-        plan = nms_edge.launch_plan(*h_ext.shape, *nms_edge._degrees(h_ext))
+        plan = nms_edge.launch_plan(*h_ext.shape, *tables.degrees(h_ext))
         for traj, fn in ((False, nms_edge.decode_final_edge),
                          (True, nms_edge.decode_traj_edge)):
             if not torch.equal(fn(params, h_ext, x, ITERS),
@@ -1944,16 +1929,12 @@ def phase_card_vs_cpu(dev, run_dir=R4, label="r4_pipeline", rows=None):
     for d in (dev, torch.device("cpu")):
         run = load_run(run_dir, d)
         code = run["code"]
-        blocks, acc = segments.build_tep_blocks(run["path"], code.k, 6)
-        teps, mask, bounds = segments.pack_tep_chunks(blocks)
+        layout = segments.TepLayout.build(run["path"], code.k, 6, d)
         step = engine.make_dl_osd_step_from_llr(run["dia"], code, run["variant"],
-                                                run["num_iterations"],
-                                                bounds=bounds)
+                                                run["num_iterations"], layout)
         out, _, det = step({k: v.cpu() for k, v in run["nms_params"].items()},
                            torch.as_tensor(rows[0], device=d),
-                           torch.as_tensor(rows[1], device=d),
-                           torch.as_tensor(teps, device=d),
-                           torch.as_tensor(mask, device=d), acc, run["fcn"])
+                           torch.as_tensor(rows[1], device=d), run["fcn"])
         results.append({k: out[k].cpu() for k in WALK_FIELDS} | {
             "detected": det.cpu()})
     for key, val in results[0].items():
@@ -2643,25 +2624,21 @@ def mesh_world_of_one(dev):
                     "s_per_step_mesh": s_mesh / steps,
                     "s_per_step_single": s_single / steps, "launches": launches}
 
-    run_, _, _, cap, *_ = main_path_inputs(dev)
-    blocks, acc = segments.build_tep_blocks(run_["path"], code.k, 6)
-    teps, mask, bounds = segments.pack_tep_chunks(blocks)
-    args = (torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev),
-            torch.as_tensor(acc, dtype=torch.int64, device=dev), run_["fcn"])
+    run_, _, _, cap, *_, layout = main_path_inputs(dev)
     single_step = engine.make_dl_osd_step_from_llr(run_["dia"], code, "NMS-1",
-                                                   ITERS, bounds=bounds)
-    o, _, det = single_step(params, cap["llr"], cap["labels"], *args)
+                                                   ITERS, layout)
+    o, _, det = single_step(params, cap["llr"], cap["labels"], run_["fcn"])
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     want = torch.stack([torch.tensor(cap["llr"].shape[0], device=dev), det.sum(),
                         (o["success"] & det).sum(),
                         torch.where(det, o["complexity"], zero).sum(),
                         torch.where(det, o["window_num"], zero).sum()]).tolist()
     sharded = sharded_dl_osd_step_from_llr(run_["dia"], code, "NMS-1", ITERS,
-                                           mesh, bounds=bounds)
+                                           mesh, layout)
     synchronize(dev)
     _kernels.reset_launches()
     t0 = time.perf_counter()
-    got = sharded(params, cap["llr"], cap["labels"], *args).tolist()
+    got = sharded(params, cap["llr"], cap["labels"], run_["fcn"]).tolist()
     seconds = time.perf_counter() - t0
     launches = dict(_kernels.LAUNCHES)
     if got != want:
@@ -3089,8 +3066,7 @@ def wimax_step(tp, llr, labels):
     """A ``TwoPhase``'s own phase-2 step on captured rows, as ``measure``
     runs it: (walk outputs, refined reliabilities, detected)."""
     with torch.no_grad():
-        return tp.phase2(tp.nms_params, llr, labels, tp.teps, tp.mask, tp.acc,
-                         tp.fcn)
+        return tp.phase2(tp.nms_params, llr, labels, tp.fcn)
 
 
 def gap_sigma(got, want) -> float:
@@ -3200,7 +3176,7 @@ def edge_entry(label, name, params, variant, h, x, traj, launches):
     timed against its bound: the kernel row's entry for one path."""
     fn = nms_edge.decode_traj_edge if traj else nms_edge.decode_final_edge
     weights = nms.scalar_weights(params, variant)
-    plan = nms_edge.launch_plan(*h.shape, *nms_edge._degrees(h))
+    plan = nms_edge.launch_plan(*h.shape, *tables.degrees(h))
     b, n = x.shape
     got = fn(params, h, x, ITERS, variant)
     want = nms_edge._decode_edge_plain(x, h, ITERS, weights, traj)
@@ -3269,10 +3245,10 @@ def k5_entry(label, run, prep, layout, card, twin_rows=None, f64_rows=1024,
     (``k5_block_minima``), its launch shapes, timed against its bound and
     the fp16 yardstick; the kernel row's entry for one path."""
     k = run["code"].k
-    teps, _, bounds = layout
+    bounds = layout.bounds
     m_mat = prep.m_matrix.contiguous()
     u_l = engine._discrepancy_terms(prep, k)[1].contiguous()
-    t_flat = teps.reshape(-1, k).to(torch.int8).contiguous()
+    t_flat = layout.flat
     err = k5_check(label, m_mat, u_l, t_flat, twin_rows, f64_rows)
     differ, deep = k5_walk(run, prep, u_l, layout, label, twin_rows)
     ties = ties_only(f"K5 vs its twin, {label} walk", prep, differ, deep, t_flat,
@@ -3331,7 +3307,7 @@ def system_kernels(dev, label, tp, buf, card, twin_rows, f64_rows, lib_teps):
     prep = engine.prepare(refined, llr, labels, code.h_osd, k)
     run = {"code": code, "fcn": tp.fcn,
            "config": {"window": tp.window, "soft_margin": tp.soft_margin}}
-    k5 = k5_entry(label, run, prep, (tp.teps, tp.mask, tp.bounds), card,
+    k5 = k5_entry(label, run, prep, tp.layout, card,
                   twin_rows, f64_rows, lib_teps)
     perm = torch.sort(refined.abs(), dim=1, stable=True).indices
     ge = ge_entry(f"{label}, one round's rows", perm, code.h_osd, k, card)
@@ -3360,13 +3336,13 @@ def wimax_card_vs_cpu(tp, buf, rows: int):
     if differ.any():  # the CPU step's own refined values, prepared
         prep = engine.prepare(refined, llr.cpu(), labels.cpu(), cpu.code.h_osd, k)
         ties = ties_only("wimax card vs CPU walk", prep, differ, torch.maximum(
-            card["deep_limit"], host["deep_limit"]), cpu.teps.reshape(-1, k),
-            cpu.bounds, k)
+            card["deep_limit"], host["deep_limit"]), cpu.layout.flat,
+            cpu.layout.bounds, k)
     else:
         ties = 0
     log(f"wimax card vs CPU ({tp.snr_db:.1f} dB, the first {rows} captured rows "
         f"of a round, {int(card['detected'].sum())} detected, the full path's "
-        f"{int(tp.mask.sum())} TEPs): walk decisions equal on "
+        f"{tp.layout.ntot} TEPs): walk decisions equal on "
         f"{rows - ties} rows, {ties} rows differing at an f32 tie; successes "
         f"{int(card['success'].sum())} (card) / {int(host['success'].sum())} "
         f"(CPU)")
@@ -3477,7 +3453,7 @@ def phase_k5_general(dev, rows, smi):
     run = {"code": code, "fcn": tp.fcn,
            "config": {"window": tp.window, "soft_margin": tp.soft_margin}}
     entry = {"wimax_system": k5_entry(
-        "wimax system (general plan)", run, prep, (tp.teps, tp.mask, tp.bounds),
+        "wimax system (general plan)", run, prep, tp.layout,
         smi, WIMAX_TWIN_ROWS, WIMAX_F64_ROWS, WIMAX_LIB_TEPS)}
     # the round's own weights: the twin's f32 sum holds 1e-5 on them (on
     # N(0, 1.5) weights, whose sums cancel, only the f64 evaluation does)
@@ -3485,7 +3461,7 @@ def phase_k5_general(dev, rows, smi):
     entry["wimax_system"]["block_minima"]["exact"] = k5_block_minima_exact(
         "wimax round rows (general plan)", prep, code.k, 256, 4_096, 95, smi)
     del refined, prep
-    t_path = tp.teps.reshape(-1, tp.code.k).to(torch.int8).contiguous()
+    t_path = tp.layout.flat
     ntot = t_path.shape[0]
     m_mat, u_l, t_dense = k5_inputs(dev, 1_024, tp.code.h_osd.shape[0],
                                     tp.code.k, ntot, 40)
@@ -3652,15 +3628,12 @@ def path_kernels(dev, label, run, spec, batch, rows, launches, card, seed):
                                        code.h_osd, code.k, card) | {
         "launches": launches["ge_packed"]}
     prep = engine.prepare(refined, x, labels, code.h_osd, code.k)
-    blocks, _ = segments.build_tep_blocks(run["path"], code.k,
-                                          int(run["config"].get("num_segments", 6)))
-    teps, mask, bounds = segments.pack_tep_chunks(blocks)
-    layout = (torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev),
-              bounds)
+    layout = segments.TepLayout.build(
+        run["path"], code.k, int(run["config"].get("num_segments", 6)), dev)
     entries["K5 lterm"] = k5_entry(
         label, run, prep, layout, card,
-        *k5_chunks(rows, code.h_osd.shape[0], teps.shape[0] * teps.shape[1])) | {
-        "launches": launches["lterm"], "teps": int(mask.sum())}
+        *k5_chunks(rows, code.h_osd.shape[0], layout.flat.shape[0])) | {
+        "launches": launches["lterm"], "teps": layout.ntot}
     del prep, layout
     torch.cuda.empty_cache()
     return entries, (x, labels)
@@ -4299,19 +4272,16 @@ def variant_phase2(dev, label, code, params, variant):
     weight set on one capture step's failures with the r4 artifacts: its
     re-decode is K2 (one launch, with GE and K5).  Returns its launches."""
     run = load_run(R4, dev)
-    blocks, acc = segments.build_tep_blocks(run["path"], code.k, 6)
-    teps, mask, bounds = segments.pack_tep_chunks(blocks)
+    layout = segments.TepLayout.build(run["path"], code.k, 6, dev)
     step = harness.build_nms_mc_step(code, variant, ITERS,
                                      ChannelSpec.awgn(3.0, code.rate), CAP_B,
                                      capture_capacity=CAP, device=dev)
     _, buf = step(params, torch.Generator(device=dev).manual_seed(VARIANT_SEED))
     phase2 = engine.make_dl_osd_step_from_llr(run["dia"], code, variant, ITERS,
-                                              bounds=bounds)
+                                              layout)
     _kernels.reset_launches()
     with torch.no_grad():
-        out, _, det = phase2(params, buf["llr"], buf["labels"],
-                             torch.as_tensor(teps, device=dev),
-                             torch.as_tensor(mask, device=dev), acc, run["fcn"])
+        out, _, det = phase2(params, buf["llr"], buf["labels"], run["fcn"])
     launches = {k: n for k, n in _kernels.LAUNCHES.items() if n}
     if launches != {"nms_edge_traj": 1, "ge_packed": 1, "lterm": 1}:
         raise AssertionError(f"{label} phase 2 launched {launches}")
@@ -4533,12 +4503,12 @@ def nms_r_card_vs_cpu(tp, buf, rows: int):
         labels = buf["labels"][:rows].to(side.device)
         ref = wimax_step(side, llr, labels)[1]
         prep = engine.prepare(ref, llr, labels, side.code.h_osd, side.code.k)
-        minima, argmins = engine.block_discrepancy_minima(
-            prep, side.teps, side.mask, side.code.k, side.bounds)
+        minima, argmins = engine.block_discrepancy_minima(prep, side.layout,
+                                                          side.code.k)
         run = {"fcn": side.fcn, "config": {"window": side.window,
                                            "soft_margin": side.soft_margin}}
         picks.append([t.cpu() for t in walk_picks(run, prep, minima, argmins,
-                                                  side.bounds)[:3]])
+                                                  side.layout.bounds)[:3]])
         refined.append(ref.cpu())
     err = compare("NMS-r walk: refined values, card vs CPU", refined[0],
                   refined[1], rel=True, tol=NMS_R_REFINED_TOL)
@@ -4597,7 +4567,7 @@ def nms_r_system(dev, run_dir, trained_rec, card):
     rows = min(int(buf["count"]), CAP)
     k5, ge = system_kernels(dev, "NMS-r system", tp, buf, card,
                             *k5_chunks(CAP, tp.code.h_osd.shape[0],
-                                       int(tp.teps.shape[0] * tp.teps.shape[1])))
+                                       tp.layout.flat.shape[0]))
     refined_err = nms_r_card_vs_cpu(tp, buf, NMS_R_CPU_ROWS)
     del tp, buf
     torch.cuda.synchronize()

@@ -41,7 +41,7 @@ import sys
 import torch
 
 from short_ldpc_decoding_osd_tpu_torch import _kernels
-from short_ldpc_decoding_osd_tpu_torch.codes import get_code
+from short_ldpc_decoding_osd_tpu_torch.codes import get_code, tables
 from short_ldpc_decoding_osd_tpu_torch.ops import gf2_bitpack
 
 SHAPES = (("ccsds_128_64", 32768), ("qc_96_48", 4096),
@@ -174,7 +174,7 @@ def main() -> int:
         m = h.shape[0]
         perm = torch.argsort(torch.rand((b, n), generator=gen, device=dev),
                              dim=1)
-        hcol = gf2_bitpack.packed_h_columns(h, dev)
+        hcol = tables.get(h, gf2_bitpack._packed_h_columns, dev)
         plan = gf2_bitpack.ge_plan(b, m, n)
         out = torch.empty((b, m, k), dtype=torch.int8, device=dev)
         order = torch.empty((b, n), dtype=torch.int32, device=dev)

@@ -27,36 +27,22 @@ The MRB term ``u_m @ T^T`` and every other contraction run in IEEE f32
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from .._device import full_f32, resolve_device
-from ..codes import gf2
+from ..codes import tables
 from ..ops import gf2_bitpack, gf2ops, osd_disc
 
 CPU_TEP_BLOCK = 2048  # TEPs a block of the CPU twin of the parity term
 
 
-@functools.lru_cache(maxsize=64)
-def _full_row_rank(rows: int, data: bytes) -> bool:
-    g = np.frombuffer(data, np.uint8).reshape(rows, -1)
-    return gf2.rank(g) == rows
-
-
-def _host_g(g) -> np.ndarray:
-    g = g.cpu().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
-    return (g != 0).astype(np.uint8)
-
-
 def check_full_row_rank(g) -> None:
-    """Raise ``ValueError`` unless the (k, n) G has GF(2) rank k (cached by
-    G's bytes)."""
-    g = _host_g(g)
-    if not _full_row_rank(g.shape[0], g.tobytes()):
+    """Raise ``ValueError`` unless the (k, n) G has GF(2) rank k (read once
+    per matrix, ``codes.tables``)."""
+    rows, cols = g.shape
+    if tables.rank(g) != rows:
         raise ValueError(
-            f"prepare_g_domain: G ({g.shape[0]} x {g.shape[1]}) is not of full "
+            f"prepare_g_domain: G ({rows} x {cols}) is not of full "
             "row rank; the GE kernel and the dense route differ on such input")
 
 
@@ -85,7 +71,7 @@ def prepare_g_domain(inputs: torch.Tensor, labels: torch.Tensor, g,
     check_full_row_rank(g)
     n = inputs.shape[1]
     order = torch.sort(-inputs.abs(), dim=-1, stable=True).indices  # descending
-    g_sorted = gf2ops.permute_columns(order, _host_g(g))  # (B, k, n)
+    g_sorted = gf2ops.permute_columns(order, g)  # (B, k, n)
     if inputs.device.type == "cuda":
         tail, col_order = gf2_bitpack.reduce_dense(g_sorted, n - k)
         col_order = col_order.long()

@@ -38,6 +38,12 @@ class Code:
     h: np.ndarray
     g: np.ndarray
 
+    def __post_init__(self):
+        # the matrices are static (``codes.tables`` keys them by identity):
+        # a read-only copy of each, so that nothing changes them in place
+        for field in ("h", "g"):
+            object.__setattr__(self, field, _frozen(getattr(self, field)))
+
     @property
     def n(self) -> int:
         return self.h.shape[1]
@@ -76,7 +82,12 @@ class Code:
         """ENMS redundant-row extension: append all pairwise row sums of
         weight <= 2*max_chk_degree - 4 (reference ``fill_matrix_info.py:135-150``).
 
-        The generator matrix is unchanged (the extra rows are dependent)."""
+        The generator matrix is unchanged (the extra rows are dependent).
+        The same object on every call."""
+        return self._extended
+
+    @functools.cached_property
+    def _extended(self) -> "Code":
         cap = 2 * self.max_chk_degree - 4
         extra = []
         for i in range(self.m - 1):
@@ -106,7 +117,14 @@ class Code:
             return self.h
         basis = gf2.row_basis(self.h)
         assert basis.shape[0] == self.n - self.k, (basis.shape, self.k)
-        return basis
+        return _frozen(basis)
+
+
+def _frozen(matrix) -> np.ndarray:
+    """A read-only uint8 copy of ``matrix``."""
+    out = np.array(matrix, dtype=np.uint8)
+    out.setflags(write=False)
+    return out
 
 
 def make_regular_ldpc(

@@ -36,7 +36,7 @@ import torch
 
 from .._device import resolve_device
 from ..channel.awgn import ChannelSpec, sample_batch
-from ..codes import Code
+from ..codes import Code, tables
 from ..ops import mc_dense, nms, nms_dense, nms_edge, nms_edge_padded
 from ..utils import profiling
 from ..utils.metrics import DecodeStats
@@ -124,7 +124,7 @@ def build_nms_mc_step(code: Code, variant: str, num_iterations: int,
     dev = resolve_device(device)
     decode_h = code.extended().h if variant == "ENMS" else code.h
     chosen = select_decoder(decode_h, variant, batch, decoder, dev)
-    gen_matrix = torch.as_tensor(code.g, dtype=torch.float32, device=dev)
+    gen_matrix = tables.f32(code.g, dev)
     decode = decode_final_fn(chosen, decode_h, variant, num_iterations, dev)
 
     def step(params: dict, generator: torch.Generator):
@@ -150,8 +150,7 @@ def decode_final_fn(chosen: str, decode_h, variant: str, num_iterations: int,
         return lambda params, llr: nms_edge.decode_final_edge(
             params, decode_h, llr, num_iterations, variant)
     if chosen == "dense":
-        h_dev = torch.as_tensor(np.asarray(decode_h), dtype=torch.float32,
-                                device=device)
+        h_dev = tables.f32(decode_h, device)
         return lambda params, llr: nms_dense.decode_final_dense(
             params, h_dev, llr, num_iterations, variant)
     if chosen == "edge_padded":

@@ -29,7 +29,6 @@ plain PyTorch, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
@@ -37,6 +36,7 @@ import torch
 from torch import nn
 
 from .._device import full_f32
+from ..codes import tables
 
 
 def _dropout(x: torch.Tensor, rate: float, deterministic: bool,
@@ -219,13 +219,12 @@ class PredictPhase(nn.Module):
         return torch.softmax(x, dim=-1)
 
 
-@functools.lru_cache(maxsize=8)
-def _neighborhood_table(h_bytes: bytes, shape: tuple[int, int]):
-    """(n, dv, dc) column gather order and 0/1 mask of one H: for variable v
-    and its slot-th adjacent row r, v's own column first, then r's other
-    members (the reference's concat([selected_col, part1, part2]))."""
-    h = np.frombuffer(h_bytes, np.uint8).reshape(shape)
-    m, n = shape
+def _neighborhood_table(h, device):
+    """(n, dv, dc) column gather order and 0/1 mask of one H on ``device``
+    (a ``codes.tables`` item): for variable v and its slot-th adjacent row
+    r, v's own column first, then r's other members (the reference's
+    concat([selected_col, part1, part2]))."""
+    m, n = h.shape
     dc = int(h.sum(axis=1).max())
     dv = int(h.sum(axis=0).max())
     order = np.zeros((n, dv, dc), np.int64)
@@ -236,7 +235,7 @@ def _neighborhood_table(h_bytes: bytes, shape: tuple[int, int]):
             cols = [v] + [c for c in np.nonzero(h[r])[0] if c != v]
             order[v, slot, : len(cols)] = cols
             mask[v, slot, : len(cols)] = 1.0
-    return order, mask
+    return torch.tensor(order, device=device), torch.tensor(mask, device=device)
 
 
 def neighborhood_trajectories(h: np.ndarray,
@@ -246,13 +245,10 @@ def neighborhood_trajectories(h: np.ndarray,
 
     ``trajectories`` (B, T+1, n) -> (B, n, dv, T+1, dc), dv and dc H's
     largest column and row weights, zero-padded on irregular degrees: one
-    static gather from a table built once per H on the host, then the
-    mask (an exact multiply, as JAX's)."""
-    h = np.ascontiguousarray(np.asarray(h) != 0, dtype=np.uint8)
-    order, mask = _neighborhood_table(h.tobytes(), h.shape)
-    dev = trajectories.device
-    per_var = (trajectories[:, :, torch.as_tensor(order, device=dev)]
-               * torch.as_tensor(mask, device=dev)[None, None])
+    static gather from a table built once per H and device, then the mask
+    (an exact multiply, as JAX's)."""
+    order, mask = tables.get(h, _neighborhood_table, trajectories.device)
+    per_var = trajectories[:, :, order] * mask[None, None]
     return per_var.permute(0, 2, 3, 1, 4)  # (B, n, dv, T+1, dc)
 
 

@@ -32,12 +32,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
 
 import numpy as np
 import torch
 
 from .. import _kernels
+from ..codes import tables
 from .nms import first_index
 
 WARP_FRAMES = 8  # frames (warps) a block in the warp mode
@@ -108,7 +108,7 @@ def pack_permuted(invperm: torch.Tensor, h) -> torch.Tensor:
     of a word are distinct, so the sum is their OR)."""
     b, n = invperm.shape
     nw = -(-n // 32)
-    h = torch.as_tensor(h, device=invperm.device).to(torch.int64)
+    h = tables.int8(h, invperm.device).to(torch.int64)
     m = h.shape[0]
     pos = invperm.to(torch.int64)
     vals = h[None, :, :] << (pos % 32)[:, None, :]  # (B, m, n)
@@ -304,32 +304,12 @@ def ge_occupancy(plan: GePlan, m: int, n: int, device: int = 0) -> dict:
     return occ
 
 
-# H packed by columns, cached by its bytes (a sha1), and by the H object and
-# the target device, so that a call with an H already seen reads nothing of
-# it (the main path passes the same h_osd every round).  The entry holds H,
-# so no other object can take its id while it is cached; H is static: one
-# changed in place after its first use is not re-read.
-_HCOL_CACHE: dict = {}
-_HCOL_BY_ID: dict = {}
-
-
-def packed_h_columns(h, device) -> torch.Tensor:
-    """The static (m, n) H packed by columns on ``device``: (n, ceil(m/32))
-    int32, bit r%32 of word r//32 of column j = h[r, j]; built once per
-    (H, device) and cached."""
-    hit = _HCOL_BY_ID.get((id(h), device))
-    if hit is not None and hit[0] is h:
-        return hit[1]
-    h_np = np.asarray(h.cpu() if isinstance(h, torch.Tensor) else h)
-    h_np = (h_np != 0).astype(np.uint8)
-    key = (str(torch.device(device)), h_np.shape,
-           hashlib.sha1(h_np.tobytes()).hexdigest())
-    if key not in _HCOL_CACHE:
-        cols = torch.as_tensor(h_np.T.copy())[None]  # (1, n, m) as a "batch"
-        words = pack_columns(cols)[:, :, 0].contiguous()  # (n, mw)
-        _HCOL_CACHE[key] = words.to(device)
-    _HCOL_BY_ID[(id(h), device)] = (h, _HCOL_CACHE[key])
-    return _HCOL_CACHE[key]
+def _packed_h_columns(h, device) -> torch.Tensor:
+    """The static (m, n) H packed by columns on ``device`` (a
+    ``codes.tables`` item): (n, ceil(m/32)) int32, bit r%32 of word r//32
+    of column j = h[r, j], the kernel's perm-load operand."""
+    cols = torch.as_tensor(h.T.copy())[None]  # (1, n, m) as a "batch"
+    return pack_columns(cols)[:, :, 0].contiguous().to(device)
 
 
 def _launch(b: int, m: int, n: int, tail: int, device, perm=None, hcol=None,
@@ -378,7 +358,7 @@ def reduce_from_perm(perm: torch.Tensor, h, k: int):
     if b == 0:
         return _launch_empty(b, m, n, k, perm.device)
     perm = perm.to(torch.int64).contiguous()
-    hcol = packed_h_columns(h, perm.device)
+    hcol = tables.get(h, _packed_h_columns, perm.device)
     return _launch(b, m, n, k, perm.device, perm=perm, hcol=hcol)
 
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..codes import tables
 from . import gf2_bitpack
 from .nms import first_index
 
@@ -82,8 +83,7 @@ def batched_row_reduce(h_batch: torch.Tensor):
 def permute_columns(perm: torch.Tensor, h) -> torch.Tensor:
     """(B, n) permutation x static (m, n) H -> (B, m, n) column-permuted H:
     ``out[b, :, pos] = h[:, perm[b, pos]]`` (an exact gather)."""
-    h = torch.as_tensor(h, device=perm.device).to(torch.int8)
-    return h.T[perm].transpose(1, 2).contiguous()
+    return tables.int8(h, perm.device).T[perm].transpose(1, 2).contiguous()
 
 
 def reliability_sort(inputs: torch.Tensor, h):

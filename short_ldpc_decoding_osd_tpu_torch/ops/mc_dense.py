@@ -26,6 +26,7 @@ import torch
 from .. import _kernels
 from .._device import resolve_device
 from ..channel.awgn import sigma_for_snr
+from ..codes import tables
 from . import mc_hash, nms, nms_dense
 
 _LANES = 5
@@ -115,7 +116,6 @@ def fused_counters(code, params: dict, variant: str, num_iterations: int,
     hash frames of ``seed`` at ``snr_db`` (plain AWGN) on ``code.h`` (not
     extended, as in JAX), (5,) int64 on ``device``."""
     dev = resolve_device(device)
-    h = torch.as_tensor(np.asarray(code.h), dtype=torch.float32, device=dev)
-    g = torch.as_tensor(np.asarray(code.g), dtype=torch.float32, device=dev)
+    h, g = tables.f32(code.h, dev), tables.f32(code.g, dev)
     return mc_fused(nms.scalar_weights(params, variant), seed, h, g,
                     num_iterations, batch, sigma_for_snr(snr_db, code.rate))

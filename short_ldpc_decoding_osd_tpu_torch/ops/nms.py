@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import full_f32
+from ..codes import tables
 
 VARIANTS = ("NMS-1", "NMS-2", "NMS-3", "NMS-r", "ENMS")
 
@@ -172,7 +173,7 @@ def _iterate(params, h, llr, num_iterations, variant, edge_cols, keep_all):
     # kernel wrappers, and NMS-r's network must run beside its frames
     params = {k: torch.as_tensor(v).to(llr.device) for k, v in params.items()}
     w_vc, w_chk, w_marg = _weights(params, variant)
-    h = torch.as_tensor(h, dtype=torch.float32, device=llr.device)
+    h = tables.f32(h, llr.device)
     weighted_in = (w_vc * llr)[:, None, :]
     cv = torch.zeros((llr.shape[0],) + tuple(h.shape), dtype=llr.dtype,
                      device=llr.device)
@@ -224,7 +225,7 @@ def frame_stats(soft_last: torch.Tensor, labels: torch.Tensor, h) -> dict:
     * ``detected_failure``: nonzero syndrome (these frames go to OSD);
     * ``undetected_error``: zero syndrome but wrong codeword (UFER, excluded
       from the OSD failure set)."""
-    h = torch.as_tensor(h, dtype=torch.float32, device=soft_last.device)
+    h = tables.f32(h, soft_last.device)
     hard = (soft_last < 0).to(torch.float32)
     err = hard != labels.to(torch.float32)
     frame_error = err.any(-1)

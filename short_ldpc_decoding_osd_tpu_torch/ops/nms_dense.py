@@ -35,6 +35,7 @@ import functools
 import torch
 
 from .. import _kernels
+from ..codes import tables
 from . import nms_edge
 from .nms import scalar_weights
 
@@ -122,10 +123,9 @@ def dense_plan(h: torch.Tensor, k: int = 0):
     """(dc, dv, plan): the largest check and variable degrees of the mask
     ``h`` on the card and the launch plan of K6 (``k == 0``) or K7 (``k``
     message bits) for them: the slab tables (and, for K7, the counters and
-    G's column masks) once a block, one frame region a frame."""
-    edge = h > 0
-    dc, dv = (int(d) for d in torch.stack([edge.sum(1).max(),
-                                           edge.sum(0).max()]).tolist())
+    G's column masks) once a block, one frame region a frame.  The degrees
+    are ``codes.tables``' (read once per mask)."""
+    dc, dv = tables.degrees(h)
     m, n = h.shape
     table, extra = dc * m + dv * n, 0
     if k:

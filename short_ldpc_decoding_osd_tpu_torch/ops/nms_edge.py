@@ -39,14 +39,18 @@ import torch
 from .. import _kernels
 from .._device import resolve_device
 from ..channel.awgn import sigma_for_snr
+from ..codes import tables
 from ..utils import profiling
 from . import mc_hash
 from .nms import frame_stats, scalar_weights
 
 
-@functools.lru_cache(maxsize=16)
-def _edge_layout_cached(h_bytes: bytes, m: int, n: int):
-    h = np.frombuffer(h_bytes, dtype=np.uint8).reshape(m, n)
+def edge_layout(h):
+    """Edge tables of ``h``: ``edge_col`` (dc, m) int32, the variable of
+    slot j of check c (-1 for a dummy edge), and ``var_edges`` (dv, n)
+    int32, the edges of variable v in ascending check order (-1 padded)."""
+    h = np.asarray(h, dtype=np.uint8)
+    m, n = h.shape
     degrees = h.sum(axis=1)
     if degrees.min() < 2:
         # a degree-1 check has no extrinsic message (and no second operand
@@ -65,17 +69,7 @@ def _edge_layout_cached(h_bytes: bytes, m: int, n: int):
         checks = np.flatnonzero(h[:, v])  # ascending check order
         slots = [int(np.flatnonzero(edge_col[:, c] == v)[0]) for c in checks]
         var_edges[: len(checks), v] = [j * m + c for j, c in zip(slots, checks)]
-    edge_col.setflags(write=False)
-    var_edges.setflags(write=False)
     return edge_col, var_edges
-
-
-def edge_layout(h):
-    """Edge tables of ``h``: ``edge_col`` (dc, m) int32, the variable of
-    slot j of check c (-1 for a dummy edge), and ``var_edges`` (dv, n)
-    int32, the edges of variable v in ascending check order (-1 padded)."""
-    h = np.ascontiguousarray(np.asarray(h, dtype=np.uint8))
-    return _edge_layout_cached(h.tobytes(), *h.shape)
 
 
 # The compile-time buckets of the iteration body (csrc/nms_edge_body.cuh,
@@ -133,34 +127,18 @@ def launch_plan(m: int, n: int, dc: int, dv: int, extra_words: int = 0,
     return None
 
 
-def _degrees(h) -> tuple[int, int]:
-    h = np.asarray(h, dtype=np.int64)
-    return int(h.sum(axis=1).max()), int(h.sum(axis=0).max())
-
-
 def kernel_holds(h) -> bool:
     """True when K1 takes ``h``: every check has degree >= 2 and a launch
     plan holds the code (:func:`launch_plan`)."""
-    h = np.asarray(h, dtype=np.int64)
-    if h.sum(axis=1).min() < 2:
+    if np.asarray(h, dtype=np.int64).sum(axis=1).min() < 2:
         return False
-    return launch_plan(*h.shape, *_degrees(h)) is not None
+    return launch_plan(*np.shape(h), *tables.degrees(h)) is not None
 
 
-_DEVICE_TABLES: dict = {}
-
-
-def _tables_on(h, device: torch.device):
-    """The edge tables as int32 tensors on ``device`` (cached per matrix)."""
-    h = np.ascontiguousarray(np.asarray(h, dtype=np.uint8))
-    key = (h.tobytes(), h.shape, str(device))
-    if key not in _DEVICE_TABLES:
-        edge_col, var_edges = edge_layout(h)
-        _DEVICE_TABLES[key] = (
-            torch.tensor(edge_col, device=device),
-            torch.tensor(var_edges, device=device),
-        )
-    return _DEVICE_TABLES[key]
+def _edge_tables(h, device):
+    """:func:`edge_layout` as int32 tensors on ``device`` (a
+    ``codes.tables`` item)."""
+    return tuple(torch.tensor(a, device=device) for a in edge_layout(h))
 
 
 def _decode_edge_plain(llr, h, num_iterations, weights, traj, cv0=None,
@@ -171,7 +149,7 @@ def _decode_edge_plain(llr, h, num_iterations, weights, traj, cv0=None,
     after the last iteration, so that a decode resumed from them runs on
     exactly as an uninterrupted one."""
     w_vc, w_chk, w_marg = weights
-    edge_col, var_edges = _tables_on(h, llr.device)
+    edge_col, var_edges = tables.get(h, _edge_tables, llr.device)
     dc, m = edge_col.shape
     batch, n = llr.shape
     num_edges = dc * m
@@ -223,7 +201,7 @@ def _decode_edge_plain(llr, h, num_iterations, weights, traj, cv0=None,
 def _decode_edge_kernel(llr, h, num_iterations, weights, traj):
     if llr.dtype != torch.float32 or llr.dim() != 2 or not llr.is_contiguous():
         raise ValueError("llr must be a contiguous (B, n) float32 tensor")
-    edge_col, var_edges = _tables_on(h, llr.device)
+    edge_col, var_edges = tables.get(h, _edge_tables, llr.device)
     dc, m = edge_col.shape
     dv, n = var_edges.shape
     batch = llr.shape[0]
@@ -319,24 +297,22 @@ def build_rows_schedule(schedule, block_frames: int, num_iterations: int):
     return tuple(rows_schedule), num_iterations - spent
 
 
-@functools.lru_cache(maxsize=16)
-def _gen_columns_cached(g_bytes: bytes, k: int, n: int) -> np.ndarray:
-    g = np.frombuffer(g_bytes, dtype=np.uint8).reshape(k, n)
+def gen_columns(g) -> np.ndarray:
+    """(n, ceil(k/32)) int32 bit masks of G's columns: bit b of word w of
+    column v is ``G[32 w + b, v]`` (the kernels' encode operand)."""
+    g = np.asarray(g, dtype=np.uint8)
+    k, n = g.shape
     kw = (k + 31) // 32
     padded = np.zeros((kw * 32, n), np.uint64)
     padded[:k] = g
     weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
     words = (padded.reshape(kw, 32, n) * weights[None, :, None]).sum(axis=1)
-    cols = np.ascontiguousarray(words.T.astype(np.uint32).view(np.int32))
-    cols.setflags(write=False)
-    return cols
+    return np.ascontiguousarray(words.T.astype(np.uint32).view(np.int32))
 
 
-def gen_columns(g) -> np.ndarray:
-    """(n, ceil(k/32)) int32 bit masks of G's columns: bit b of word w of
-    column v is ``G[32 w + b, v]`` (the kernels' encode operand)."""
-    g = np.ascontiguousarray(np.asarray(g, dtype=np.uint8))
-    return _gen_columns_cached(g.tobytes(), *g.shape)
+def _gen_column_tensor(g, device):
+    """:func:`gen_columns` on ``device`` (a ``codes.tables`` item)."""
+    return torch.tensor(gen_columns(g), device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -379,17 +355,15 @@ def mc_plan(m: int, n: int, dc: int, dv: int, k: int) -> LaunchPlan | None:
 def mc_setup(code, params: dict, variant: str, snr_db: float, seed: int,
              device: str | torch.device = "cuda") -> MCSetup:
     """The shared state of a fused Monte-Carlo call on ``device`` (plain
-    AWGN at ``snr_db``)."""
+    AWGN at ``snr_db``); the code's tables come from ``codes.tables``."""
     dev = resolve_device(device)
-    h = np.ascontiguousarray(np.asarray(code.h, np.uint8))
-    g = np.asarray(code.g, np.uint8)
-    edge_col, var_edges = _tables_on(h, dev)
+    edge_col, var_edges = tables.get(code.h, _edge_tables, dev)
     return MCSetup(
-        h=h, k=g.shape[0], weights=scalar_weights(params, variant),
+        h=code.h, k=code.g.shape[0], weights=scalar_weights(params, variant),
         sigma=float(np.float32(sigma_for_snr(snr_db, code.rate))),
         seed=int(seed) & 0xFFFFFFFF, edge_col=edge_col, var_edges=var_edges,
-        g32=torch.as_tensor(g, dtype=torch.float32, device=dev),
-        gcols=torch.tensor(gen_columns(g), device=dev))
+        g32=tables.f32(code.g, dev),
+        gcols=tables.get(code.g, _gen_column_tensor, dev))
 
 
 def _frame_errors(mc: MCSetup, soft: torch.Tensor, codeword: torch.Tensor):

@@ -25,12 +25,11 @@ hand-written kernel.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
 from .._device import full_f32
+from ..codes import tables
 from . import nms, nms_dense, nms_edge
 
 __all__ = ["edge_layout", "supports", "auto_select", "train_select",
@@ -82,9 +81,10 @@ def auto_select(h, variant: str, device: str | torch.device,
     return not (nms_edge.kernel_holds(h) or nms_dense.holds(*np.shape(h)))
 
 
-@functools.lru_cache(maxsize=16)
-def _layout_cached(h_bytes: bytes, m: int, n: int):
-    h = np.frombuffer(h_bytes, dtype=np.uint8).reshape(m, n)
+def _layout_tables(h, device):
+    """The layout's flat tables as tensors on ``device`` (a
+    ``codes.tables`` item, so a decode copies nothing from the host)."""
+    m, n = h.shape
     cols, real = edge_layout(h)
     dc = cols.shape[1]
     # dc-major flat edge e = q * m + i, as the (B, dc, m) work tensors
@@ -102,24 +102,8 @@ def _layout_cached(h_bytes: bytes, m: int, n: int):
     # NMS-r: row slot p's dc-1 other slots
     loo_idx = np.array([[q for q in range(dc) if q != p] for p in range(dc)],
                        np.int64).reshape(dc, dc - 1)
-    for a in (flat_cols, flat_real, var_idx, loo_idx):
-        a.setflags(write=False)
-    return flat_cols, flat_real, var_idx, loo_idx
-
-
-_DEVICE_TABLES: dict = {}
-
-
-def _tables(h, device: torch.device):
-    """The layout's tables as tensors on ``device`` (cached per matrix, so
-    a decode copies nothing from the host)."""
-    h = np.ascontiguousarray(np.asarray(h, dtype=np.uint8))
-    key = (h.tobytes(), h.shape, str(device))
-    if key not in _DEVICE_TABLES:
-        _DEVICE_TABLES[key] = tuple(
-            torch.tensor(a, device=device)
-            for a in _layout_cached(h.tobytes(), *h.shape))
-    return _DEVICE_TABLES[key]
+    return tuple(torch.tensor(a, device=device)
+                 for a in (flat_cols, flat_real, var_idx, loo_idx))
 
 
 def _row_signs(vc: torch.Tensor, real: torch.Tensor) -> torch.Tensor:
@@ -171,7 +155,8 @@ def _build(params, h, variant, device):
                          "regular check degree (matching nms.edge_columns)")
     params = {k: torch.as_tensor(v).to(device) for k, v in params.items()}
     w_vc, w_chk, w_marg = nms._weights(params, variant)
-    flat_cols, flat_real, var_idx, loo_idx = _tables(h, device)
+    flat_cols, flat_real, var_idx, loo_idx = tables.get(h, _layout_tables,
+                                                        device)
     m = np.shape(h)[0]
     dc = len(flat_cols) // m
     real = flat_real.view(dc, m)

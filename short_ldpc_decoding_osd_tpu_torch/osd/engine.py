@@ -8,9 +8,10 @@ Port of ``short_ldpc_decoding_osd_tpu/osd/engine.py`` (reference
   is the bit-packed route, the CUDA kernel ``csrc/gf2_ge.cu``;
 * candidate re-encoding and the weighted-Hamming discrepancy fold into the
   affine map ``c0 + u_l @ mod2(M @ T^T) + u_m @ T^T`` (``x ^ y = x + y -
-  2xy``); in the chunked TEP layout the CUDA kernel K5 computes it and
-  reduces it to the block minima (``ops.osd_disc.block_minima``), elsewhere
-  K5 gives its parity term (``ops.osd_disc.lterm``);
+  2xy``); over a path's TEPs (``segments.TepLayout``, built once at
+  set-up) the CUDA kernel K5 computes it and reduces it to the block minima
+  (``ops.osd_disc.block_minima``), elsewhere K5 gives its parity term
+  (``ops.osd_disc.lterm``);
 * the sliding-window stopper walk is replayed for all frames at once.
 
 The JAX package demotes to a slower path when a fused kernel fails to
@@ -22,13 +23,13 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from .._device import full_f32
 from ..ops import gf2ops, nms, nms_edge, nms_edge_padded, osd_disc
 from ..ops.nms import first_argmin, first_index
 from ..utils import profiling
+from .segments import TepLayout
 
 _BIG = osd_disc.BIG  # f32-representable "no candidate" discrepancy
 
@@ -126,43 +127,6 @@ def _tep_discrepancies(prep: PreparedBatch, t_flat: torch.Tensor,
     return c0[:, None] + lterm + u_m @ t_flat.T.to(torch.float32)
 
 
-@dataclasses.dataclass(frozen=True)
-class MinimaTables:
-    """The static tables of K5's block minima for one chunked TEP layout
-    (:func:`minima_tables`)."""
-
-    positions: tuple  # ``osd_disc.tep_positions`` of the flat TEP rows
-    block_of: torch.Tensor  # (C*chunk,) int32, -1 where masked or in no block
-    starts: torch.Tensor  # (P,) int64, each block's first flat index
-    ntot: int  # the end of the last block
-
-
-def _flat_teps(teps: torch.Tensor) -> torch.Tensor:
-    """The (C*chunk, k) int8 rows of chunked TEPs (a view where it can)."""
-    return teps.reshape(-1, teps.shape[-1]).to(torch.int8).contiguous()
-
-
-def minima_tables(teps: torch.Tensor, mask: torch.Tensor,
-                  bounds: tuple) -> MinimaTables:
-    """:class:`MinimaTables` of the chunked layout ``teps`` (C, chunk, k) /
-    ``mask`` (C, chunk) / ``bounds`` (``segments.pack_tep_chunks``), on
-    ``teps``' device.  Building them reads the mask and T's set columns on
-    the host, so a caller that walks the same layout again builds them once,
-    beside ``bounds``, and passes them down as ``tables``."""
-    t_flat = _flat_teps(teps)
-    block_of = np.full(t_flat.shape[0], -1, dtype=np.int32)
-    for p, (s, e) in enumerate(bounds):
-        block_of[s:e] = p
-    block_of[~mask.reshape(-1).cpu().numpy()] = -1
-    dev = teps.device
-    return MinimaTables(
-        positions=osd_disc.tep_positions(t_flat),
-        block_of=torch.as_tensor(block_of, device=dev),
-        starts=torch.as_tensor([s for s, _ in bounds], dtype=torch.int64,
-                               device=dev),
-        ntot=max((e for _, e in bounds), default=0))
-
-
 def _selected_is_label(prep: PreparedBatch, tep_sel: torch.Tensor,
                        k: int) -> torch.Tensor:
     """(B,) strict success: the codeword of each frame's selected TEP (B, k)
@@ -177,58 +141,22 @@ def _selected_is_label(prep: PreparedBatch, tep_sel: torch.Tensor,
 
 
 @full_f32()
-def _block_disc_scan(prep: PreparedBatch, teps, mask, k: int, post=None):
-    """Loop over TEP blocks -> per-block ``post(disc)``, or the stacked
-    masked discrepancies (P, B, Nmax) when ``post`` is None."""
-    c0, u_l, u_m, _ = _discrepancy_terms(prep, k)
-    m_f = prep.m_matrix.to(torch.float32)
-    outs = []
-    for tep, valid in zip(teps, mask):
-        tep_f = tep.to(torch.float32)
-        prods = torch.einsum("bmk,nk->bmn", m_f, tep_f)
-        a = prods - 2.0 * torch.floor(prods * 0.5)
-        disc = c0[:, None] + torch.einsum("bm,bmn->bn", u_l, a) + u_m @ tep_f.T
-        disc = torch.where(valid[None, :], disc, _BIG)
-        outs.append(disc if post is None else post(disc))
-    if post is None:
-        return torch.stack(outs, 0)
-    return tuple(torch.stack(parts, 0) for parts in zip(*outs))
+def block_discrepancy_minima(prep: PreparedBatch, layout: TepLayout, k: int):
+    """Per-block minima (B, P) of the weighted discrepancy over ``layout``'s
+    TEPs and the index of the minimizing TEP inside each block (B, P), the
+    first on ties; an empty block gives (``_BIG``, 0).
 
-
-@full_f32()
-def _chunked_minima(prep: PreparedBatch, teps: torch.Tensor,
-                    tables: MinimaTables, k: int):
+    The minima come out of kernel K5 whole (``osd_disc.block_minima``, no
+    (B, N) map; its plain twin on the CPU), its stages spans
+    ``minima.terms`` (the affine map's terms) and ``minima.k5`` (the
+    launch)."""
     with profiling.span("minima.terms"):
         c0, u_l, u_m, _ = _discrepancy_terms(prep, k)
     with profiling.span("minima.k5"):
         return osd_disc.block_minima(
             prep.m_matrix.contiguous(), u_l.contiguous(), c0.contiguous(),
-            u_m.contiguous(), _flat_teps(teps), tables.positions,
-            tables.block_of, tables.starts, tables.ntot)
-
-
-def block_discrepancy_minima(prep: PreparedBatch, teps: torch.Tensor,
-                             mask: torch.Tensor, k: int,
-                             bounds: tuple | None = None,
-                             tables: MinimaTables | None = None):
-    """Per-block minima (B, P) of the weighted discrepancy and the index of
-    the minimizing TEP inside each block (B, P), the first on ties; an
-    empty block gives (``_BIG``, 0).
-
-    ``teps``/``mask`` are (P, Nmax, k)/(P, Nmax) padded blocks (the plain
-    scan), or — with ``bounds`` from ``segments.pack_tep_chunks`` — (C,
-    chunk, k)/(C, chunk) dense chunks, the main path's layout, whose minima
-    come out of kernel K5 whole (``osd_disc.block_minima``, no (B, N) map),
-    its stages spans ``minima.terms`` (the affine map's terms) and
-    ``minima.k5`` (the launch); ``tables`` are :func:`minima_tables` of the
-    layout, built here where the caller has none."""
-    if bounds is None:
-        minima, argmins = _block_disc_scan(
-            prep, teps, mask, k, lambda d: (d.amin(1), first_argmin(d, 1)))
-        return minima.T, argmins.T
-    if tables is None:
-        tables = minima_tables(teps, mask, bounds)
-    return _chunked_minima(prep, teps, tables, k)
+            u_m.contiguous(), layout.flat, layout.positions, layout.block_of,
+            layout.starts, layout.ntot)
 
 
 @full_f32()
@@ -396,12 +324,11 @@ def pruned_batch_osd(prep: PreparedBatch, teps_all: torch.Tensor, k: int,
     }
 
 
-def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
-                acc_block_sizes, fcn_params: dict, k: int, window: int = 5,
-                soft_margin: float = 0.9, rel_tol: float = 1e-3,
-                bounds: tuple | None = None,
-                tables: MinimaTables | None = None) -> dict:
-    """Batched DL-OSD evaluation of one failure batch.
+def sliding_osd(prep: PreparedBatch, layout: TepLayout, fcn_params: dict,
+                k: int, window: int = 5, soft_margin: float = 0.9,
+                rel_tol: float = 1e-3) -> dict:
+    """Batched DL-OSD evaluation of one failure batch over ``layout``'s
+    TEPs.
 
     ``success`` is the reference's oracle proxy ``global_min ==
     truth_discrepancy`` with a relative tolerance (the two sums are
@@ -409,20 +336,15 @@ def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
     checks that the argmin candidate within the expanded blocks equals the
     transmitted codeword.  Also returns the TEP complexity, window counts,
     the walk's global minimum and expanded depth, and the block minima.
-    With ``bounds``, ``tables`` are :func:`minima_tables` of the layout
-    (built here where the caller has none).  Its stages are spans
-    ``minima``, ``walk`` and ``select`` (the chosen TEP and its codeword)."""
-    if bounds is not None and tables is None:
-        tables = minima_tables(teps, mask, bounds)
+    Its stages are spans ``minima``, ``walk`` and ``select`` (the chosen
+    TEP and its codeword)."""
     with profiling.span("minima"):
-        minima, argmins = block_discrepancy_minima(prep, teps, mask, k, bounds,
-                                                   tables)
+        minima, argmins = block_discrepancy_minima(prep, layout, k)
     with profiling.span("walk"):
         walk = sliding_walk(minima, fcn_params, window=window,
                             soft_margin=soft_margin)
     dev = minima.device
-    acc = torch.as_tensor(acc_block_sizes, device=dev).to(torch.int64)
-    complexity = acc[walk["deep_limit"]]
+    complexity = layout.acc[walk["deep_limit"]]
     scale = torch.clamp(prep.truth_discrepancy, min=1.0)
     success = (walk["global_min"] - prep.truth_discrepancy).abs() <= rel_tol * scale
 
@@ -432,11 +354,7 @@ def sliding_osd(prep: PreparedBatch, teps: torch.Tensor, mask: torch.Tensor,
                    < walk["deep_limit"][:, None])
         best_block = first_argmin(torch.where(in_walk, minima, _BIG), 1)
         best_inner = torch.gather(argmins, 1, best_block[:, None])[:, 0]
-        if bounds is None:
-            tep_sel = teps[best_block, best_inner]
-        else:
-            tep_sel = teps.reshape(-1, teps.shape[-1])[tables.starts[best_block]
-                                                       + best_inner]
+        tep_sel = layout.flat[layout.starts[best_block] + best_inner]
         strict = _selected_is_label(prep, tep_sel, k)
     return {
         "success": success,
@@ -485,23 +403,21 @@ def redecode_trajectory(nms_params, decode_h, llr: torch.Tensor,
     raise ValueError(f"unknown re-decode route {route!r}")
 
 
-def make_dl_osd_step(model, h, k: int, window: int = 5,
-                     soft_margin: float = 0.9, bounds: tuple | None = None,
-                     tables: MinimaTables | None = None):
+def make_dl_osd_step(model, h, k: int, layout: TepLayout, window: int = 5,
+                     soft_margin: float = 0.9):
     """DIA-OSD evaluation of captured trajectories: ``model.refine_fast``
     -> :func:`prepare` (the channel slot 0 as the original metric) ->
-    :func:`sliding_osd` (JAX ``osd/engine.py:558-607``, the trajectory
-    form).
+    :func:`sliding_osd` over ``layout`` (JAX ``osd/engine.py:558-607``,
+    the trajectory form).
 
-    Returns ``step(traj, labels, teps, mask, acc, fcn_params) ->
-    (outputs, refined)``; ``model`` carries its own weights.  ``tables``
-    are :func:`minima_tables` of the layout the step is given, if any."""
+    Returns ``step(traj, labels, fcn_params) -> (outputs, refined)``;
+    ``model`` carries its own weights."""
 
-    def step(traj, labels, teps, mask, acc, fcn_params):
+    def step(traj, labels, fcn_params):
         refined = model.refine_fast(traj)
         prep = prepare(refined, traj[:, 0], labels, h, k)
-        out = sliding_osd(prep, teps, mask, acc, fcn_params, k, window=window,
-                          soft_margin=soft_margin, bounds=bounds, tables=tables)
+        out = sliding_osd(prep, layout, fcn_params, k, window=window,
+                          soft_margin=soft_margin)
         return out, refined
 
     return step
@@ -523,17 +439,16 @@ def iteration_stat_rows(traj: torch.Tensor, refined: torch.Tensor,
 
 
 def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
-                              window: int = 5, soft_margin: float = 0.9,
-                              bounds: tuple | None = None,
+                              layout: TepLayout, window: int = 5,
+                              soft_margin: float = 0.9,
                               with_iteration_stats: bool = False,
-                              route: str | None = None,
-                              tables: MinimaTables | None = None):
+                              route: str | None = None):
     """Phase-2 step consuming RAW failure LLRs: the (T+1)-slot trajectory
     re-decode, DIA refinement (``model.refine_fast``), OSD preparation and
-    the sliding walk.
+    the sliding walk over ``layout``.
 
-    Returns ``step(nms_params, llr, labels, teps, mask, acc, fcn_params) ->
-    (outputs, refined, detected)``; ``detected`` is the re-decode's
+    Returns ``step(nms_params, llr, labels, fcn_params) -> (outputs,
+    refined, detected)``; ``detected`` is the re-decode's
     detected-failure flag (``nms.frame_stats``), so rows the capture flagged
     but the re-decode does not confirm can be excluded by the caller.
     ``model`` carries its own weights (an ``nn.Module``).  With
@@ -543,8 +458,6 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
     The re-decode is :func:`redecode_trajectory` on the route of
     :func:`redecode_route` for the step's rows, or on ``route`` when the
     caller pins one (the mesh pins the route of the global batch).
-    ``tables`` are :func:`minima_tables` of the layout the step is given,
-    if any.
 
     The step is span ``phase2``, its stages ``redecode``, ``detect``,
     ``dia``, ``prepare`` and ``osd`` (:func:`sliding_osd`)."""
@@ -553,7 +466,7 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
     k = code.k
     h_osd = code.h_osd
 
-    def step(nms_params, llr, labels, teps, mask, acc, fcn_params):
+    def step(nms_params, llr, labels, fcn_params):
         with profiling.span("phase2"):
             with profiling.span("redecode"):
                 outs = redecode_trajectory(
@@ -569,9 +482,8 @@ def make_dl_osd_step_from_llr(model, code, variant: str, num_iterations: int,
             with profiling.span("prepare"):
                 prep = prepare(refined, llr, labels, h_osd, k)
             with profiling.span("osd"):
-                out = sliding_osd(prep, teps, mask, acc, fcn_params, k,
-                                  window=window, soft_margin=soft_margin,
-                                  bounds=bounds, tables=tables)
+                out = sliding_osd(prep, layout, fcn_params, k, window=window,
+                                  soft_margin=soft_margin)
             if not with_iteration_stats:
                 return out, refined, st["detected_failure"]
             return (out, refined, st["detected_failure"],

@@ -13,15 +13,21 @@ Reference semantics:
   combinations — ``ordered_statistics_decoding.py:81-98``.
 
 A copy of ``short_ldpc_decoding_osd_tpu/osd/segments.py`` (host numpy): the
-port keeps its own so that it never imports the JAX package.
+port keeps its own so that it never imports the JAX package.  Beside it,
+:class:`TepLayout` puts one path's chunked TEPs on a device with the
+tables that kernel K5 reduces them by, once, at set-up.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import math
 
 import numpy as np
+import torch
+
+from ..ops import osd_disc
 
 
 def segment_sizes(k: int, num_segments: int = 6) -> np.ndarray:
@@ -103,16 +109,15 @@ def build_tep_blocks(
 def pack_tep_chunks(blocks: list[np.ndarray], chunk: int = 256):
     """Concatenate TEP blocks densely and split into fixed-size chunks.
 
-    ``stack_padded_blocks`` pads every block to the LARGEST block, which for
-    the learned 30-pattern path wastes ~4.5x the device work (1286 real TEPs
-    vs 30x192 padded at k=64).  Here blocks are concatenated contiguously
+    Padding every block to the LARGEST block would, for the learned
+    30-pattern path, waste ~4.5x the device work (1286 real TEPs vs 30x192
+    padded at k=64).  Here blocks are concatenated contiguously
     (so per-block minima are static slices of the flat axis) and chunked
     only for the device scan.
 
     Returns (teps (C, chunk, k) int8, mask (C, chunk) bool, bounds) where
-    ``bounds`` is a hashable tuple of per-block (start, stop) flat indices —
-    pass it as the static ``bounds`` argument of
-    ``engine.block_discrepancy_minima`` / ``engine.sliding_osd``."""
+    ``bounds`` is a hashable tuple of per-block (start, stop) flat indices
+    (:class:`TepLayout` holds all three on a device)."""
     k = blocks[0].shape[1]
     sizes = [b.shape[0] for b in blocks]
     ntot = int(np.sum(sizes))
@@ -128,19 +133,6 @@ def pack_tep_chunks(blocks: list[np.ndarray], chunk: int = 256):
     return flat.reshape(c, chunk, k), mask.reshape(c, chunk), bounds
 
 
-def stack_padded_blocks(blocks: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
-    """Stack variable-size TEP blocks into (P, Nmax, k) + validity mask
-    (P, Nmax) so the whole path runs as one fixed-shape scan on device."""
-    nmax = max(b.shape[0] for b in blocks)
-    k = blocks[0].shape[1]
-    stacked = np.zeros((len(blocks), nmax, k), dtype=np.int8)
-    mask = np.zeros((len(blocks), nmax), dtype=bool)
-    for i, b in enumerate(blocks):
-        stacked[i, : b.shape[0]] = b
-        mask[i, : b.shape[0]] = True
-    return stacked, mask
-
-
 def conventional_path(order_sum: int, num_segments: int = 3) -> list[list[int]]:
     """All order patterns over the first `num_segments` segments with
     sum <= order_sum, deduplicated, in the reference's enumeration order
@@ -153,3 +145,54 @@ def conventional_path(order_sum: int, num_segments: int = 3) -> list[list[int]]:
                 seen.add(combo)
                 path.append(list(combo))
     return path
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TepLayout:
+    """One decoding path's TEPs on a device in the chunked layout of
+    :func:`pack_tep_chunks`, with the tables of K5's block minima
+    (``ops.osd_disc.block_minima``): built once at set-up, read by every
+    walk (``engine.block_discrepancy_minima``, ``engine.sliding_osd``)."""
+
+    teps: torch.Tensor  # (C, chunk, k) int8
+    mask: torch.Tensor  # (C, chunk) bool, True on the first ntot TEPs
+    bounds: tuple  # each block's (start, stop) flat indices
+    acc: torch.Tensor  # (P+1,) int64 cumulative block sizes, acc[0] = 0
+    positions: tuple  # ``osd_disc.tep_positions`` of the flat rows
+    block_of: torch.Tensor  # (C*chunk,) int32 each TEP's block, -1 for none
+    starts: torch.Tensor  # (P,) int64 each block's first flat index
+    ntot: int  # the end of the last block
+
+    @classmethod
+    def build(cls, decoding_path, k: int, num_segments: int,
+              device: str | torch.device, chunk: int = 256) -> "TepLayout":
+        """The layout of ``decoding_path``'s TEP blocks
+        (:func:`build_tep_blocks`) on ``device``."""
+        blocks, _ = build_tep_blocks(decoding_path, k, num_segments)
+        return cls.from_blocks(blocks, device, chunk)
+
+    @classmethod
+    def from_blocks(cls, blocks: list[np.ndarray], device: str | torch.device,
+                    chunk: int = 256) -> "TepLayout":
+        """The layout of the TEP blocks ``blocks`` on ``device``."""
+        teps, mask, bounds = pack_tep_chunks(blocks, chunk)
+        acc = np.concatenate([[0], np.cumsum([len(b) for b in blocks])])
+        block_of = np.full(mask.size, -1, np.int32)
+        for p, (s, e) in enumerate(bounds):
+            block_of[s:e] = p
+        flat = torch.as_tensor(teps.reshape(-1, teps.shape[-1]))
+        dev = torch.device(device)
+        return cls(
+            teps=torch.as_tensor(teps, device=dev),
+            mask=torch.as_tensor(mask, device=dev), bounds=bounds,
+            acc=torch.as_tensor(acc, dtype=torch.int64, device=dev),
+            positions=tuple(t.to(dev) for t in osd_disc.tep_positions(flat)),
+            block_of=torch.as_tensor(block_of, device=dev),
+            starts=torch.as_tensor([s for s, _ in bounds], dtype=torch.int64,
+                                   device=dev),
+            ntot=int(acc[-1]))
+
+    @property
+    def flat(self) -> torch.Tensor:
+        """The (C*chunk, k) int8 TEP rows (a view of ``teps``)."""
+        return self.teps.view(-1, self.teps.shape[-1])

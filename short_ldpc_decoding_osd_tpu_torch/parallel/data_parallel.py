@@ -24,10 +24,11 @@ import torch
 
 from .._device import full_f32
 from ..channel.awgn import ChannelSpec, sample_batch
-from ..codes import Code
+from ..codes import Code, tables
 from ..mc import harness, ladder
 from ..ops import nms, nms_edge, nms_edge_padded
 from ..osd import engine
+from ..osd.segments import TepLayout
 from ..train.nms_train import _project_nonneg_
 from ..train.optim import StaircaseAdam
 from ..utils.dtypes import count_dtype
@@ -64,7 +65,7 @@ def sharded_nms_mc_step(code: Code, variant: str, num_iterations: int,
     chosen = harness.select_decoder(decode_h, variant, total, decoder, dev)
     decode = harness.decode_final_fn(chosen, decode_h, variant,
                                      num_iterations, dev)
-    gen_matrix = torch.as_tensor(code.g, dtype=torch.float32, device=dev)
+    gen_matrix = tables.f32(code.g, dev)
     rows = _rows(mesh, per_device_batch)
 
     def step(params: dict, generator: torch.Generator) -> torch.Tensor:
@@ -181,37 +182,34 @@ def _osd_slice(mesh: Mesh, *tensors):
 
 def sharded_dl_osd_step_from_llr(model, code: Code, variant: str,
                                  num_iterations: int, mesh: Mesh,
-                                 window: int = 5, soft_margin: float = 0.9,
-                                 bounds: tuple | None = None,
-                                 route: str | None = None, tables=None):
-    """The raw-LLR phase-2 step with the failure batch split over the mesh:
-    ``step(nms_params, llr, labels, teps, mask, acc, fcn_params) ->
+                                 layout: TepLayout, window: int = 5,
+                                 soft_margin: float = 0.9,
+                                 route: str | None = None):
+    """The raw-LLR phase-2 step over ``layout`` with the failure batch
+    split over the mesh: ``step(nms_params, llr, labels, fcn_params) ->
     counters`` (5,) int64 = [rows, detected, success_detected, total_teps,
     total_windows], summed over the mesh; the TEP and complexity counts
     are over the rows the re-decode confirms as detected failures.
 
     Every rank gets the global batch and takes its part.  The re-decode's
     route is ``engine.redecode_route``'s at the global row count (K2 on
-    the card), or ``route``; ``model`` carries its own weights; ``tables``
-    are ``engine.minima_tables`` of the layout the step is given, if any."""
+    the card), or ``route``; ``model`` carries its own weights."""
     decode_h = code.extended().h if variant == "ENMS" else code.h
     steps = {}
 
-    def step(nms_params, llr, labels, teps, mask, acc, fcn_params):
+    def step(nms_params, llr, labels, fcn_params):
         chosen = route or engine.redecode_route(decode_h, variant, mesh.device,
                                                 llr.shape[0])
         if chosen not in steps:
             steps[chosen] = engine.make_dl_osd_step_from_llr(
-                model, code, variant, num_iterations, window=window,
-                soft_margin=soft_margin, bounds=bounds, route=chosen,
-                tables=tables)
+                model, code, variant, num_iterations, layout, window=window,
+                soft_margin=soft_margin, route=chosen)
         llr, labels = _osd_slice(mesh, llr, labels)
         cdt = count_dtype()
         if llr.shape[0] == 0:
             return mesh.all_reduce_sum(torch.zeros(5, dtype=cdt,
                                                    device=mesh.device))
-        out, _, det = steps[chosen](nms_params, llr, labels, teps, mask, acc,
-                                    fcn_params)
+        out, _, det = steps[chosen](nms_params, llr, labels, fcn_params)
         zero = torch.zeros((), dtype=cdt, device=det.device)
         counters = torch.stack([
             torch.tensor(llr.shape[0], dtype=cdt, device=det.device),
@@ -249,8 +247,8 @@ def sharded_nms_train_step(code: Code, variant: str, num_iterations: int,
     dev = mesh.device
     total = per_device_batch * mesh.size
     train_h = np.asarray(code.extended().h if variant == "ENMS" else code.h)
-    h = torch.as_tensor(train_h, dtype=torch.float32, device=dev)
-    gen_matrix = torch.as_tensor(code.g, dtype=torch.float32, device=dev)
+    h = tables.f32(train_h, dev)
+    gen_matrix = tables.f32(code.g, dev)
     edge_cols = nms.edge_columns(train_h) if variant == "NMS-r" else None
     use_edge = nms_edge_padded.train_select(train_h, variant, dev)
     rows = _rows(mesh, per_device_batch)
@@ -282,29 +280,26 @@ def sharded_nms_train_step(code: Code, variant: str, num_iterations: int,
     return make_optimizer, step
 
 
-def sharded_dl_osd_step(model, h, k: int, mesh: Mesh, window: int = 5,
-                        soft_margin: float = 0.9, bounds: tuple | None = None,
-                        tables=None):
-    """DIA-OSD evaluation of captured trajectories with the failure batch
-    split over the mesh: ``step(traj, labels, teps, mask, acc, fcn_params)
-    -> counters`` (4,) int64 = [success, failure, total_teps,
+def sharded_dl_osd_step(model, h, k: int, mesh: Mesh, layout: TepLayout,
+                        window: int = 5, soft_margin: float = 0.9):
+    """DIA-OSD evaluation of captured trajectories over ``layout`` with the
+    failure batch split over the mesh: ``step(traj, labels, fcn_params) ->
+    counters`` (4,) int64 = [success, failure, total_teps,
     total_windows], summed over the mesh.
 
     ``engine.make_dl_osd_step``'s convention: ``model`` carries its own
     weights.  Every rank gets the global batch and takes its part with
-    ``torch.tensor_split``, so an uneven batch works.  ``tables`` are
-    ``engine.minima_tables`` of the layout the step is given, if any."""
-    inner = engine.make_dl_osd_step(model, h, k, window=window,
-                                    soft_margin=soft_margin, bounds=bounds,
-                                    tables=tables)
+    ``torch.tensor_split``, so an uneven batch works."""
+    inner = engine.make_dl_osd_step(model, h, k, layout, window=window,
+                                    soft_margin=soft_margin)
 
-    def step(traj, labels, teps, mask, acc, fcn_params):
+    def step(traj, labels, fcn_params):
         traj, labels = _osd_slice(mesh, traj, labels)
         cdt = count_dtype()
         if traj.shape[0] == 0:
             return mesh.all_reduce_sum(torch.zeros(4, dtype=cdt,
                                                    device=mesh.device))
-        out, _ = inner(traj, labels, teps, mask, acc, fcn_params)
+        out, _ = inner(traj, labels, fcn_params)
         succ = out["success"]
         counters = torch.stack([
             succ.sum(), (~succ).sum(), out["complexity"].to(cdt).sum(),

@@ -51,15 +51,12 @@ def run_points(run_dir: str, snrs, budget: int = 500, fade_duration: int = 1,
     cfg, code = run["config"], run["code"]
     variant, iters = run["variant"], run["num_iterations"]
     nms_params = {k: v.cpu() for k, v in run["nms_params"].items()}
-    blocks, acc = segments.build_tep_blocks(
-        run["path"], code.k, int(cfg.get("num_segments", 6)))
-    teps, mask, bounds = segments.pack_tep_chunks(blocks)
-    teps_d, mask_d = torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev)
+    layout = segments.TepLayout.build(
+        run["path"], code.k, int(cfg.get("num_segments", 6)), dev)
     step = engine.make_dl_osd_step_from_llr(
-        run["dia"], code, variant, iters, window=int(cfg.get("window", 5)),
-        soft_margin=float(cfg.get("soft_margin", 0.9)), bounds=bounds,
-        tables=engine.minima_tables(teps_d, mask_d, bounds))
-    acc_d = torch.as_tensor(acc, dtype=torch.int64, device=dev)
+        run["dia"], code, variant, iters, layout,
+        window=int(cfg.get("window", 5)),
+        soft_margin=float(cfg.get("soft_margin", 0.9)))
 
     points = []
     for snr in (float(s) for s in snrs):
@@ -73,8 +70,7 @@ def run_points(run_dir: str, snrs, budget: int = 500, fade_duration: int = 1,
         llr = torch.as_tensor(fb.trajectories[:budget, 0], device=dev)
         labels = torch.as_tensor(fb.labels[:budget], device=dev)
         with torch.no_grad():
-            out, _, det = step(nms_params, llr, labels, teps_d, mask_d, acc_d,
-                               run["fcn"])
+            out, _, det = step(nms_params, llr, labels, run["fcn"])
         d = det.cpu().numpy()
         succ = out["success"].cpu().numpy() & d
         nv = int(d.sum())

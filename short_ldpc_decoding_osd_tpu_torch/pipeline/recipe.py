@@ -315,7 +315,7 @@ def stage_train_stopper(cfg: RecipeConfig, run: RunDir, model, fb,
     return fcn
 
 
-def _walk_llr_rows(osd_step_llr, nms_params, fb, n_osd, layout, dev):
+def _walk_llr_rows(osd_step_llr, nms_params, fb, n_osd, fcn, dev):
     """The fused phase 2 over the first ``n_osd`` raw rows, OSD_CHUNK rows a
     call: per-row columns, host numpy."""
     cols = {key: [] for key in ("succ", "strict", "cplx", "win", "det", "ce",
@@ -325,7 +325,7 @@ def _walk_llr_rows(osd_step_llr, nms_params, fb, n_osd, layout, dev):
         out, _, det, (ce_rows, ber_rows) = osd_step_llr(
             nms_params,
             torch.as_tensor(fb.trajectories[i0:hi, 0], device=dev),
-            torch.as_tensor(fb.labels[i0:hi], device=dev), *layout)
+            torch.as_tensor(fb.labels[i0:hi], device=dev), fcn)
         for key, val in (("succ", out["success"]),
                          ("strict", out["strict_success"]),
                          ("cplx", out["complexity"]), ("win", out["window_num"]),
@@ -334,7 +334,7 @@ def _walk_llr_rows(osd_step_llr, nms_params, fb, n_osd, layout, dev):
     return {key: np.concatenate(val) for key, val in cols.items()}
 
 
-def _walk_trajectories(osd_step, fb, n_osd, layout, dev):
+def _walk_trajectories(osd_step, fb, n_osd, fcn, dev):
     """The trajectory-form phase 2 over the first ``n_osd`` captured
     trajectories, OSD_CHUNK rows a call: per-row columns, host numpy."""
     cols = {key: [] for key in ("succ", "strict", "cplx", "win", "refined")}
@@ -342,7 +342,7 @@ def _walk_trajectories(osd_step, fb, n_osd, layout, dev):
         hi = min(i0 + OSD_CHUNK, n_osd)
         out, refined = osd_step(
             torch.as_tensor(fb.trajectories[i0:hi], device=dev),
-            torch.as_tensor(fb.labels[i0:hi], device=dev), *layout)
+            torch.as_tensor(fb.labels[i0:hi], device=dev), fcn)
         for key, val in (("succ", out["success"]),
                          ("strict", out["strict_success"]),
                          ("cplx", out["complexity"]), ("win", out["window_num"]),
@@ -368,20 +368,17 @@ def stage_eval_sweep(cfg: RecipeConfig, run: RunDir, nms_params, model, fcn,
     f64 on the host."""
     dev = resolve_device(device)
     code = get_code(cfg.code_name)
-    blocks, acc = segments.build_tep_blocks(decoding_path, code.k,
-                                            cfg.num_segments)
-    teps, mask, bounds = segments.pack_tep_chunks(blocks)
-    layout = (torch.as_tensor(teps, device=dev), torch.as_tensor(mask, device=dev),
-              torch.as_tensor(acc, dtype=torch.int64, device=dev), fcn)
+    layout = segments.TepLayout.build(decoding_path, code.k, cfg.num_segments,
+                                      dev)
     fused_phase2 = dev.type == "cuda" and cfg.variant != "NMS-r"
-    walk = dict(window=cfg.window, soft_margin=cfg.soft_margin, bounds=bounds,
-                tables=engine.minima_tables(layout[0], layout[1], bounds))
+    walk = dict(window=cfg.window, soft_margin=cfg.soft_margin)
     if fused_phase2:
         osd_step_llr = engine.make_dl_osd_step_from_llr(
-            model, code, cfg.variant, cfg.num_iterations,
+            model, code, cfg.variant, cfg.num_iterations, layout,
             with_iteration_stats=True, **walk)
     else:
-        osd_step = engine.make_dl_osd_step(model, code.h_osd, code.k, **walk)
+        osd_step = engine.make_dl_osd_step(model, code.h_osd, code.k, layout,
+                                           **walk)
     jsonl = JsonlLogger(run.path("metrics.jsonl"))
     curve = []
     for idx, snr in enumerate(snrs):
@@ -404,7 +401,7 @@ def stage_eval_sweep(cfg: RecipeConfig, run: RunDir, nms_params, model, fcn,
         ce_list, ber_list = [], []
         unconfirmed = 0
         if n_osd and fused_phase2:
-            cols = _walk_llr_rows(osd_step_llr, nms_params, fb, n_osd, layout,
+            cols = _walk_llr_rows(osd_step_llr, nms_params, fb, n_osd, fcn,
                                   dev)
             valid = cols["det"]
             unconfirmed = int((~valid).sum())
@@ -423,7 +420,7 @@ def stage_eval_sweep(cfg: RecipeConfig, run: RunDir, nms_params, model, fcn,
             ber_list = [float(x) / (nv * code.n)
                         for x in cols["ber"][valid].sum(axis=0)]
         elif n_osd:
-            cols = _walk_trajectories(osd_step, fb, n_osd, layout, dev)
+            cols = _walk_trajectories(osd_step, fb, n_osd, fcn, dev)
             succ = cols["succ"]
             osd_stats = {
                 "success": int(succ.sum()),

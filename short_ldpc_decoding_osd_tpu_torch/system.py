@@ -77,13 +77,8 @@ class TwoPhase:
         # scalar weights are read on the host by the kernel wrappers: keeping
         # them there avoids a device round trip per call
         self.nms_params = {k: v.cpu() for k, v in run["nms_params"].items()}
-        blocks, acc = segments.build_tep_blocks(
-            run["path"], self.code.k, int(cfg.get("num_segments", 6)))
-        teps, mask, self.bounds = segments.pack_tep_chunks(blocks)
-        self.teps = torch.as_tensor(teps, device=dev)
-        self.mask = torch.as_tensor(mask, device=dev)
-        self.tables = engine.minima_tables(self.teps, self.mask, self.bounds)
-        self.acc = torch.as_tensor(acc, dtype=torch.int64, device=dev)
+        self.layout = segments.TepLayout.build(
+            run["path"], self.code.k, int(cfg.get("num_segments", 6)), dev)
         self.window = int(cfg.get("window", 5))
         self.soft_margin = float(cfg.get("soft_margin", 0.9))
         self.capture_step = build_nms_mc_step(
@@ -91,8 +86,8 @@ class TwoPhase:
             ChannelSpec.awgn(snr_db, self.code.rate), cap_b,
             capture_capacity=cap, device=dev)
         self.phase2 = engine.make_dl_osd_step_from_llr(
-            self.dia, self.code, self.variant, self.iters, window=self.window,
-            soft_margin=self.soft_margin, bounds=self.bounds, tables=self.tables)
+            self.dia, self.code, self.variant, self.iters, self.layout,
+            window=self.window, soft_margin=self.soft_margin)
         self.generator = torch.Generator(device=dev)
 
     def capture_round(self, i: int):
@@ -109,9 +104,8 @@ class TwoPhase:
         failures among them, kept on the device until read)."""
         with profiling.span("round"):
             counters, buf = self.capture_round(i)
-            out, _, detected = self.phase2(
-                self.nms_params, buf["llr"], buf["labels"], self.teps,
-                self.mask, self.acc, self.fcn)
+            out, _, detected = self.phase2(self.nms_params, buf["llr"],
+                                           buf["labels"], self.fcn)
             rows = buf["llr"].shape[0]
             profiling.count("osd.rows", rows)
             profiling.count("osd.failures", buf["count"], at_most=rows)

@@ -30,7 +30,7 @@ import torch
 
 from .._device import full_f32, resolve_device
 from ..channel.awgn import ChannelSpec, sample_batch
-from ..codes import Code
+from ..codes import Code, tables
 from ..ops import nms, nms_edge_padded
 from ..utils import checkpoint as ckpt_lib
 from .optim import StaircaseAdam
@@ -77,8 +77,8 @@ def _setup(code: Code, cfg: NMSTrainConfig, dev: torch.device):
     variant = cfg.variant
     train_code = code.extended() if variant == "ENMS" else code
     h_np = np.asarray(train_code.h)
-    h = torch.as_tensor(h_np, dtype=torch.float32, device=dev)
-    gen_matrix = torch.as_tensor(code.g, dtype=torch.float32, device=dev)
+    h = tables.f32(h_np, dev)
+    gen_matrix = tables.f32(code.g, dev)
     edge_cols = nms.edge_columns(h_np) if variant == "NMS-r" else None
     spec = ChannelSpec.blend(cfg.snr_lo, cfg.snr_hi, code.rate)
     use_edge = nms_edge_padded.train_select(h_np, variant, dev)

@@ -60,11 +60,7 @@ def generate_stopper_samples(code: Code, dia_model: torch.nn.Module,
     (a TEP closer than the truth) are dropped and counted in ``summary``,
     as ``query_teps_dis`` does.  ``dia_model`` is on ``device``."""
     dev = resolve_device(device)
-    blocks, acc = segments.build_tep_blocks(decoding_path, code.k, num_segments)
-    teps, mask, bounds = segments.pack_tep_chunks(blocks)
-    teps_d = torch.as_tensor(teps, device=dev)
-    mask_d = torch.as_tensor(mask, device=dev)
-    tables = engine.minima_tables(teps_d, mask_d, bounds)
+    layout = segments.TepLayout.build(decoding_path, code.k, num_segments, dev)
     h = code.h_osd  # full-rank basis for the OSD elimination
 
     rec_list = []
@@ -77,8 +73,7 @@ def generate_stopper_samples(code: Code, dia_model: torch.nn.Module,
                 np.asarray(labels[lo:lo + batch], np.int32), device=dev)
             refined = dia_model.refine(traj)
             prep = engine.prepare(refined, traj[:, 0], labs, h, code.k)
-            minima, _ = engine.block_discrepancy_minima(prep, teps_d, mask_d,
-                                                        code.k, bounds, tables)
+            minima, _ = engine.block_discrepancy_minima(prep, layout, code.k)
             minima = minima.cpu().numpy()
             truth = prep.truth_discrepancy.cpu().numpy()
             overall = minima.min(axis=1)
@@ -93,13 +88,13 @@ def generate_stopper_samples(code: Code, dia_model: torch.nn.Module,
             rec = np.concatenate([minima[keep], phase[keep][:, None]], axis=1)
             rec_list.append(rec.astype(np.float32))
     records = (np.concatenate(rec_list) if rec_list
-               else np.zeros((0, len(blocks) + 1), np.float32))
+               else np.zeros((0, len(layout.bounds) + 1), np.float32))
     summary = {
         "success": success,
         "fail": fails,
         "undetected": undetected,
-        "path_len": len(blocks),
-        "acc_block_sizes": acc.tolist(),
+        "path_len": len(layout.bounds),
+        "acc_block_sizes": layout.acc.tolist(),
     }
     return records, summary
 

@@ -18,7 +18,7 @@ import torch
 
 from short_ldpc_decoding_osd_tpu.codes import get_code as jax_get_code
 from short_ldpc_decoding_osd_tpu.ops import gf2_bitpack as jbp
-from short_ldpc_decoding_osd_tpu_torch.codes import get_code
+from short_ldpc_decoding_osd_tpu_torch.codes import get_code, tables
 from short_ldpc_decoding_osd_tpu_torch.ops import gf2_bitpack
 from test_torch_gf2_bitpack import CASES, _permuted
 
@@ -198,15 +198,18 @@ def test_ge_plan_refuses_columns_beyond_registers():
 
 
 def test_packed_h_columns_reads_h_once():
-    """A call with an H already seen reads nothing of it (no hash of its
-    bytes); a different H of the same shape gets its own words, an equal
-    copy the same."""
+    """The GE kernel's packed H is a ``codes.tables`` item: a lookup with an
+    H already seen packs and reads nothing of it; a different H of the same
+    shape gets its own words, an equal copy equal words of its own."""
     h = jax_get_code("qc_96_48").h.copy()
-    first = gf2_bitpack.packed_h_columns(h, "cpu")
-    with mock.patch.object(gf2_bitpack.hashlib, "sha1",
-                           side_effect=AssertionError("H read again")):
-        assert gf2_bitpack.packed_h_columns(h, "cpu") is first
+    first = tables.get(h, gf2_bitpack._packed_h_columns, "cpu")
+    with mock.patch.object(gf2_bitpack, "pack_columns",
+                           side_effect=AssertionError("H read again")), \
+            mock.patch.object(tables, "_Entry",
+                              side_effect=AssertionError("H read again")):
+        assert tables.get(h, gf2_bitpack._packed_h_columns, "cpu") is first
     other = h[:, ::-1].copy()
-    words = gf2_bitpack.packed_h_columns(other, "cpu")
+    words = tables.get(other, gf2_bitpack._packed_h_columns, "cpu")
     np.testing.assert_array_equal(words.numpy(), first.numpy()[::-1])
-    assert gf2_bitpack.packed_h_columns(h.copy(), "cpu") is first
+    again = tables.get(h.copy(), gf2_bitpack._packed_h_columns, "cpu")
+    assert again is not first and torch.equal(again, first)

@@ -15,7 +15,7 @@ from short_ldpc_decoding_osd_tpu.codes import gf2 as jgf2rank
 from short_ldpc_decoding_osd_tpu.ops import gf2_bitpack as jbp
 from short_ldpc_decoding_osd_tpu.ops import gf2ops as jgf2
 from short_ldpc_decoding_osd_tpu_torch import _kernels
-from short_ldpc_decoding_osd_tpu_torch.codes import get_code
+from short_ldpc_decoding_osd_tpu_torch.codes import get_code, tables
 from short_ldpc_decoding_osd_tpu_torch.ops import gf2_bitpack, gf2ops
 
 from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
@@ -223,12 +223,16 @@ def test_ge_plan_refuses_what_does_not_fit():
 
 
 def test_packed_h_columns_and_refusals():
-    """H packed by columns (the kernel's perm load) is cached per device,
-    and a tensor on neither the CPU nor CUDA is refused, not routed."""
+    """H packed by columns (the kernel's perm load) is held by
+    ``codes.tables`` per matrix and device, a tensor's words equal the
+    array's, and a tensor on neither the CPU nor CUDA is refused, not
+    routed."""
     code = get_code("array_121_60")
-    hcol = gf2_bitpack.packed_h_columns(code.h, "cpu")
+    hcol = tables.get(code.h, gf2_bitpack._packed_h_columns, "cpu")
     assert hcol.shape == (121, 3) and hcol.dtype == torch.int32
-    assert gf2_bitpack.packed_h_columns(torch.as_tensor(code.h), "cpu") is hcol
+    assert tables.get(code.h, gf2_bitpack._packed_h_columns, "cpu") is hcol
+    assert torch.equal(tables.get(torch.as_tensor(code.h),
+                                  gf2_bitpack._packed_h_columns, "cpu"), hcol)
     words = hcol.numpy().view(np.uint32).astype(np.int64)
     rows = np.arange(code.h.shape[0])
     bits = (words[:, rows // 32] >> (rows % 32)) & 1  # (n, m)

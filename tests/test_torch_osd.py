@@ -265,15 +265,25 @@ def test_block_minima_padded_equals_chunked():
     path = [[0] * 6, [1, 0, 0, 0, 0, 0], [0, 1, 0, 0, 0, 0],
             [2, 0, 0, 0, 0, 0], [0, 0, 1, 0, 0, 0]]
     blocks, _ = segments.build_tep_blocks(path, code.k, 6)
-    teps, mask, bounds = segments.pack_tep_chunks(blocks, chunk=64)
-    padded, pmask = segments.stack_padded_blocks(blocks)
-    minima, argmins = engine.block_discrepancy_minima(
-        prep, torch.as_tensor(teps), torch.as_tensor(mask), code.k, bounds)
-    ref_min, ref_arg = engine.block_discrepancy_minima(
-        prep, torch.as_tensor(padded), torch.as_tensor(pmask), code.k)
-    np.testing.assert_allclose(minima.numpy(), ref_min.numpy(), rtol=1e-5,
-                               atol=1e-5)
-    np.testing.assert_array_equal(argmins.numpy(), ref_arg.numpy())
+    layout = segments.TepLayout.from_blocks(blocks, "cpu", chunk=64)
+    minima, argmins = engine.block_discrepancy_minima(prep, layout, code.k)
+    ref_min, ref_arg = _jax_padded_minima(prep, blocks, code.k)
+    np.testing.assert_allclose(minima.numpy(), ref_min, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(argmins.numpy(), ref_arg)
+
+
+def _jax_padded_minima(prep, blocks, k):
+    """JAX's padded scan (its ``engine.block_discrepancy_minima`` without
+    ``bounds``) on the port's prepared batch and TEP blocks: (minima,
+    argmins) as numpy."""
+    jprep = jengine.PreparedBatch(**{
+        f.name: None if getattr(prep, f.name) is None
+        else jnp.asarray(getattr(prep, f.name).numpy())
+        for f in dataclasses.fields(prep)})
+    padded, pmask = jseg.stack_padded_blocks(blocks)
+    minima, argmins = jengine.block_discrepancy_minima(
+        jprep, jnp.asarray(padded), jnp.asarray(pmask), k)
+    return np.asarray(minima), np.asarray(argmins)
 
 
 def _dyadic_prep(b, m, k, seed):
@@ -347,41 +357,38 @@ def _minima_case(name):
     return _dyadic_prep(5, m, k, 9), blocks, k, 64, True
 
 
-def _unfused_minima(prep, teps, mask, bounds, k):
+def _unfused_minima(prep, layout, k):
     """The discrepancy minima as the port computed them before K5 took the
     epilogue: the (B, N) map ``c0 + lterm + u_m @ T^T`` with K5's ``lterm``,
     then each block's ``amin`` and ``first_argmin`` (the package's plain
     twin, given that parity term)."""
     c0, u_l, u_m, _ = engine._discrepancy_terms(prep, k)
-    tables = engine.minima_tables(teps, mask, bounds)
-    t_flat = teps.reshape(-1, k).to(torch.int8)
+    t_flat = layout.flat
     return osd_disc.block_minima_reference(
-        prep.m_matrix, u_l, c0, u_m, t_flat, tables.block_of, tables.starts,
-        tables.ntot, osd_disc.lterm(prep.m_matrix, u_l, t_flat))
+        prep.m_matrix, u_l, c0, u_m, t_flat, layout.block_of, layout.starts,
+        layout.ntot, osd_disc.lterm(prep.m_matrix, u_l, t_flat))
 
 
 @pytest.mark.parametrize("name", ["r4_path", "straddle", "empty", "ties", "dense"])
 def test_block_minima_twin_equals_unfused_and_padded(name):
     """The chunked route (``osd_disc.block_minima``'s plain twin on the
     CPU) gives the unfused path's minima and first argmins bit for bit, and
-    the padded scan's (to f32 rounding, or exactly where every discrepancy
-    is exact)."""
+    JAX's padded scan's (to f32 rounding, or exactly where every
+    discrepancy is exact)."""
     prep, blocks, k, chunk, exact = _minima_case(name)
-    teps, mask, bounds = segments.pack_tep_chunks(blocks, chunk=chunk)
-    teps, mask = torch.as_tensor(teps), torch.as_tensor(mask)
-    got_min, got_arg = engine.block_discrepancy_minima(prep, teps, mask, k, bounds)
-    want_min, want_arg = _unfused_minima(prep, teps, mask, bounds, k)
+    layout = segments.TepLayout.from_blocks(blocks, "cpu", chunk=chunk)
+    bounds, teps = layout.bounds, layout.teps
+    got_min, got_arg = engine.block_discrepancy_minima(prep, layout, k)
+    want_min, want_arg = _unfused_minima(prep, layout, k)
     assert got_min.dtype == torch.float32 and got_arg.dtype == torch.int64
     assert torch.equal(got_min, want_min) and torch.equal(got_arg, want_arg)
-    padded, pmask = segments.stack_padded_blocks(blocks)
-    pad_min, pad_arg = engine.block_discrepancy_minima(
-        prep, torch.as_tensor(padded), torch.as_tensor(pmask), k)
+    pad_min, pad_arg = _jax_padded_minima(prep, blocks, k)
     if exact:
-        assert torch.equal(got_min, pad_min)
+        np.testing.assert_array_equal(got_min.numpy(), pad_min)
     else:
-        np.testing.assert_allclose(got_min.numpy(), pad_min.numpy(), rtol=1e-5,
+        np.testing.assert_allclose(got_min.numpy(), pad_min, rtol=1e-5,
                                    atol=1e-5)
-    assert torch.equal(got_arg, pad_arg)
+    np.testing.assert_array_equal(got_arg.numpy(), pad_arg)
     empty = [i for i, (s, e) in enumerate(bounds) if s == e]
     assert (got_min[:, empty] == engine._BIG).all()
     assert (got_arg[:, empty] == 0).all()
@@ -400,16 +407,15 @@ def test_chunked_minima_build_no_discrepancy_map(monkeypatch):
         raise AssertionError("the chunked route built the (B, N) map")
 
     prep, blocks, k, chunk, _ = _minima_case("straddle")
-    teps, mask, bounds = segments.pack_tep_chunks(blocks, chunk=chunk)
-    teps, mask = torch.as_tensor(teps), torch.as_tensor(mask)
-    want = _unfused_minima(prep, teps, mask, bounds, k)
+    layout = segments.TepLayout.from_blocks(blocks, "cpu", chunk=chunk)
+    want = _unfused_minima(prep, layout, k)
     seen = []
     real = osd_disc.block_minima
     monkeypatch.setattr(osd_disc, "lterm", forbidden)
     monkeypatch.setattr(engine, "_tep_discrepancies", forbidden)
     monkeypatch.setattr(osd_disc, "block_minima",
                         lambda *a: seen.append(a) or real(*a))
-    got = engine.block_discrepancy_minima(prep, teps, mask, k, bounds)
+    got = engine.block_discrepancy_minima(prep, layout, k)
     assert len(seen) == 1
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
@@ -482,51 +488,67 @@ def test_block_minima_reference_ties_empty_blocks_and_ntot():
 
 
 def test_minima_tables_of_a_chunked_layout():
+    """``TepLayout`` holds the chunks, the cumulative sizes and K5's tables:
+    each TEP's block (-1 past the last), the blocks' starts, the position
+    lists; built from a path as from its blocks."""
     blocks = _random_blocks(np.random.default_rng(2), [3, 0, 40, 9], 16, 2)
+    layout = segments.TepLayout.from_blocks(blocks, "cpu", chunk=16)
     teps, mask, bounds = segments.pack_tep_chunks(blocks, chunk=16)
-    teps, mask = torch.as_tensor(teps), torch.as_tensor(mask)
-    tables = engine.minima_tables(teps, mask, bounds)
-    assert tables.ntot == 52 and tables.starts.tolist() == [0, 3, 3, 43]
-    assert tables.starts.dtype == torch.int64
+    np.testing.assert_array_equal(layout.teps.numpy(), teps)
+    np.testing.assert_array_equal(layout.mask.numpy(), mask)
+    assert layout.bounds == bounds and layout.acc.tolist() == [0, 3, 3, 43, 52]
+    assert layout.acc.dtype == torch.int64
+    assert layout.ntot == 52 and layout.starts.tolist() == [0, 3, 3, 43]
+    assert layout.starts.dtype == torch.int64
     want = np.full(64, -1)
     for p, (s, e) in enumerate(bounds):
         want[s:e] = p
-    assert tables.block_of.dtype == torch.int32
-    np.testing.assert_array_equal(tables.block_of.numpy(), want)
-    heads, cols = osd_disc.tep_positions(teps.reshape(-1, 16))
-    assert torch.equal(tables.positions[0], heads)
-    assert torch.equal(tables.positions[1], cols)
-    # a mask with holes: those TEPs in no block
-    holes = mask.clone()
-    holes.view(-1)[[0, 10]] = False
-    again = engine.minima_tables(teps, holes, bounds)
-    assert again.block_of[0] == -1 and again.block_of[10] == -1
-    assert again.block_of[1] == 0 and again.block_of[11] == 2
+    assert layout.block_of.dtype == torch.int32
+    np.testing.assert_array_equal(layout.block_of.numpy(), want)
+    assert layout.flat.data_ptr() == layout.teps.data_ptr()
+    heads, cols = osd_disc.tep_positions(layout.flat)
+    assert torch.equal(layout.positions[0], heads)
+    assert torch.equal(layout.positions[1], cols)
+    path = [[0] * 6, [1, 0, 0, 0, 0, 0], [0, 1, 0, 0, 0, 0], [0, 0, 1, 0, 0, 0]]
+    built = segments.TepLayout.build(path, 64, 6, "cpu", chunk=32)
+    blocks, acc = segments.build_tep_blocks(path, 64, 6)
+    again = segments.TepLayout.from_blocks(blocks, "cpu", chunk=32)
+    assert built.bounds == again.bounds and built.acc.tolist() == acc.tolist()
+    for name in ("teps", "mask", "block_of", "starts"):
+        assert torch.equal(getattr(built, name), getattr(again, name)), name
 
 
 def test_sliding_osd_walks_on_the_tables_it_is_given(monkeypatch):
-    """With ``tables`` from its caller, ``sliding_osd`` builds none (they
-    read the mask on the host) and walks as it does on tables of its own."""
+    """``sliding_osd`` walks on the layout's tables: after the layout is
+    built no position list is made again (``osd_disc.tep_positions``
+    forbidden), and the walk's minima, complexity and selection are those
+    of the unfused minima over the same blocks."""
     prep, blocks, k, chunk, _ = _minima_case("straddle")
-    teps, mask, bounds = segments.pack_tep_chunks(blocks, chunk=chunk)
-    teps, mask = torch.as_tensor(teps), torch.as_tensor(mask)
+    layout = segments.TepLayout.from_blocks(blocks, "cpu", chunk=chunk)
     prep = dataclasses.replace(prep, truth_discrepancy=torch.zeros(
         prep.m_matrix.shape[0]), order_labels=prep.hard_updated)
     w1, w2 = _fcn(3)
     fcn = {"w1": torch.as_tensor(w1), "w2": torch.as_tensor(w2)}
     acc = np.concatenate([[0], np.cumsum([len(b) for b in blocks])])
-    want = engine.sliding_osd(prep, teps, mask, acc, fcn, k, bounds=bounds)
-    tables = engine.minima_tables(teps, mask, bounds)
+    want_min, want_arg = _unfused_minima(prep, layout, k)
+    walk = engine.sliding_walk(want_min, fcn)
 
     def forbidden(*args, **kwargs):
-        raise AssertionError("sliding_osd built tables it was given")
+        raise AssertionError("sliding_osd built position lists again")
 
-    monkeypatch.setattr(engine, "minima_tables", forbidden)
-    got = engine.sliding_osd(prep, teps, mask, acc, fcn, k, bounds=bounds,
-                             tables=tables)
-    assert set(got) == set(want)
-    for key in want:
-        assert torch.equal(got[key], want[key]), key
+    monkeypatch.setattr(osd_disc, "tep_positions", forbidden)
+    got = engine.sliding_osd(prep, layout, fcn, k)
+    assert torch.equal(got["block_minima"], want_min)
+    for key in ("deep_limit", "global_min", "window_num", "windows_evaluated"):
+        assert torch.equal(got[key], walk[key]), key
+    np.testing.assert_array_equal(got["complexity"].numpy(),
+                                  acc[walk["deep_limit"].numpy()])
+    in_walk = torch.arange(want_min.shape[1])[None] < walk["deep_limit"][:, None]
+    best = engine.first_argmin(torch.where(in_walk, want_min, engine._BIG), 1)
+    flat = np.concatenate(blocks)
+    sel = flat[acc[best.numpy()] + want_arg[torch.arange(len(best)), best].numpy()]
+    want_strict = engine._selected_is_label(prep, torch.as_tensor(sel), k)
+    assert torch.equal(got["strict_success"], want_strict)
 
 
 @pytest.mark.parametrize("shape,blocks", [

@@ -25,6 +25,7 @@ from short_ldpc_decoding_osd_tpu_torch.channel import ChannelSpec
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.mc import harness
 from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge
+from short_ldpc_decoding_osd_tpu_torch.osd import segments
 from short_ldpc_decoding_osd_tpu_torch.parallel import (
     device_seeds, init_multihost, make_mesh, sharded_dl_osd_step,
     sharded_dl_osd_step_from_llr, sharded_fused_mc_step, sharded_nms_mc_step,
@@ -128,7 +129,9 @@ def osd():
     dia = convert.dia_module("model_cnn", 128, inp["t"] + 1,
                              convert.dia_state_from_jax(inp["dia"], "cpu"))
     tens = {k: torch.as_tensor(inp[k]) for k in
-            ("teps", "mask", "traj", "labels", "llr", "llr_labels")}
+            ("traj", "labels", "llr", "llr_labels")}
+    tens["layout"] = segments.TepLayout.build(inp["path"], 64, 6, "cpu",
+                                              chunk=inp["chunk"])
     fcn = {k: torch.as_tensor(v) for k, v in inp["fcn"].items()}
     fcn_llr = {k: torch.as_tensor(v) for k, v in inp["fcn_llr"].items()}
     return inp, dia, tens, fcn, fcn_llr
@@ -136,8 +139,8 @@ def osd():
 
 def test_sharded_dl_osd_step_matches_jax(mesh, code, osd):
     inp, dia, t, fcn, _ = osd
-    step = sharded_dl_osd_step(dia, code.h, code.k, mesh, bounds=inp["bounds"])
-    got = step(t["traj"], t["labels"], t["teps"], t["mask"], inp["acc"], fcn)
+    step = sharded_dl_osd_step(dia, code.h, code.k, mesh, t["layout"])
+    got = step(t["traj"], t["labels"], fcn)
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy(), jax_osd_counters(inp, sharded=True))
 
@@ -145,9 +148,8 @@ def test_sharded_dl_osd_step_matches_jax(mesh, code, osd):
 def test_sharded_from_llr_step_matches_jax(mesh, code, osd):
     inp, dia, t, _, fcn_llr = osd
     step = sharded_dl_osd_step_from_llr(dia, code, "NMS-1", inp["t"], mesh,
-                                        bounds=inp["bounds"])
-    got = step(nms.init_params("NMS-1"), t["llr"], t["llr_labels"], t["teps"],
-               t["mask"], inp["acc"], fcn_llr)
+                                        t["layout"])
+    got = step(nms.init_params("NMS-1"), t["llr"], t["llr_labels"], fcn_llr)
     assert got.dtype == torch.int64
     want = jax_osd_from_llr_counters(inp, sharded=True)
     assert want[1] > 0  # the re-decode confirms some failures

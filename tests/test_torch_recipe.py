@@ -32,7 +32,7 @@ from short_ldpc_decoding_osd_tpu_torch.baselines import conventional, fs_osd, pb
 from short_ldpc_decoding_osd_tpu_torch.cli.main import main as cli_main
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.mc import harness
-from short_ldpc_decoding_osd_tpu_torch.osd import engine
+from short_ldpc_decoding_osd_tpu_torch.osd import engine, segments
 from short_ldpc_decoding_osd_tpu_torch.pipeline import multicode, rayleigh
 from short_ldpc_decoding_osd_tpu_torch.pipeline import recipe as rec
 from short_ldpc_decoding_osd_tpu_torch.train import dia_train, stopper_train
@@ -58,6 +58,7 @@ def r4():
         "jax_dia": jrun.load_pickle("dia_model_cnn.pkl"),
         "jax_fcn": jdia.stopper_engine_params(jrun.load_pickle("stopper_params.pkl")),
         "layout": (teps, mask, acc), "bounds": bounds,
+        "tep_layout": segments.TepLayout.build(run["path"], 64, 6, "cpu"),
     }
 
 
@@ -65,11 +66,6 @@ def _jax_layout(r4):
     teps, mask, acc = r4["layout"]
     return (jnp.asarray(teps), jnp.asarray(mask), jnp.asarray(acc, jnp.int32),
             r4["jax_fcn"])
-
-
-def _port_layout(r4):
-    teps, mask, acc = r4["layout"]
-    return (torch.as_tensor(teps), torch.as_tensor(mask), acc, r4["port"]["fcn"])
 
 
 def test_iteration_lists_match_jax():
@@ -93,11 +89,11 @@ def test_with_iteration_stats_rows_match_jax(r4):
         jnp.asarray(r4["labels"]), *_jax_layout(r4))
     run = r4["port"]
     step = engine.make_dl_osd_step_from_llr(run["dia"], run["code"], "NMS-1", 12,
-                                            bounds=r4["bounds"],
+                                            r4["tep_layout"],
                                             with_iteration_stats=True)
     out, refined, det, (ce, ber) = step(
         run["nms_params"], torch.as_tensor(r4["llr"]),
-        torch.as_tensor(r4["labels"]), *_port_layout(r4))
+        torch.as_tensor(r4["labels"]), run["fcn"])
     assert ce.shape == ber.shape == (96, 14)
     np.testing.assert_allclose(ce.numpy(), np.asarray(ref_ce), rtol=1e-5)
     np.testing.assert_array_equal(ber.numpy(), np.asarray(ref_ber))
@@ -117,9 +113,9 @@ def test_make_dl_osd_step_matches_jax(r4):
                                      bounds=r4["bounds"])
     ref, ref_refined = jstep(r4["jax_dia"], jnp.asarray(traj),
                              jnp.asarray(r4["labels"]), *_jax_layout(r4))
-    step = engine.make_dl_osd_step(run["dia"], code.h_osd, 64, bounds=r4["bounds"])
+    step = engine.make_dl_osd_step(run["dia"], code.h_osd, 64, r4["tep_layout"])
     out, refined = step(torch.as_tensor(traj), torch.as_tensor(r4["labels"]),
-                        *_port_layout(r4))
+                        run["fcn"])
     np.testing.assert_allclose(refined.numpy(), np.asarray(ref_refined),
                                rtol=1e-5, atol=1e-5)
     for key in WALK_KEYS:

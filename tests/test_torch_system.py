@@ -50,6 +50,7 @@ def r4():
         "jax_fcn": jdia.stopper_engine_params(run.load_pickle("stopper_params.pkl")),
         "port": convert.load_run(R4, "cpu"),
         "teps": teps, "mask": mask, "acc": acc, "bounds": bounds,
+        "layout": segments.TepLayout.build(path, 64, 6, "cpu"),
     }
 
 
@@ -73,10 +74,9 @@ def test_dl_osd_step_from_llr_matches_jax(r4, refparity_jax):
     llr, labels, ref, ref_det = refparity_jax
     run = r4["port"]
     step = engine.make_dl_osd_step_from_llr(
-        run["dia"], run["code"], "NMS-1", 12, bounds=r4["bounds"])
+        run["dia"], run["code"], "NMS-1", 12, r4["layout"])
     got, _, det = step(run["nms_params"], torch.as_tensor(llr),
-                       torch.as_tensor(labels), torch.as_tensor(r4["teps"]),
-                       torch.as_tensor(r4["mask"]), r4["acc"], run["fcn"])
+                       torch.as_tensor(labels), run["fcn"])
     for key in WALK_KEYS:
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]), key)
     np.testing.assert_array_equal(det.numpy(), np.asarray(ref_det))
@@ -125,9 +125,8 @@ def test_nms_r_redecode_routes_agree(r4, monkeypatch):
 
     run = r4["port"]
     step = engine.make_dl_osd_step_from_llr(run["dia"], code, "NMS-r", 12,
-                                            bounds=r4["bounds"])
-    args = (params, llr, labels, torch.as_tensor(r4["teps"]),
-            torch.as_tensor(r4["mask"]), r4["acc"], run["fcn"])
+                                            r4["layout"])
+    args = (params, llr, labels, run["fcn"])
     routes = []
     real = engine.redecode_trajectory
     monkeypatch.setattr(engine, "redecode_trajectory",
@@ -156,9 +155,7 @@ def test_sliding_osd_matches_jax_on_refparity25(r4):
     t = torch.as_tensor(traj)
     prep = engine.prepare(run["dia"].refine_fast(t), t[:, 0],
                           torch.as_tensor(labels), run["code"].h_osd, 64)
-    got = engine.sliding_osd(prep, torch.as_tensor(r4["teps"]),
-                             torch.as_tensor(r4["mask"]), r4["acc"], run["fcn"],
-                             64, bounds=r4["bounds"])
+    got = engine.sliding_osd(prep, r4["layout"], run["fcn"], 64)
     for key in WALK_KEYS + ("deep_limit", "windows_evaluated"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]), key)
     np.testing.assert_allclose(got["global_min"].numpy(),

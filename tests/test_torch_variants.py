@@ -168,11 +168,10 @@ def nms_r_case():
     rows = np.argsort(~failed, kind="stable")[:48]
     assert failed[rows].all()
     run = convert.load_run(R4, "cpu")
-    teps, mask, bounds, acc = layout(run["path"], code.k)
     jrun = JaxRunDir(R4)
-    return {"code": code, "params": params, "tree": tree, "llr": llr[rows],
-            "labels": words[rows], "run": run, "teps": teps, "mask": mask,
-            "bounds": bounds, "acc": acc,
+    return layout(run["path"], code.k) | {
+            "code": code, "params": params, "tree": tree, "llr": llr[rows],
+            "labels": words[rows], "run": run,
             "jax_dia": jrun.load_pickle("dia_model_cnn.pkl"),
             "jax_fcn": jdia.stopper_engine_params(jrun.load_pickle(
                 "stopper_params.pkl"))}
@@ -195,11 +194,10 @@ def test_nms_r_phase2_matches_jax(nms_r_case):
     np.testing.assert_array_equal(got < 0, jtraj < 0)
 
     step = engine.make_dl_osd_step(run["dia"], code.h_osd, code.k,
-                                   bounds=case["bounds"])
+                                   case["layout"])
     with torch.no_grad():
         out, refined = step(traj.permute(1, 0, 2), torch.as_tensor(labels),
-                            torch.as_tensor(case["teps"]),
-                            torch.as_tensor(case["mask"]), case["acc"], run["fcn"])
+                            run["fcn"])
     jstep = jengine.make_dl_osd_step(jdia.make_dia("model_cnn", code.n, 13),
                                      jnp.asarray(jax_get_code(code.name).h_osd),
                                      code.k, bounds=case["bounds"])

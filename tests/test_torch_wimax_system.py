@@ -73,7 +73,7 @@ def wimax():
     path = run.load_json("decoding_path.json")["path"][:CUT]
     port = convert.load_run(WIMAX, "cpu")
     code = port["code"]
-    teps, mask, bounds, acc = _layout(path, code.k)
+    tep_layout = segments.TepLayout.build(path, code.k, 6, "cpu")
     # seeded AWGN rows at 3.5 dB (the raw-sample LLR proxy), failures of
     # the port's K1 twin first, as the capture step orders them
     rng = np.random.default_rng(35)
@@ -87,7 +87,9 @@ def wimax():
         "detected_failure"].numpy()
     rows = np.argsort(~failed, kind="stable")[:64]
     return {
-        "port": port, "teps": teps, "mask": mask, "bounds": bounds, "acc": acc,
+        "port": port, "layout": tep_layout, "teps": tep_layout.teps.numpy(),
+        "mask": tep_layout.mask.numpy(), "bounds": tep_layout.bounds,
+        "acc": tep_layout.acc.numpy(),
         "llr": llr[rows], "labels": words[rows], "failures": int(failed[rows].sum()),
         "jax_nms": run.load_pickle("nms_params.pkl"),
         "jax_dia": run.load_pickle("dia_model_cnn.pkl"),
@@ -134,11 +136,10 @@ def test_phase2_matches_jax(wimax, jax_phase2):
     code = port["code"]
     (ref, ref_refined, ref_det), jtraj = jax_phase2
     step = engine.make_dl_osd_step_from_llr(
-        port["dia"], code, "NMS-1", 12, bounds=wimax["bounds"])
+        port["dia"], code, "NMS-1", 12, wimax["layout"])
     got, refined, det = step(
         port["nms_params"], torch.as_tensor(wimax["llr"]),
-        torch.as_tensor(wimax["labels"]), torch.as_tensor(wimax["teps"]),
-        torch.as_tensor(wimax["mask"]), wimax["acc"], port["fcn"])
+        torch.as_tensor(wimax["labels"]), port["fcn"])
     for key in WALK_KEYS:
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]), key)
     np.testing.assert_array_equal(det.numpy(), np.asarray(ref_det))

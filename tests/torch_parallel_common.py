@@ -29,6 +29,7 @@ from short_ldpc_decoding_osd_tpu_torch.train.optim import StaircaseAdam
 T = 6
 PATH = [[0, 0, 0, 0, 0, 0], [1, 0, 0, 0, 0, 0], [0, 1, 0, 0, 0, 0],
         [1, 1, 0, 0, 0, 0], [0, 0, 1, 0, 0, 0]]
+CHUNK = 64
 
 
 def _plain(tree):
@@ -52,7 +53,7 @@ def osd_inputs(b: int) -> dict:
     dia = make_dia("model_cnn", code.n, T + 1).init(
         jax.random.PRNGKey(0), jnp.zeros((code.n, T + 1, 1)))
     blocks, acc = jseg.build_tep_blocks(PATH, code.k)
-    teps, mask, bounds = jseg.pack_tep_chunks(blocks, chunk=64)
+    teps, mask, bounds = jseg.pack_tep_chunks(blocks, chunk=CHUNK)
     rng = np.random.default_rng(5)
     words = (rng.integers(0, 2, (b, code.k)) @ code.g % 2).astype(np.int8)
     noise = rng.normal(1.0, 0.9, (b, T + 1, code.n))
@@ -63,7 +64,8 @@ def osd_inputs(b: int) -> dict:
     noise = rng.normal(0.6, 1.0, (b, code.n))  # noisy enough to fail often
     llr = np.where(llr_words == 0, noise, -noise).astype(np.float32)
     return {"t": T, "dia": _plain(dia), "teps": teps, "mask": mask,
-            "acc": np.asarray(acc, np.int64), "bounds": bounds,
+            "acc": np.asarray(acc, np.int64), "bounds": bounds, "path": PATH,
+            "chunk": CHUNK,
             "traj": traj, "labels": words, "fcn": fcn,
             "llr": llr, "llr_labels": llr_words, "fcn_llr": _fcn(rng)}
 

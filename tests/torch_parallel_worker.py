@@ -28,6 +28,7 @@ from short_ldpc_decoding_osd_tpu_torch.channel import ChannelSpec  # noqa: E402
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code  # noqa: E402
 from short_ldpc_decoding_osd_tpu_torch.mc import harness  # noqa: E402
 from short_ldpc_decoding_osd_tpu_torch.ops import nms  # noqa: E402
+from short_ldpc_decoding_osd_tpu_torch.osd.segments import TepLayout  # noqa: E402
 from short_ldpc_decoding_osd_tpu_torch.parallel import (  # noqa: E402
     device_seeds, init_multihost, make_mesh, sharded_dl_osd_step,
     sharded_dl_osd_step_from_llr, sharded_nms_train_step,
@@ -55,22 +56,20 @@ def run_cases(mesh, inputs: dict) -> dict:
                              convert.dia_state_from_jax(inputs["dia"], "cpu"))
     fcn, fcn_llr = ({k: torch.as_tensor(v) for k, v in inputs[key].items()}
                     for key in ("fcn", "fcn_llr"))
-    teps, mask = torch.as_tensor(inputs["teps"]), torch.as_tensor(inputs["mask"])
-    step = sharded_dl_osd_step(dia, code.h, code.k, mesh,
-                               bounds=inputs["bounds"])
+    layout = TepLayout.build(inputs["path"], code.k, 6, "cpu",
+                             chunk=inputs["chunk"])
+    step = sharded_dl_osd_step(dia, code.h, code.k, mesh, layout)
     c = step(torch.as_tensor(inputs["traj"]), torch.as_tensor(inputs["labels"]),
-             teps, mask, inputs["acc"], fcn)
+             fcn)
     out["osd"] = {"dtype": str(c.dtype), "counters": c.tolist()}
     # one row over two ranks: rank 1's part is empty
     c = step(torch.as_tensor(inputs["traj"][:1]),
-             torch.as_tensor(inputs["labels"][:1]), teps, mask, inputs["acc"],
-             fcn)
+             torch.as_tensor(inputs["labels"][:1]), fcn)
     out["osd_one_row"] = c.tolist()
     step = sharded_dl_osd_step_from_llr(dia, code, "NMS-1", inputs["t"], mesh,
-                                        bounds=inputs["bounds"])
+                                        layout)
     c = step(nms.init_params("NMS-1"), torch.as_tensor(inputs["llr"]),
-             torch.as_tensor(inputs["llr_labels"]), teps, mask, inputs["acc"],
-             fcn_llr)
+             torch.as_tensor(inputs["llr_labels"]), fcn_llr)
     out["osd_from_llr"] = {"dtype": str(c.dtype), "counters": c.tolist()}
 
     t = inputs["train"]

@@ -28,10 +28,13 @@ RTOL, ATOL = 1e-5, 1e-6
 
 
 def layout(path, k, num_segments=6):
-    """(teps, mask, bounds, acc) of a decoding path, the engine's layout."""
-    blocks, acc = segments.build_tep_blocks(path, k, num_segments)
-    teps, mask, bounds = segments.pack_tep_chunks(blocks)
-    return teps, mask, bounds, acc
+    """The engine's TEP layout of a decoding path on the CPU (``layout``)
+    and its ``teps``, ``mask``, ``bounds`` and ``acc`` as JAX's step takes
+    them."""
+    tep_layout = segments.TepLayout.build(path, k, num_segments, "cpu")
+    return {"layout": tep_layout, "teps": tep_layout.teps.numpy(),
+            "mask": tep_layout.mask.numpy(), "bounds": tep_layout.bounds,
+            "acc": tep_layout.acc.numpy()}
 
 
 def seeded_rows(code, snr_db, rows, seed, fade_block=None):
@@ -72,10 +75,9 @@ def load_case(run_dir, path_cut=None):
     run = RunDir(run_dir)
     port = convert.load_run(run_dir, "cpu")
     path = port["path"][:path_cut] if path_cut else port["path"]
-    teps, mask, bounds, acc = layout(path, port["code"].k,
-                                     int(port["config"].get("num_segments", 6)))
-    return {
-        "port": port, "teps": teps, "mask": mask, "bounds": bounds, "acc": acc,
+    return layout(path, port["code"].k,
+                  int(port["config"].get("num_segments", 6))) | {
+        "port": port,
         "jax_nms": run.load_pickle("nms_params.pkl"),
         "jax_dia": run.load_pickle("dia_model_cnn.pkl"),
         "jax_fcn": jdia.stopper_engine_params(run.load_pickle("stopper_params.pkl")),
@@ -108,12 +110,11 @@ def port_phase2(case, llr, labels):
     cfg = port["config"]
     step = engine.make_dl_osd_step_from_llr(
         port["dia"], port["code"], port["variant"], port["num_iterations"],
-        window=int(cfg.get("window", 5)),
-        soft_margin=float(cfg.get("soft_margin", 0.9)), bounds=case["bounds"])
+        case["layout"], window=int(cfg.get("window", 5)),
+        soft_margin=float(cfg.get("soft_margin", 0.9)))
     with torch.no_grad():
         return step(port["nms_params"], torch.as_tensor(llr),
-                    torch.as_tensor(labels), torch.as_tensor(case["teps"]),
-                    torch.as_tensor(case["mask"]), case["acc"], port["fcn"])
+                    torch.as_tensor(labels), port["fcn"])
 
 
 def refine(port, traj):
