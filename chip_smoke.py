@@ -30,10 +30,14 @@ Phases (each raises on failure, so the script never exits 0 after one):
    K3, K4, K8a and K8b are compared at 262,144 frames (K3 also with a
    capacity that overflows, and with two stages; the messages its first
    stage saves for resuming against the twin's) and timed at 2,097,152,
-   K4 also at T = 0 (sampling and counting alone); one line per launch
-   shape of the MC kernel (registers, spills, shared bytes, frames a block,
-   resident blocks per SM); K4 and K3 against their twins on qc_96_48 and
-   wimax_1056_880, so that every degree bucket of the iteration body runs;
+   K4 also at T = 0 (sampling, encode and counting alone); one line per
+   launch shape of the MC kernel (registers, spills, shared bytes, frames a
+   block, resident blocks per SM, G's encode tables in shared memory or
+   not); K4 and K3 against their twins on qc_96_48 and wimax_1056_880, so
+   that every degree bucket of the iteration body runs, and the encode's
+   counters of those K3 runs (``mc.columns_as_bit``,
+   ``mc.columns_encoded``: G's unit columns and the others, a launch); K4's
+   split on wimax_1056_880 at 262,144 frames and 4.0 dB;
 3. the two-phase main path at full width: 8 rounds of the 262,144-frame
    capture step plus phase 2 (capture 32,768) at 3.0 dB with the
    ``runs/r4_pipeline`` artifacts, with every launch count reset just
@@ -1355,12 +1359,7 @@ def phase_mc_kernels(dev):
         err, nms_edge_ops(h, big, ITERS), 8 * 5,
         f"{big} hash frames, T={ITERS} -> (5,) int64"))
     # T = 0 (sample, encode, one column sum, count) splits the iterations off
-    t0_ms = cuda_ms(lambda: nms_edge.fused_counters_edge(
-        code, params, "NMS-1", 0, 3.0, big, seed, device=dev), 10)
-    k4_ms = rows[-1]["ms"]
-    log(f"K4 split at {big} frames: T=0 {t0_ms:.4f} ms, T={ITERS} {k4_ms:.4f} ms: "
-        f"sampling and counting {100 * t0_ms / k4_ms:.1f}%, "
-        f"{(k4_ms - t0_ms) / ITERS:.4f} ms an iteration")
+    k4_split("ccsds_128_64", code, params, 3.0, big, seed, dev)
 
     # K8a: the unconverged share at t1 of the 2M frames sizes K3's and K8's
     # bounds (work that depends on the data is counted as this data needs)
@@ -1411,20 +1410,22 @@ def phase_mc_kernels(dev):
     # K3: bench's schedule, the harness's default, one that overflows and a
     # two-stage one, each against the literal rule
     err = 0
-    for schedule, block in ((((t1, 0.375),), 1024),
-                            (nms_edge.DEFAULT_COMPACT_SCHEDULE, 512),
-                            (((t1, 0.25),), 1024),
-                            (((t1, 0.5), (2, 0.25)), 512)):
-        rows_s, final = nms_edge.build_rows_schedule(schedule, block, ITERS)
-        got = nms_edge.fused_counters_edge_compact(
-            code, params, "NMS-1", ITERS, 3.0, MC_B, seed, block_frames=block,
-            schedule=schedule, device=dev)
-        want = nms_edge._compact_plain(mc, MC_B, block, rows_s, final)
-        err = max(err, counters_err(f"K3 {schedule} / {block}", got, want))
-        log(f"K3 {schedule} in groups of {block}: {got.tolist()} "
-            f"(overflow {int(got[5])})")
-        if schedule == ((t1, 0.25),) and not int(got[5]) > 0:
-            raise AssertionError("K3: the small capacity did not overflow")
+    with profiling.recording(record=profiling.Record()) as rec:
+        for schedule, block in ((((t1, 0.375),), 1024),
+                                (nms_edge.DEFAULT_COMPACT_SCHEDULE, 512),
+                                (((t1, 0.25),), 1024),
+                                (((t1, 0.5), (2, 0.25)), 512)):
+            rows_s, final = nms_edge.build_rows_schedule(schedule, block, ITERS)
+            got = nms_edge.fused_counters_edge_compact(
+                code, params, "NMS-1", ITERS, 3.0, MC_B, seed,
+                block_frames=block, schedule=schedule, device=dev)
+            want = nms_edge._compact_plain(mc, MC_B, block, rows_s, final)
+            err = max(err, counters_err(f"K3 {schedule} / {block}", got, want))
+            log(f"K3 {schedule} in groups of {block}: {got.tolist()} "
+                f"(overflow {int(got[5])})")
+            if schedule == ((t1, 0.25),) and not int(got[5]) > 0:
+                raise AssertionError("K3: the small capacity did not overflow")
+    encode_counters("ccsds_128_64", mc, rec, launches=9)
     rows_s, final = nms_edge.build_rows_schedule(((t1, 0.375),), 1024, ITERS)
     rows.append(mc_row(
         "K3 mc_compact",
@@ -1442,17 +1443,51 @@ def phase_mc_kernels(dev):
 
 def log_launch_shape(name, mc, stage):
     """One line per launch shape of ``mc_frames``: the plan and what the
-    card makes of it (registers, spills, shared bytes, resident blocks)."""
+    card makes of it (registers, spills, shared bytes, resident blocks, G's
+    encode tables in shared memory or read from global memory)."""
     plan = mc.plan
-    occ = nms_edge.mc_occupancy(plan, mc.k, stage, mc.device.index or 0)
+    occ = nms_edge.mc_occupancy(plan, mc.k, stage, mc.encode.numel(),
+                                mc.device.index or 0)
     dc, dv = nms_edge.BUCKETS[plan.bucket][:2]
+    where = "shared" if occ["table_shared"] else "global"
     log(f"mc_frames launch shape, {name} {'STAGE' if stage else 'COUNT'}: "
         f"bucket {plan.bucket} (dc <= {dc}, dv <= {dv}), {plan.warps} warp(s) a "
         f"frame, {plan.frames} frames a block ({occ['threads']} threads), "
         f"{occ['registers']} registers and {occ['local_bytes']} local bytes a "
         f"thread, {occ['smem_bytes']} shared bytes a block, "
         f"{occ['blocks_per_sm']} resident blocks per SM "
-        f"({occ['blocks_per_sm'] * plan.frames} frames) on {occ['sms']} SMs")
+        f"({occ['blocks_per_sm'] * plan.frames} frames) on {occ['sms']} SMs; "
+        f"G's encode tables ({4 * mc.encode.numel()} bytes: "
+        f"{mc.h.shape[1] - mc.parity_columns} unit columns, "
+        f"{mc.parity_columns} parity columns) in {where} memory")
+
+
+def encode_counters(name, mc, rec, launches: int):
+    """The encode's counters of ``launches`` ``mc_frames`` launches recorded
+    in ``rec``: G's unit columns and the others, once a launch."""
+    n, p = mc.h.shape[1], mc.parity_columns
+    got = rec.snapshot()["counters"]
+    bits, encoded = got.get("mc.columns_as_bit"), got.get("mc.columns_encoded")
+    log(f"{name} encode counters over {launches} mc_frames launches: "
+        f"mc.columns_as_bit {bits}, mc.columns_encoded {encoded}, share read "
+        f"as a bit {bits / (bits + encoded):.4f} ({n - p} of {n})")
+    if (bits, encoded) != (launches * (n - p), launches * p):
+        raise AssertionError(f"{name}: encode counters {got}, want "
+                             f"{launches} x ({n - p}, {p})")
+
+
+def k4_split(name, code, params, snr, batch, seed, dev):
+    """K4 at T = 0 (sample, encode, one column sum, count) against K4 at
+    T = ITERS: the fixed work of a frame against its iterations."""
+    t0_ms = cuda_ms(lambda: nms_edge.fused_counters_edge(
+        code, params, "NMS-1", 0, snr, batch, seed, device=dev), 10)
+    k4_ms = cuda_ms(lambda: nms_edge.fused_counters_edge(
+        code, params, "NMS-1", ITERS, snr, batch, seed, device=dev), 10)
+    log(f"K4 split {name} at {batch} frames, {snr} dB: T=0 {t0_ms:.4f} ms, "
+        f"T={ITERS} {k4_ms:.4f} ms: sampling, encode and counting "
+        f"{100 * t0_ms / k4_ms:.1f}%, {(k4_ms - t0_ms) / ITERS:.4f} ms an "
+        "iteration")
+    return t0_ms, k4_ms
 
 
 def phase_mc_other_codes(dev):
@@ -1491,13 +1526,33 @@ def phase_mc_other_codes(dev):
                      nms_edge._mc_frames_plain(mc, ITERS, batch)[0][:5])
         rows_s, final = nms_edge.build_rows_schedule(
             nms_edge.DEFAULT_COMPACT_SCHEDULE, 512, ITERS)
-        k3 = nms_edge.fused_counters_edge_compact(
-            code, params, "NMS-1", ITERS, snr, batch, 5, block_frames=512,
-            schedule=nms_edge.DEFAULT_COMPACT_SCHEDULE, device=dev)
+        with profiling.recording(record=profiling.Record()) as rec:
+            k3 = nms_edge.fused_counters_edge_compact(
+                code, params, "NMS-1", ITERS, snr, batch, 5, block_frames=512,
+                schedule=nms_edge.DEFAULT_COMPACT_SCHEDULE, device=dev)
         counters_err(f"K3 {name}", k3,
                      nms_edge._compact_plain(mc, batch, 512, rows_s, final))
         log(f"{name} {snr} dB, {batch} frames: K4 {k4.tolist()}, K3 "
             f"{k3.tolist()} (overflow {int(k3[5])}), both equal to their twins")
+        encode_counters(name, mc, rec, launches=2)
+        # G's encode tables read from global memory, where a code's tables
+        # would not fit beside its frames: the same counters
+        with patched(nms_edge, "mc_occupancy", lambda occ: lambda *a: {
+                **occ(*a), "table_shared": 0}):
+            k4g = nms_edge.fused_counters_edge(code, params, "NMS-1", ITERS,
+                                               snr, batch, 5, device=dev)
+            k3g = nms_edge.fused_counters_edge_compact(
+                code, params, "NMS-1", ITERS, snr, batch, 5, block_frames=512,
+                schedule=nms_edge.DEFAULT_COMPACT_SCHEDULE, device=dev)
+        if not (torch.equal(k4g, k4) and torch.equal(k3g, k3)):
+            raise AssertionError(f"{name}: K4/K3 with G's encode tables in "
+                                 f"global memory {k4g.tolist()} / "
+                                 f"{k3g.tolist()}")
+        log(f"{name}: K4 and K3 with G's encode tables read from global "
+            "memory equal to the shared-memory runs")
+        if name == "wimax_1056_880":
+            # the wimax-phase1-4.0dB cell's step size and SNR
+            k4_split(name, code, params, 4.0, 262_144, 5, dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 

@@ -81,29 +81,28 @@ _SIGNATURES = {
         "lterm_occupancy": [_I, _I, _I, _I, _I, _I, _VP],
     },
     "mc_fused": {
-        # bucket, warps, frames, k, stage, out (int32 [6])
-        "mc_frames_occupancy": [_I, _I, _I, _I, _I, _VP],
+        # bucket, warps, frames, k, stage, table_words, out (int32 [7])
+        "mc_frames_occupancy": [_I, _I, _I, _I, _I, _I, _VP],
         # ids, src, msgs_in, msgs_out, stat, counters, edge_col, var_edges,
-        # gcols, count, n, m, dc, dv, k, iters, bucket, warps, frames, grid,
-        # seed, sigma, mean, w_vc, w_chk, w_marg, stream
-        "mc_frames": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                      _I, _I, _I, _I, _I, _I, _I, _I, _U, _F, _F, _F, _F, _F,
-                      _VP],
+        # encode, count, n, m, dc, dv, k, p, iters, bucket, warps, frames,
+        # grid, table_shared, seed, sigma, mean, w_vc, w_chk, w_marg, stream
+        "mc_frames": [_VP] * 9 + [_I] * 13 + [_U, _F, _F, _F, _F, _F, _VP],
         # stat, ids_in, ids_out, src_out, partials, groups, group_size,
         # rows_next, stream
         "mc_group_rank": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     },
     "nms_dense": {
-        # bucket, warps, frames, m, n, dc, dv, k
-        "dense_max_blocks": [_I, _I, _I, _I, _I, _I, _I, _I],
+        # bucket, warps, frames, m, n, dc, dv, k, p
+        "dense_max_blocks": [_I, _I, _I, _I, _I, _I, _I, _I, _I],
         # h, llr, out, batch, m, n, dc, dv, iters, bucket, warps, frames,
         # blocks, w_vc, w_chk, w_marg, stream
         "dense_decode": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _F, _F, _F, _VP],
-        # h, g, partials, count, m, n, k, dc, dv, iters, bucket, warps,
-        # frames, blocks, seed, sigma, mean, w_vc, w_chk, w_marg, stream
-        "dense_mc": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _U, _F, _F, _F, _F, _F, _VP],
+        # h, encode, p, partials, count, m, n, k, dc, dv, iters, bucket,
+        # warps, frames, blocks, seed, sigma, mean, w_vc, w_chk, w_marg,
+        # stream
+        "dense_mc": [_VP, _VP, _I, _VP] + [_I] * 11
+                    + [_U, _F, _F, _F, _F, _F, _VP],
     },
     "gf2_ge": {
         # perm, hcol, mw, dense, out, order, batch, m, n, c0, then the plan

@@ -16,8 +16,9 @@ device)`` of the matrix as host uint8 0/1 numpy (read-only), on the first
 matrix as f32 or int8 on a device, its degrees and rank (``device`` None:
 a host item), the kernels' edge tables (``ops.nms_edge``), the padded
 layout's tables (``ops.nms_edge_padded``), H packed by columns for the GE
-kernel (``ops.gf2_bitpack``), G's column masks (``ops.nms_edge``) and the
-neighbourhood table (``models.extras``).  A kernel's own build functions
+kernel (``ops.gf2_bitpack``), G's encode tables (``ops.nms_edge``: its
+columns by kind and its parity columns word-major) and the neighbourhood
+table (``models.extras``).  A kernel's own build functions
 live beside its wrapper; the items several wrappers read are here.
 """
 

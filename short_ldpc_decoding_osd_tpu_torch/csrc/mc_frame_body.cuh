@@ -8,21 +8,29 @@
 // Per frame, on the frame's group of lanes (the iteration body of
 // nms_edge_body.cuh, whose lane owns checks t + T q and variables t + T i):
 // hash words -> message bits, one warp ballot per 32 bits, into the frame's
-// message words -> codeword bit of each owned variable v =
-// popcount(msg & column v of G) & 1 (exact) -> Box-Muller normal (one per
-// pair, cos only: streams k+1..k+n and k+1+n..k+2n) -> x = (1-2c)(mean +
-// sigma z), in registers -> `iters` iterations from the lane's messages
-// (zero, or a resumed frame's saved ones) -> soft = colsum + w_marg x, hard
-// decision soft < 0 -> bit errors (owned variables) and syndrome (owned
-// checks, reading the hard decisions through their column offsets) -> warp
-// reductions (and, for a group of warps, two shared flags).
+// message words -> codeword bit of each owned variable v, by the kind of
+// G's column v (ops/nms_edge.encode_tables, read from G once): a unit
+// column (weight 1, message bit j) copies bit j of the message words, any
+// other column p is popcount(msg & parity column p) & 1 over a word-major
+// table, so neighbouring lanes read neighbouring words (exact either way)
+// -> Box-Muller normal (one per pair, cos only: streams k+1..k+n and
+// k+1+n..k+2n) -> x = (1-2c)(mean + sigma z), in registers -> `iters`
+// iterations from the lane's messages (zero, or a resumed frame's saved
+// ones) -> soft = colsum + w_marg x, hard decision soft < 0 -> bit errors
+// (owned variables) and syndrome (owned checks, reading the hard decisions
+// through their column offsets) -> warp reductions (and, for a group of
+// warps, two shared flags).
 //
 // What bounds it on the H100: the iterations (nms_edge_body.cuh), then the
 // sample: 3 n accurate logf/sqrtf/cosf and 2 n + k hash words a frame.
 // Since the body's redesign the sample is no longer small: K4 timed at
-// T = 0 in chip_smoke.py took 24% of K4 at T = 12 on CCSDS.  Beyond the
-// body's region a frame keeps in shared memory only what crosses lanes: its
-// ceil(k/32) message words and 2 flags (extra_words).
+// T = 0 in chip_smoke.py took 24% of K4 at T = 12 on CCSDS and on WiMAX.
+// The encode popcounts only G's parity columns (WiMAX (1056, 880): 176 of
+// 1,056), so a WiMAX frame reads 880 message bits and 176 x 28 table
+// words, neighbouring lanes on neighbouring banks.  Beyond the body's
+// region a frame keeps in shared memory only what crosses lanes: its
+// ceil(k/32) message words and 2 flags (extra_words); the kernels keep
+// G's encode tables there too, once a block.
 
 #pragma once
 
@@ -39,13 +47,17 @@ __host__ __device__ inline int extra_words(int k) { return (k + 31) / 32 + 2; }
 
 // Frame `fid` of `seed` from the messages in L.cv (zero for a frame from
 // scratch) through `iters` iterations.  `words` is the byte offset of the
-// frame's extra words; gcols: (n, ceil(k/32)), bit b of word w of column v =
-// G[32w + b, v] (global or shared memory).  Every lane of the group must
-// call it; it returns, in every lane, {bit errors, unconverged}; L.cv then
-// holds the messages after `iters` iterations.
+// frame's extra words.  `table`: G's encode tables (ops/nms_edge.encode_
+// tables, in shared or global memory), the n column kinds (j >= 0 for a
+// unit column that copies message bit j, ~p for parity column p), then
+// the (ceil(k/32), P) parity words: bit b of word w of parity column p,
+// at table[n + w P + p], is its G[32w + b].
+// Every lane of the group must call it; it returns, in every lane, {bit
+// errors, unconverged}; L.cv then holds the messages after `iters`
+// iterations.
 template <class Bk, bool kClampBig>
 __device__ __forceinline__ int2 run(nms_edge::Lane<Bk>& L, unsigned words,
-                                    const unsigned* gcols, int fid, int n,
+                                    const int* table, int P, int fid, int n,
                                     int k, int iters, unsigned seed,
                                     float sigma, float mean, float w_vc,
                                     float w_chk, float w_marg) {
@@ -68,26 +80,38 @@ __device__ __forceinline__ int2 run(nms_edge::Lane<Bk>& L, unsigned words,
   nms_edge::frame_sync(L.bar, T);
   if (t < 2) sh(flags + 4u * t) = 0.f;  // read back after later barriers
 
-  float x[Bk::VPL];
+  const unsigned* parity = reinterpret_cast<const unsigned*>(table + n);
   unsigned codeword = 0;  // bit i: the codeword bit of owned variable i
+#pragma unroll
+  for (int i = 0; i < Bk::VPL; ++i) {
+    const int v = t + T * i;
+    if (v >= n) continue;
+    const int j = table[v];
+    unsigned c;
+    if (j >= 0) {  // a unit column: message bit j
+      c = __float_as_uint(sh(words + 4u * (j >> 5))) >> (j & 31);
+    } else {
+      c = 0;
+      for (int w = 0; w < kw; ++w)
+        c ^= __popc(__float_as_uint(sh(words + 4u * w)) & parity[w * P + ~j]);
+    }
+    codeword |= (c & 1u) << i;
+  }
+
+  float x[Bk::VPL];
   // branch-free over the owned variables, so that their independent
   // logf/cosf chains interleave; a padding variable (v >= n) computes a
   // value it then drops
 #pragma unroll
   for (int i = 0; i < Bk::VPL; ++i) {
     const int v = t + T * i;
-    const int col = v < n ? v : n - 1;
-    unsigned par = 0;
-    for (int w = 0; w < kw; ++w)
-      par ^= __popc(__float_as_uint(sh(words + 4u * w)) & gcols[col * kw + w]);
-    const int c = v < n ? static_cast<int>(par & 1u) : 0;
+    const float c = static_cast<float>((codeword >> i) & 1u);
     const float u1 = mc_hash::uniform01(mc_hash::stream_word(base, k + 1 + v));
     const float u2 =
         mc_hash::uniform01(mc_hash::stream_word(base, k + 1 + n + v));
     const float z = sqrtf(-2.0f * logf(u1)) * cosf(6.283185307179586f * u2);
     const float received = mean + sigma * z;
-    x[i] = v < n ? (1.0f - 2.0f * static_cast<float>(c)) * received : 0.f;
-    codeword |= static_cast<unsigned>(c) << i;
+    x[i] = v < n ? (1.0f - 2.0f * c) * received : 0.f;
   }
 
   int errs = 0;

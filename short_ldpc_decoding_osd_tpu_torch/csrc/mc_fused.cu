@@ -55,7 +55,12 @@
 // blockIdx.x * frames + group, + gridDim.x * frames, ...), so the tables
 // are read into registers once per group, and a frame never waits for
 // another.  The iterations a frame needs are all it runs: t1 for all, the
-// rest only for the ~1/3 not converged at t1, resumed.
+// rest only for the ~1/3 not converged at t1, resumed.  The encode reads G
+// by its columns' kinds (mc_frame_body.cuh): the block copies G's encode
+// tables (column kinds, word-major parity table) into its shared memory once,
+// before its first frame, where they cost no resident block
+// (mc_frames_occupancy decides; WiMAX: 4.2 + 19.7 KB beside a 29 KB frame),
+// else its frames read them from global memory through the same pointers.
 //
 // Counters are 64-bit per block in shared memory, added into the (6,)
 // int64 output by one atomic per lane and block: exact and independent of
@@ -83,19 +88,29 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
     const float* __restrict__ msgs_in, float* __restrict__ msgs_out,
     int* __restrict__ stat, unsigned long long* __restrict__ counters,
     const int* __restrict__ edge_col, const int* __restrict__ var_edges,
-    const unsigned* __restrict__ gcols, int count, int n, int m, int dc,
-    int dv, int k, int iters, int warps, int frames, unsigned seed,
-    float sigma, float mean, float w_vc, float w_chk, float w_marg) {
+    const int* __restrict__ encode, int count, int n, int m, int dc, int dv,
+    int k, int p, int iters,
+    int warps, int frames, int table_shared, unsigned seed, float sigma,
+    float mean, float w_vc, float w_chk, float w_marg) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned long long* s_count = reinterpret_cast<unsigned long long*>(smem);
   if (threadIdx.x < kLanes) s_count[threadIdx.x] = 0;
-  __syncthreads();
-
   const int T = 32 * warps;
-  const int g = threadIdx.x / T;
-  const int t = threadIdx.x - g * T;
   const size_t words =
       nms_edge::region_words<Bk>(T, mc_frame::extra_words(k));
+  // G's encode tables, after the frames' regions (uniform over the block)
+  const int* table = encode;
+  if (table_shared) {
+    int* s_table = reinterpret_cast<int*>(smem + kCountBytes +
+                                          4 * frames * words);
+    const int size = n + (k + 31) / 32 * p;
+    for (int i = threadIdx.x; i < size; i += blockDim.x) s_table[i] = encode[i];
+    table = s_table;
+  }
+  __syncthreads();
+
+  const int g = threadIdx.x / T;
+  const int t = threadIdx.x - g * T;
   const unsigned region = kCountBytes + 4u * static_cast<unsigned>(g * words);
   nms_edge::Lane<Bk> L;
   L.setup(region, edge_col, var_edges, m, n, dc, dv, t, T, 1 + g);
@@ -114,9 +129,9 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
       L.load(msgs_in + static_cast<size_t>(src[slot]) * num_edges, m, dc);
     else
       L.reset();
-    const int2 r = mc_frame::run<Bk, false>(L, extra, gcols, fid, n, k, iters,
-                                            seed, sigma, mean, w_vc, w_chk,
-                                            w_marg);
+    const int2 r = mc_frame::run<Bk, false>(L, extra, table, p, fid, n, k,
+                                            iters, seed, sigma, mean, w_vc,
+                                            w_chk, w_marg);
     const int be = r.x, unconv = r.y, fe = be > 0;
     if (STAGE) {
       if (unconv && msgs_out)
@@ -257,35 +272,43 @@ bool plan_holds(int bucket, int warps, int frames, int m, int n, int dc,
 }  // namespace
 
 // The launch shape of mc_frames for (bucket, warps a frame, frames a
-// block, k message bits, stage): out = [resident blocks per SM, registers
-// per thread, local bytes per thread, shared bytes per block, threads per
-// block, SMs].  Returns 0, or a cudaError_t code when the shape cannot
-// launch.
+// block, k message bits, stage, table_words of G's encode tables): out =
+// [resident blocks per SM, registers per thread, local bytes per thread,
+// shared bytes per block, threads per block, SMs, tables in shared
+// memory].  The tables go to shared memory where the block keeps as many
+// resident blocks as without them.  Returns 0, or a cudaError_t code when
+// the shape cannot launch.
 extern "C" int mc_frames_occupancy(int bucket, int warps, int frames, int k,
-                                   int stage, int* out) {
+                                   int stage, int table_words, int* out) {
   if (bucket < 0 || bucket >= nms_edge::kBuckets || warps < 1 ||
       warps > nms_edge::kMaxWarps || frames < 1 ||
       frames > nms_edge::kMaxFrames)
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 32 * warps * frames;
   const size_t smem = frames_smem(bucket, warps, frames, k);
+  const size_t with_table = smem + 4 * static_cast<size_t>(table_words);
   int regs = 0, local_bytes = 0, dev = 0, sms = 0;
-  const int per_sm = nms_edge::with_bucket(bucket, [&](auto bk) {
-    using B = decltype(bk);
-    return stage ? occupancy<B, true>(threads, smem, &regs, &local_bytes)
-                 : occupancy<B, false>(threads, smem, &regs, &local_bytes);
-  });
+  auto resident = [&](size_t bytes) {
+    return nms_edge::with_bucket(bucket, [&](auto bk) {
+      using B = decltype(bk);
+      return stage ? occupancy<B, true>(threads, bytes, &regs, &local_bytes)
+                   : occupancy<B, false>(threads, bytes, &regs, &local_bytes);
+    });
+  };
+  const int per_sm = resident(smem);
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess)
     return static_cast<int>(cudaErrorInvalidValue);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const bool shared = resident(with_table) >= per_sm;
   out[0] = per_sm;
   out[1] = regs;
   out[2] = local_bytes;
-  out[3] = static_cast<int>(smem);
+  out[3] = static_cast<int>(shared ? with_table : smem);
   out[4] = threads;
   out[5] = sms;
+  out[6] = shared;
   return 0;
 }
 
@@ -293,23 +316,27 @@ extern "C" int mc_frames_occupancy(int bucket, int warps, int frames, int k,
 // of msgs_in, with msgs_in f32 (rows, dc*m), or both NULL (from scratch);
 // msgs_out: f32 (count, dc*m) or NULL (STAGE only); stat: int32 (count,)
 // for a STAGE launch, NULL for COUNT; counters: int64 (6,), zeroed by the
-// caller; gcols: uint32 (n, ceil(k/32)), bit b of word w of column v =
-// G[32w + b, v].  bucket, warps, frames: the launch plan; grid: resident
-// blocks (mc_frames_occupancy), at most enough for `count`.
+// caller; encode: int32 (n + ceil(k/32) p,), G's encode tables with p
+// parity columns (mc_frame::run).  bucket, warps, frames: the launch plan;
+// grid: resident blocks and table_shared: where the tables go (both from
+// mc_frames_occupancy); grid at most enough for `count`.
 extern "C" int mc_frames(const void* ids, const void* src, const void* msgs_in,
                          void* msgs_out, void* stat, void* counters,
                          const void* edge_col, const void* var_edges,
-                         const void* gcols, int count, int n, int m, int dc,
-                         int dv, int k, int iters, int bucket, int warps,
-                         int frames, int grid, unsigned seed, float sigma,
-                         float mean, float w_vc, float w_chk, float w_marg,
-                         void* stream) {
+                         const void* encode, int count, int n, int m, int dc,
+                         int dv, int k, int p, int iters, int bucket,
+                         int warps, int frames, int grid, int table_shared,
+                         unsigned seed, float sigma, float mean, float w_vc,
+                         float w_chk, float w_marg, void* stream) {
   if (!plan_holds(bucket, warps, frames, m, n, dc, dv) || grid < 0 ||
-      (msgs_in != nullptr) != (src != nullptr) || (msgs_out && !stat))
+      p < 0 || p > n || (msgs_in != nullptr) != (src != nullptr) ||
+      (msgs_out && !stat))
     return static_cast<int>(cudaErrorInvalidValue);
   if (count == 0 || grid == 0) return 0;
   const int threads = 32 * warps * frames;
-  const size_t smem = frames_smem(bucket, warps, frames, k);
+  const size_t smem =
+      frames_smem(bucket, warps, frames, k) +
+      (table_shared ? 4 * (static_cast<size_t>(n) + (k + 31) / 32 * p) : 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
   const int* sr = static_cast<const int*>(src);
@@ -319,7 +346,7 @@ extern "C" int mc_frames(const void* ids, const void* src, const void* msgs_in,
   auto* cnt = static_cast<unsigned long long*>(counters);
   const int* ec = static_cast<const int*>(edge_col);
   const int* ve = static_cast<const int*>(var_edges);
-  const unsigned* gc = static_cast<const unsigned*>(gcols);
+  const int* enc = static_cast<const int*>(encode);
   return nms_edge::with_bucket(bucket, [&](auto bk) {
     using B = decltype(bk);
     auto kernel = st ? mc_frames_kernel<B, true> : mc_frames_kernel<B, false>;
@@ -327,10 +354,10 @@ extern "C" int mc_frames(const void* ids, const void* src, const void* msgs_in,
     // (or an occupancy query) may have set it lower
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
-    kernel<<<grid, threads, smem, s>>>(id, sr, mi, mo, st, cnt, ec, ve, gc,
-                                       count, n, m, dc, dv, k, iters, warps,
-                                       frames, seed, sigma, mean, w_vc, w_chk,
-                                       w_marg);
+    kernel<<<grid, threads, smem, s>>>(id, sr, mi, mo, st, cnt, ec, ve, enc,
+                                       count, n, m, dc, dv, k, p, iters, warps,
+                                       frames, table_shared, seed, sigma, mean,
+                                       w_vc, w_chk, w_marg);
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -7,9 +7,11 @@
 //   K7  mc_pallas.py _mc_kernel  (entries mc_fused / fused_counters): per
 //       frame sample -> encode msg . G mod 2 -> the K6 body for T iterations
 //       -> counters [frames, frame_err, bit_err, detected, undetected].
-// Both take the parity matrix h (m, n) and, for K7, the generator matrix
-// G (k, n) as dense 0/1 float32 tensors on the card, as the TPU kernels take
-// traced arrays: nothing is derived from them on the host.
+// Both take the parity matrix h (m, n) as a dense 0/1 float32 tensor on the
+// card, as the TPU kernels take traced arrays: nothing is derived from it on
+// the host.  K7 takes the generator matrix G by its encode tables (the
+// kinds of its columns and its parity columns word-major,
+// ops/nms_edge.encode_tables), the operand of K3/K4/K8 too.
 //
 // Semantics held exactly (nms_pallas.py:46-83): the duplicate-at-minimum
 // rule (:71-78) and the zero-aware sign product (:61-69) of the shared edge
@@ -34,8 +36,8 @@
 // at most 6 frames in a Hopper block.  Instead each block derives K1's slab
 // tables from the dense mask once, at launch, into shared memory
 // (build_slab: edge_col (dc, m) and var_edges (dv, n), -1 padded), and K7
-// also G's column bit masks; then each group of lanes reads its share of
-// the tables into registers and runs the shared bodies over real edges
+// copies G's encode tables there; then each group of lanes reads its share
+// of the tables into registers and runs the shared bodies over real edges
 // only (nms_edge_body.cuh: a frame on one warp or a group of warps, each
 // check's messages in registers, frame-scoped barriers).  The block is
 // persistent: its groups walk frames blockIdx.x * frames + group,
@@ -128,7 +130,7 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
 template <class Bk>
 __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
     dense_mc_kernel(const float* __restrict__ h,
-                                const float* __restrict__ gm,
+                                const int* __restrict__ encode, int p,
                                 long long* __restrict__ partials, int count,
                                 int m, int n, int k, int dc, int dv, int iters,
                                 int warps, int frames, unsigned seed,
@@ -139,26 +141,17 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
   if (threadIdx.x < kCountWords / 2) s_count[threadIdx.x] = 0;
   int* tables = reinterpret_cast<int*>(smem_u64) + kCountWords;
   const size_t table = build_slab(h, m, n, dc, dv, tables);
-  const int kw = (k + 31) / 32;
-  // bit b of word w of column v = G[32 w + b, v]
-  unsigned* gcols = reinterpret_cast<unsigned*>(tables + table);
-  for (int i = threadIdx.x; i < n * kw; i += blockDim.x) {
-    const int v = i / kw;
-    const int w = i - v * kw;
-    unsigned word = 0;
-    for (int b = 0; b < 32; ++b) {
-      const int j = 32 * w + b;
-      if (j < k && gm[static_cast<size_t>(j) * n + v] > 0.f) word |= 1u << b;
-    }
-    gcols[i] = word;
-  }
+  // G's encode tables (mc_frame::run)
+  const int enc = n + (k + 31) / 32 * p;
+  int* s_encode = tables + table;
+  for (int i = threadIdx.x; i < enc; i += blockDim.x) s_encode[i] = encode[i];
   __syncthreads();
   const int T = 32 * warps;
   const int g = threadIdx.x / T;
   const int t = threadIdx.x - g * T;
   const size_t words = nms_edge::region_words<Bk>(T, mc_frame::extra_words(k));
-  const unsigned region = 4u * static_cast<unsigned>(
-      kCountWords + table + static_cast<size_t>(n) * kw + g * words);
+  const unsigned region =
+      4u * static_cast<unsigned>(kCountWords + table + enc + g * words);
   nms_edge::Lane<Bk> L;
   L.setup(region, tables, tables + dc * m, m, n, dc, dv, t, T, 1 + g);
   const unsigned extra =
@@ -166,7 +159,7 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
   for (long long slot = static_cast<long long>(blockIdx.x) * frames + g;
        slot < count; slot += static_cast<long long>(gridDim.x) * frames) {
     L.reset();
-    const int2 r = mc_frame::run<Bk, true>(L, extra, gcols,
+    const int2 r = mc_frame::run<Bk, true>(L, extra, s_encode, p,
                                            static_cast<int>(slot), n, k, iters,
                                            seed, sigma, mean, w_vc, w_chk,
                                            w_marg);
@@ -187,9 +180,10 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
 
 constexpr size_t kSmemLimit = 227 * 1024;
 
-// Shared bytes of a K6 (k == 0) or K7 (k message bits) block.
+// Shared bytes of a K6 (k == 0) or K7 (k message bits, p parity columns of
+// G) block.
 size_t dense_smem(int bucket, int warps, int frames, int m, int n, int dc,
-                  int dv, int k) {
+                  int dv, int k, int p) {
   size_t region = 0;
   nms_edge::with_bucket(bucket, [&](auto bk) {
     region = nms_edge::region_words<decltype(bk)>(
@@ -198,17 +192,18 @@ size_t dense_smem(int bucket, int warps, int frames, int m, int n, int dc,
   });
   size_t words = static_cast<size_t>(dc) * m + static_cast<size_t>(dv) * n +
                  frames * region;
-  if (k) words += kCountWords + static_cast<size_t>(n) * ((k + 31) / 32);
+  if (k) words += kCountWords + n + static_cast<size_t>(p) * ((k + 31) / 32);
   return 4 * words;
 }
 
 bool dense_plan_holds(int bucket, int warps, int frames, int m, int n, int dc,
-                      int dv, int k) {
+                      int dv, int k, int p) {
   const bool ok = nms_edge::with_bucket(bucket, [&](auto bk) {
                     return static_cast<int>(nms_edge::plan_holds<decltype(bk)>(
                         warps, frames, m, n, dc, dv));
                   }) == 1;
-  return ok && dense_smem(bucket, warps, frames, m, n, dc, dv, k) <= kSmemLimit;
+  return ok && p >= 0 && p <= n &&
+         dense_smem(bucket, warps, frames, m, n, dc, dv, k, p) <= kSmemLimit;
 }
 
 template <class Kernel>
@@ -228,15 +223,16 @@ int max_blocks(Kernel kernel, int threads, size_t smem) {
 
 }  // namespace
 
-// Blocks a launch of K6 (k = 0) or K7 (k message bits) with the plan
-// (bucket, warps a frame, frames a block) on an (m, n) mask of largest
-// degrees (dc, dv) runs at once on the current device: the grid of a full
-// launch (the blocks are persistent).  -1 when the plan cannot launch.
+// Blocks a launch of K6 (k = 0) or K7 (k message bits, p parity columns
+// of G) with the plan (bucket, warps a frame, frames a block) on an (m, n)
+// mask of largest degrees (dc, dv) runs at once on the current device: the
+// grid of a full launch (the blocks are persistent).  -1 when the plan
+// cannot launch.
 extern "C" int dense_max_blocks(int bucket, int warps, int frames, int m,
-                                int n, int dc, int dv, int k) {
-  if (!dense_plan_holds(bucket, warps, frames, m, n, dc, dv, k)) return -1;
+                                int n, int dc, int dv, int k, int p) {
+  if (!dense_plan_holds(bucket, warps, frames, m, n, dc, dv, k, p)) return -1;
   const int threads = 32 * warps * frames;
-  const size_t smem = dense_smem(bucket, warps, frames, m, n, dc, dv, k);
+  const size_t smem = dense_smem(bucket, warps, frames, m, n, dc, dv, k, p);
   return nms_edge::with_bucket(bucket, [&](auto bk) {
     using B = decltype(bk);
     return k ? max_blocks(dense_mc_kernel<B>, threads, smem)
@@ -251,11 +247,12 @@ extern "C" int dense_decode(const void* h, const void* llr, void* out,
                             int bucket, int warps, int frames, int blocks,
                             float w_vc, float w_chk, float w_marg,
                             void* stream) {
-  if (!dense_plan_holds(bucket, warps, frames, m, n, dc, dv, 0) || blocks < 0)
+  if (!dense_plan_holds(bucket, warps, frames, m, n, dc, dv, 0, 0) ||
+      blocks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0 || batch == 0) return 0;
   const int threads = 32 * warps * frames;
-  const size_t smem = dense_smem(bucket, warps, frames, m, n, dc, dv, 0);
+  const size_t smem = dense_smem(bucket, warps, frames, m, n, dc, dv, 0, 0);
   return nms_edge::with_bucket(bucket, [&](auto bk) {
     using B = decltype(bk);
     cudaFuncSetAttribute(dense_decode_kernel<B>,
@@ -270,19 +267,22 @@ extern "C" int dense_decode(const void* h, const void* llr, void* out,
   });
 }
 
-// h: float32 (m, n) 0/1 of largest degrees (dc, dv); g: float32 (k, n) 0/1;
+// h: float32 (m, n) 0/1 of largest degrees (dc, dv); encode: int32 (n +
+// ceil(k/32) p,), G's encode tables with p parity columns (mc_frame::run);
 // partials: int64 (blocks, 5).
-extern "C" int dense_mc(const void* h, const void* g, void* partials,
-                        int count, int m, int n, int k, int dc, int dv,
-                        int iters, int bucket, int warps, int frames,
-                        int blocks, unsigned seed, float sigma, float mean,
-                        float w_vc, float w_chk, float w_marg, void* stream) {
-  if (k < 1 || !dense_plan_holds(bucket, warps, frames, m, n, dc, dv, k) ||
+extern "C" int dense_mc(const void* h, const void* encode, int p,
+                        void* partials, int count, int m, int n, int k,
+                        int dc, int dv, int iters, int bucket, int warps,
+                        int frames, int blocks, unsigned seed, float sigma,
+                        float mean, float w_vc, float w_chk, float w_marg,
+                        void* stream) {
+  if (k < 1 ||
+      !dense_plan_holds(bucket, warps, frames, m, n, dc, dv, k, p) ||
       blocks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return 0;
   const int threads = 32 * warps * frames;
-  const size_t smem = dense_smem(bucket, warps, frames, m, n, dc, dv, k);
+  const size_t smem = dense_smem(bucket, warps, frames, m, n, dc, dv, k, p);
   return nms_edge::with_bucket(bucket, [&](auto bk) {
     using B = decltype(bk);
     cudaFuncSetAttribute(dense_mc_kernel<B>,
@@ -290,7 +290,7 @@ extern "C" int dense_mc(const void* h, const void* g, void* partials,
                          static_cast<int>(smem));
     dense_mc_kernel<B><<<blocks, threads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(h), static_cast<const float*>(g),
+        static_cast<const float*>(h), static_cast<const int*>(encode), p,
         static_cast<long long*>(partials), count, m, n, k, dc, dv, iters,
         warps, frames, seed, sigma, mean, w_vc, w_chk, w_marg);
     return static_cast<int>(cudaGetLastError());

@@ -3,8 +3,9 @@
 Port of ``short_ldpc_decoding_osd_tpu/ops/mc_pallas.py`` (``mc_fused`` :225
 and ``fused_counters`` :268 over ``_mc_kernel`` :131).  One launch runs, per
 frame: the hash sampler of ``ops/mc_hash.py`` keyed on (seed, frame id),
-exactly as K3 and K4 draw; the encode ``msg . G mod 2`` with G a dense
-(k, n) 0/1 tensor on the card; the K6 body (``ops/nms_dense.py``) for T
+exactly as K3 and K4 draw; the encode ``msg . G mod 2`` through G's encode
+tables (``nms_edge.encode_tables``, from ``codes.tables``), K3's and K4's
+encode; the K6 body (``ops/nms_dense.py``) for T
 iterations on the dense parity matrix, also a tensor on the card; and the
 counters ``[frames, frame_err, bit_err, detected, undetected]`` by the rule
 of ``mc_pallas.py:199-207``, int64 per block summed by the wrapper.
@@ -27,7 +28,7 @@ from .. import _kernels
 from .._device import resolve_device
 from ..channel.awgn import sigma_for_snr
 from ..codes import tables
-from . import mc_hash, nms, nms_dense
+from . import mc_hash, nms, nms_dense, nms_edge
 
 _LANES = 5
 # frames per plain-twin chunk: bounds the twin's (B, m, n) temporaries
@@ -74,14 +75,17 @@ def _mc_dense_kernel(weights, seed: int, h: torch.Tensor, g: torch.Tensor,
     if batch >= 2**31:
         raise ValueError(f"batch {batch} exceeds the kernel's int32 frame ids")
     m = h.shape[0]
-    dc, dv, plan = nms_dense.dense_plan(h, k)
-    blocks = min(nms_dense.max_blocks(plan, m, n, dc, dv, k, h.device.index or 0),
+    encode = tables.get(g, nms_edge.encode_tensor, h.device)
+    p = nms_edge.parity_columns(encode, n, k)
+    dc, dv, plan = nms_dense.dense_plan(h, k, p)
+    blocks = min(nms_dense.max_blocks(plan, m, n, dc, dv, k, p,
+                                      h.device.index or 0),
                  max(-(-batch // plan.frames), 1))
     partials = torch.empty((blocks, _LANES), dtype=torch.int64, device=h.device)
     status = _kernels.library("nms_dense").dense_mc(
-        h.data_ptr(), g.data_ptr(), partials.data_ptr(), batch, m, n, k, dc, dv,
-        num_iterations, plan.bucket, plan.warps, plan.frames, blocks, seed,
-        sigma, mean, *weights, _kernels.stream_handle(h.device))
+        h.data_ptr(), encode.data_ptr(), p, partials.data_ptr(), batch, m, n,
+        k, dc, dv, num_iterations, plan.bucket, plan.warps, plan.frames,
+        blocks, seed, sigma, mean, *weights, _kernels.stream_handle(h.device))
     _kernels.check(status, "dense_mc")
     _kernels.LAUNCHES["mc_dense"] += 1
     return partials.sum(0)

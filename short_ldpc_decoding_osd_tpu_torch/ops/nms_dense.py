@@ -50,16 +50,16 @@ def smem_bytes(m: int, n: int, k: int = 0) -> int:
     """The dense rung's envelope by shape, in bytes: the slab tables and one
     frame of the densest (m, n) mask (dc = n, dv = m), cv (dc, m) and two
     n-vectors, for K6 (``k == 0``) or K7 (``k`` message bits, with its
-    counters, G's column masks and the frame's bits, message words and
-    flags).  :func:`holds` keeps the rung to the shapes where this fits a
-    block; a launch sizes its block by the mask's real degrees
-    (:func:`dense_plan`)."""
+    counters, G's encode tables at their largest (no unit column) and the
+    frame's bits, message words and flags).  :func:`holds` keeps the rung
+    to the shapes where this fits a block; a launch sizes its block by the
+    mask's real degrees (:func:`dense_plan`)."""
     e = m * n
     tables = 2 + 2 * e  # dc, dv; edge_col (dc, m); var_edges (dv, n)
     frame = e + 2 * n  # cv (dc, m), total (n), llr (n)
     if k:
         kw = (k + 31) // 32
-        tables += 16 + n * kw  # block counters, G's column masks
+        tables += 16 + n + n * kw  # block counters, G's encode tables
         frame += n + kw + 2  # bits, message words, flags
     return 4 * (tables + frame)
 
@@ -119,18 +119,19 @@ def _decode_dense_plain(h: torch.Tensor, llr: torch.Tensor,
     return torch.cat(parts)
 
 
-def dense_plan(h: torch.Tensor, k: int = 0):
+def dense_plan(h: torch.Tensor, k: int = 0, p: int = 0):
     """(dc, dv, plan): the largest check and variable degrees of the mask
     ``h`` on the card and the launch plan of K6 (``k == 0``) or K7 (``k``
-    message bits) for them: the slab tables (and, for K7, the counters and
-    G's column masks) once a block, one frame region a frame.  The degrees
-    are ``codes.tables``' (read once per mask)."""
+    message bits, ``p`` parity columns of G) for them: the slab tables
+    (and, for K7, the counters and G's encode tables) once a block, one
+    frame region a frame.  The degrees are ``codes.tables``' (read once
+    per mask)."""
     dc, dv = tables.degrees(h)
     m, n = h.shape
     table, extra = dc * m + dv * n, 0
     if k:
         kw = (k + 31) // 32
-        table, extra = table + 16 + n * kw, kw + 2
+        table, extra = table + 16 + n + p * kw, kw + 2
     plan = nms_edge.launch_plan(m, n, dc, dv, extra, table)
     if plan is None:
         raise ValueError(f"no launch plan of the dense-rung kernels holds an "
@@ -140,12 +141,12 @@ def dense_plan(h: torch.Tensor, k: int = 0):
 
 @functools.lru_cache(maxsize=16)
 def max_blocks(plan: nms_edge.LaunchPlan, m: int, n: int, dc: int, dv: int,
-               k: int, device_index: int) -> int:
+               k: int, p: int, device_index: int) -> int:
     """The persistent grid of a full launch: the blocks of the plan that
     run at once on the card (``device_index`` keys the cache)."""
     del device_index  # the launch runs on the current device
     blocks = _kernels.library("nms_dense").dense_max_blocks(
-        plan.bucket, plan.warps, plan.frames, m, n, dc, dv, k)
+        plan.bucket, plan.warps, plan.frames, m, n, dc, dv, k, p)
     if blocks < 1:
         raise RuntimeError(f"dense_max_blocks({plan}, k={k}) failed")
     return blocks
@@ -177,7 +178,7 @@ def _decode_dense_kernel(h, llr, num_iterations, weights):
         raise ValueError(f"batch {batch} exceeds the kernel's int32 count")
     out = torch.empty_like(llr)
     dc, dv, plan = dense_plan(h)
-    blocks = min(max_blocks(plan, m, n, dc, dv, 0, llr.device.index or 0),
+    blocks = min(max_blocks(plan, m, n, dc, dv, 0, 0, llr.device.index or 0),
                  -(-batch // plan.frames))
     status = _kernels.library("nms_dense").dense_decode(
         h.data_ptr(), llr.data_ptr(), out.data_ptr(), batch, m, n, dc, dv,

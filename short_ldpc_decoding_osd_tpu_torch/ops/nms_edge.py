@@ -297,22 +297,43 @@ def build_rows_schedule(schedule, block_frames: int, num_iterations: int):
     return tuple(rows_schedule), num_iterations - spent
 
 
-def gen_columns(g) -> np.ndarray:
-    """(n, ceil(k/32)) int32 bit masks of G's columns: bit b of word w of
-    column v is ``G[32 w + b, v]`` (the kernels' encode operand)."""
+def encode_tables(g) -> tuple[np.ndarray, np.ndarray]:
+    """G's columns by kind, read from G: the kernels' encode operand.
+
+    ``columns`` (n,) int32: for a column of weight 1, the index j of its
+    message bit (the codeword bit is message bit j); for every other column
+    (weight 0, or 2 and more) ``~p``, with p its column of ``parity``.
+    ``parity`` (ceil(k/32), P) int32 over the P other columns in column
+    order, word-major: bit b of word w of parity column p is
+    ``G[32 w + b, v]`` for the v with ``columns[v] == ~p``, so that lanes
+    that encode neighbouring columns read neighbouring words."""
     g = np.asarray(g, dtype=np.uint8)
     k, n = g.shape
+    unit = g.sum(axis=0) == 1
+    others = np.flatnonzero(~unit)
+    columns = np.empty(n, np.int32)
+    columns[unit] = g[:, unit].argmax(axis=0)
+    columns[others] = ~np.arange(len(others), dtype=np.int32)
     kw = (k + 31) // 32
-    padded = np.zeros((kw * 32, n), np.uint64)
-    padded[:k] = g
+    padded = np.zeros((kw * 32, len(others)), np.uint64)
+    padded[:k] = g[:, others]
     weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
-    words = (padded.reshape(kw, 32, n) * weights[None, :, None]).sum(axis=1)
-    return np.ascontiguousarray(words.T.astype(np.uint32).view(np.int32))
+    words = (padded.reshape(kw, 32, -1) * weights[None, :, None]).sum(axis=1)
+    return columns, np.ascontiguousarray(words.astype(np.uint32).view(np.int32))
 
 
-def _gen_column_tensor(g, device):
-    """:func:`gen_columns` on ``device`` (a ``codes.tables`` item)."""
-    return torch.tensor(gen_columns(g), device=device)
+def encode_tensor(g, device):
+    """:func:`encode_tables` as the kernels read them, one int32 tensor on
+    ``device``: the n column kinds, then the parity words (a
+    ``codes.tables`` item)."""
+    columns, parity = encode_tables(g)
+    return torch.tensor(np.concatenate([columns, parity.ravel()]),
+                        device=device)
+
+
+def parity_columns(encode: torch.Tensor, n: int, k: int) -> int:
+    """P, the parity columns of an :func:`encode_tensor` of an (n, k) code."""
+    return (encode.numel() - n) // ((k + 31) // 32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,11 +350,16 @@ class MCSetup:
     edge_col: torch.Tensor
     var_edges: torch.Tensor
     g32: torch.Tensor  # (k, n) float32, the plain twins' encode operand
-    gcols: torch.Tensor  # (n, ceil(k/32)) int32, the kernels'
+    encode: torch.Tensor  # (n + ceil(k/32) P,) int32, the kernels'
 
     @property
     def device(self) -> torch.device:
         return self.edge_col.device
+
+    @property
+    def parity_columns(self) -> int:
+        """P: G's columns that the kernels popcount (not of weight 1)."""
+        return parity_columns(self.encode, self.h.shape[1], self.k)
 
     @property
     def plan(self) -> LaunchPlan | None:
@@ -363,7 +389,7 @@ def mc_setup(code, params: dict, variant: str, snr_db: float, seed: int,
         sigma=float(np.float32(sigma_for_snr(snr_db, code.rate))),
         seed=int(seed) & 0xFFFFFFFF, edge_col=edge_col, var_edges=var_edges,
         g32=tables.f32(code.g, dev),
-        gcols=tables.get(code.g, _gen_column_tensor, dev))
+        encode=tables.get(code.g, encode_tensor, dev))
 
 
 def _frame_errors(mc: MCSetup, soft: torch.Tensor, codeword: torch.Tensor):
@@ -429,20 +455,22 @@ def _mc_frames_plain(mc: MCSetup, iters: int, count: int, ids=None,
 
 
 @functools.lru_cache(maxsize=32)
-def mc_occupancy(plan: LaunchPlan, k: int, stage: bool,
+def mc_occupancy(plan: LaunchPlan, k: int, stage: bool, table_words: int,
                  device_index: int) -> dict:
     """The launch shape of ``mc_frames`` on the card: resident blocks per
     SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
     local (spilled) bytes per thread, shared bytes and threads per block,
-    SMs.  ``device_index`` keys the cache (the query runs on the current
-    device)."""
+    SMs, and whether G's encode tables (``table_words``) go to shared
+    memory: where they cost no resident block.  ``device_index`` keys the
+    cache (the query runs on the current device)."""
     del device_index
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     status = _kernels.library("mc_fused").mc_frames_occupancy(
-        plan.bucket, plan.warps, plan.frames, k, int(stage), ctypes.addressof(out))
+        plan.bucket, plan.warps, plan.frames, k, int(stage), table_words,
+        ctypes.addressof(out))
     _kernels.check(status, "mc_frames_occupancy")
     return dict(zip(("blocks_per_sm", "registers", "local_bytes",
-                     "smem_bytes", "threads", "sms"), out))
+                     "smem_bytes", "threads", "sms", "table_shared"), out))
 
 
 def _check_i32(name, t, count, device):
@@ -456,7 +484,9 @@ def _mc_frames_kernel(mc: MCSetup, iters: int, count: int, ids=None,
                       stage: bool = False, msgs_in=None, src=None,
                       keep: bool = False):
     """Launch ``mc_frames`` (csrc/mc_fused.cu); same contract as
-    :func:`_mc_frames_plain`."""
+    :func:`_mc_frames_plain`.  Counts G's columns of each kind, once a
+    launch: ``mc.columns_as_bit`` (unit columns, read as a message bit) and
+    ``mc.columns_encoded`` (the others, popcounted)."""
     if ids is not None:
         _check_i32("ids", ids, count, mc.device)
     if (msgs_in is None) != (src is None) or (keep and not stage):
@@ -475,7 +505,8 @@ def _mc_frames_kernel(mc: MCSetup, iters: int, count: int, ids=None,
     if plan is None:
         raise ValueError(f"no launch plan of mc_frames holds the "
                          f"{mc.h.shape} code")
-    occ = mc_occupancy(plan, mc.k, stage, mc.device.index or 0)
+    occ = mc_occupancy(plan, mc.k, stage, mc.encode.numel(),
+                       mc.device.index or 0)
     grid = min(-(-count // plan.frames), occ["blocks_per_sm"] * occ["sms"])
     lib = _kernels.library("mc_fused")
     dc, m = mc.edge_col.shape
@@ -486,13 +517,17 @@ def _mc_frames_kernel(mc: MCSetup, iters: int, count: int, ids=None,
     msgs_out = (torch.empty((count, num_edges), dtype=torch.float32,
                             device=mc.device) if keep else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    p = mc.parity_columns
     status = lib.mc_frames(
         ptr(ids), ptr(src), ptr(msgs_in), ptr(msgs_out), ptr(stat),
         counters.data_ptr(), mc.edge_col.data_ptr(), mc.var_edges.data_ptr(),
-        mc.gcols.data_ptr(), count, n, m, dc, dv, mc.k, iters, plan.bucket,
-        plan.warps, plan.frames, grid, mc.seed, mc.sigma, 1.0, *mc.weights,
+        mc.encode.data_ptr(), count, n, m, dc, dv, mc.k, p, iters,
+        plan.bucket, plan.warps, plan.frames, grid,
+        occ["table_shared"], mc.seed, mc.sigma, 1.0, *mc.weights,
         _kernels.stream_handle(mc.device))
     _kernels.check(status, "mc_frames")
+    profiling.count("mc.columns_as_bit", n - p)
+    profiling.count("mc.columns_encoded", p)
     return counters, stat, msgs_out
 
 

@@ -96,22 +96,84 @@ def test_sample_matches_golden_and_jax(code_name):
     np.testing.assert_allclose(llr.numpy(), np.asarray(jllr), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("code_name", ["ccsds_128_64", "wimax_1056_880"])
+def _mixed_g():
+    """qc_96_48's G with its rows mixed by a seeded invertible GF(2) matrix
+    (unit lower-triangular, so some columns keep weight 1) and column 5
+    zeroed: G no longer systematic, columns of weight 0, 1 and more."""
+    g = get_code("qc_96_48").g.astype(np.int64)
+    k = g.shape[0]
+    rng = np.random.default_rng(25)
+    mix = np.tril(rng.random((k, k)) < 0.08, -1).astype(np.int64) + np.eye(
+        k, dtype=np.int64)
+    mixed = (mix @ g) % 2
+    mixed[:, 5] = 0
+    return mixed.astype(np.uint8)
+
+
+# G of each case and its counts of unit columns and of the others
+_G_CASES = {
+    "ccsds_128_64": (lambda: get_code("ccsds_128_64").g, (64, 64)),
+    "wimax_1056_880": (lambda: get_code("wimax_1056_880").g, (880, 176)),
+    "qc_96_48": (lambda: get_code("qc_96_48").g, (48, 48)),
+    "wimaxlike_384_192": (lambda: get_code("wimaxlike_384_192").g, (192, 192)),
+    "mixed_qc_96_48": (_mixed_g, None),
+}
+
+
+@pytest.mark.parametrize("code_name", list(_G_CASES))
 def test_gen_columns_encode(code_name):
-    """The kernels' encode operand: popcount(msg & column mask) & 1 equals
-    msg @ G mod 2, also for k > 32 words (WiMAX k = 880)."""
-    code = get_code(code_name)
-    cols = nms_edge.gen_columns(code.g).view(np.uint32)
+    """The kernels' encode operand (``nms_edge.encode_tables``): a unit
+    column's bit read from the message words and a popcount over the
+    word-major parity table equal msg @ G mod 2 exactly, also for k > 32
+    words (WiMAX k = 880) and for a G that is not systematic."""
+    build, counts = _G_CASES[code_name]
+    g = np.asarray(build(), dtype=np.uint8)
+    k, n = g.shape
+    kw = (k + 31) // 32
+    columns, parity = nms_edge.encode_tables(g)
+    parity = parity.view(np.uint32)
+    weight = g.sum(axis=0)
+    units = int((columns >= 0).sum())
+    assert units == int((weight == 1).sum())
+    if counts is not None:
+        assert (units, n - units) == counts
+    else:
+        assert 0 < units < n and (weight == 0).any() and (weight >= 2).any()
+
+    # layout: a unit column holds the row of its one bit; the others are
+    # numbered in column order, and word w of parity column p lies at
+    # (w, p), its bit b being G[32 w + b] of that column
+    unit = columns >= 0
+    np.testing.assert_array_equal(columns[unit], g[:, unit].argmax(axis=0))
+    others = np.flatnonzero(~unit)
+    np.testing.assert_array_equal(~columns[others], np.arange(len(others)))
+    assert parity.shape == (kw, len(others)) and parity.flags.c_contiguous
+    bits = (parity[:, None, :] >> np.arange(32, dtype=np.uint32)[None, :, None]) & 1
+    np.testing.assert_array_equal(bits.reshape(kw * 32, -1)[:k], g[:, others])
+    assert not bits.reshape(kw * 32, -1)[k:].any()
+    # the kernels' operand: the column kinds, then the parity words flat,
+    # so word w of parity column p sits at n + w P + p
+    flat = nms_edge.encode_tensor(g, "cpu").numpy()
+    np.testing.assert_array_equal(flat[:n], columns)
+    np.testing.assert_array_equal(flat[n:].view(np.uint32), parity.ravel())
+    assert nms_edge.parity_columns(torch.as_tensor(flat), n, k) == len(others)
+
+    # the encode as a lane runs it, on the message words
     rng = np.random.default_rng(3)
-    msg = rng.integers(0, 2, (16, code.k))
-    kw = cols.shape[1]
+    msg = rng.integers(0, 2, (16, k))
     padded = np.zeros((16, kw * 32), np.uint64)
-    padded[:, : code.k] = msg
+    padded[:, :k] = msg
     words = (padded.reshape(16, kw, 32)
              << np.arange(32, dtype=np.uint64)).sum(-1).astype(np.uint32)
-    anded = words[:, None, :] & cols[None]  # (16, n, kw)
-    parity = np.unpackbits(anded.view(np.uint8), axis=-1).sum(-1) % 2
-    np.testing.assert_array_equal(parity, msg @ code.g.astype(np.int64) % 2)
+    code = np.empty((16, n), np.int64)
+    for v in range(n):
+        j = int(columns[v])
+        if j >= 0:
+            code[:, v] = (words[:, j >> 5] >> np.uint32(j & 31)) & 1
+        else:
+            anded = words & parity[:, ~j][None]
+            code[:, v] = np.unpackbits(anded.view(np.uint8), axis=-1).sum(-1) % 2
+    np.testing.assert_array_equal(code, msg @ g.astype(np.int64) % 2)
 
 
 # --- build_rows_schedule ----------------------------------------------------

@@ -149,6 +149,52 @@ def test_counters_walked_rows_and_real_failures(two_phase):
     assert profiling.snapshot() == {"spans": {}, "counters": {}}
 
 
+def test_cpu_step_counts_no_encode_columns():
+    """The encode's counters count launches of ``mc_frames`` on the card:
+    the CPU twins of K3's chain and of K4 add neither."""
+    with profiling.recording():
+        _step()
+        nms_edge.fused_counters_edge(
+            get_code("ccsds_128_64"), nms.init_params("NMS-1"), "NMS-1", 4,
+            3.0, 64, seed=3, device="cpu")
+    counters = profiling.snapshot()["counters"]
+    assert "mc.columns_as_bit" not in counters
+    assert "mc.columns_encoded" not in counters
+
+
+@pytest.mark.parametrize("status", [0, 719])
+def test_launch_counts_encode_columns(monkeypatch, status):
+    """Each ``mc_frames`` launch that succeeded adds G's unit columns to
+    ``mc.columns_as_bit`` and the others to ``mc.columns_encoded`` (WiMAX:
+    880 and 176); a refused launch raises and counts nothing.  The launch
+    is a stand-in: there is no card here."""
+    code = get_code("wimax_1056_880")
+    mc = nms_edge.mc_setup(code, nms.init_params("NMS-1"), "NMS-1", 4.0, 1,
+                           "cpu")
+    launched = []
+
+    class Library:
+        def mc_frames(self, *args):
+            launched.append(args)
+            return status
+
+    monkeypatch.setattr(nms_edge._kernels, "library", lambda name: Library())
+    monkeypatch.setattr(nms_edge._kernels, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(nms_edge, "mc_occupancy", lambda *a: {
+        "blocks_per_sm": 1, "sms": 132, "table_shared": 1})
+    with profiling.recording():
+        for _ in range(2):
+            if status:
+                with pytest.raises(RuntimeError, match="cudaError 719"):
+                    nms_edge._mc_frames_kernel(mc, 4, 1024)
+            else:
+                nms_edge._mc_frames_kernel(mc, 4, 1024)
+    assert len(launched) == 2
+    want = {} if status else {"mc.columns_as_bit": 2 * 880,
+                              "mc.columns_encoded": 2 * 176}
+    assert profiling.snapshot()["counters"] == want
+
+
 def test_recording_into_a_record_of_its_own(two_phase):
     """``stage_times`` times one round by its spans and leaves the shared
     record as it was."""
