@@ -36,16 +36,16 @@ def system_numbers(ref, args, seed: int, index: int, mode: str = "tf32") -> dict
     """Round ``index`` of the control in the system's place, judged."""
     from gpubench.reference import decode, judge, osd, sampling
 
+    decoder = ref["decoder"]
     iters, cap = args["iters"], args["cap"]
     llr_all, words = sampling.awgn_round(seed, index, ref["g"], args["cap_b"],
                                          ref["sigma"])
-    soft = decode.decode(llr_all, ref["tables"], iters, ref["weights"], {iters})[iters]
+    soft = decoder.soft_outputs(llr_all, ref, iters, {iters})[iters]
     bit_err, detected = decode.frame_stats(soft, words, ref["tables"].h)
     counters = torch.tensor(decode.count(bit_err, detected))
     rows = decode.capture(detected, cap)
     llr, labels = llr_all[rows].contiguous(), words[rows]
-    soft = decode.decode(llr, ref["tables"], iters, ref["weights"],
-                         set(range(iters + 1)))
+    soft = decoder.soft_outputs(llr, ref, iters, set(range(iters + 1)))
     traj = torch.stack([soft[i] for i in range(iters + 1)], 0)
     _, det = decode.frame_stats(traj[iters], labels, ref["tables"].h)
     refined = osd.refine(traj.permute(1, 0, 2), ref["taps"], ref["bias"], mode)
@@ -65,12 +65,9 @@ def system_numbers(ref, args, seed: int, index: int, mode: str = "tf32") -> dict
                         ref["w1"], ref["w2"], args["window"],
                         args["soft_margin"], mode)
     args = dict(args, seed=seed)
-    nums = {
-        "capture_mismatch": judge.capture_numbers(
-            ref, args, index, counters, detected.sum(), llr, labels),
-        "redecode_mismatch": judge.redecode_numbers(
-            ref, args, llr, labels, traj, det),
-    }
+    nums = decoder.capture_numbers(ref, args, index, counters,
+                                   detected.sum(), llr, labels)
+    nums |= decoder.redecode_numbers(ref, args, llr, labels, traj, det)
     nums |= judge.stage_numbers(ref, args, llr, labels, traj, refined,
                                 types.SimpleNamespace(**prep), minima, argmins,
                                 dec["success"], dec["strict_success"])

@@ -15,6 +15,7 @@ import importlib
 import importlib.util
 import json
 import os
+import re
 import sys
 import types
 
@@ -60,16 +61,30 @@ def find_cell(root: str, name: str) -> types.SimpleNamespace:
                                  per_layer=per_layer)
 
 
+def _load(path: str, module_name: str) -> types.ModuleType:
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def metric_reader(name: str):
     """``read(ctx) -> float | None`` of ``metrics/<name>.py``."""
     path = os.path.join(BENCH_DIR, "metrics", name + ".py")
     if not os.path.exists(path):
         raise SpecError(f"no reader {path}")
-    spec = importlib.util.spec_from_file_location(
-        "gpubench.metrics." + name.replace(".", "_"), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(path, "gpubench.metrics." + name.replace(".", "_")).read
+
+
+def decoder(variant: str) -> types.ModuleType:
+    """The module of ``reference/variants/<variant>.py``: the judge's view
+    of the configuration's phase-1 decoder (``reference/setup.py`` lists
+    what it holds)."""
+    path = os.path.join(BENCH_DIR, "reference", "variants", variant + ".py")
+    if not os.path.exists(path):
+        raise SpecError(f"no decoder {path} for the variant {variant!r}")
+    return _load(path, "gpubench.reference.variants."
+                 + re.sub(r"[.-]", "_", variant))
 
 
 def forbidden_modules(names=None) -> list[str]:

@@ -76,18 +76,17 @@ def run(cell, tracer) -> dict:
     args = {"seed": cell.seed, "cap_b": tr["cap_b"], "cap": tr["cap"],
             "iters": int(cfg["num_iterations"]), "window": int(cfg["window"]),
             "soft_margin": float(cfg["soft_margin"])}
+    decoder = ref["decoder"]
     per_unit, notes, ties, counts = [], [], 0, []
     for i in checked:
         k = kept.pop(i)
         counters, buf = k["capture"]
         out, refined, detected = k["phase2"]
         minima, argmins = k["minima"]
-        nums = {
-            "capture_mismatch": judge.capture_numbers(
-                ref, args, i, counters, buf["count"], buf["llr"], buf["labels"]),
-            "redecode_mismatch": judge.redecode_numbers(
-                ref, args, buf["llr"], buf["labels"], k["traj"], detected),
-        }
+        nums = decoder.capture_numbers(ref, args, i, counters, buf["count"],
+                                       buf["llr"], buf["labels"])
+        nums |= decoder.redecode_numbers(ref, args, buf["llr"], buf["labels"],
+                                         k["traj"], detected)
         nums |= judge.stage_numbers(
             ref, args, buf["llr"], buf["labels"], k["traj"], refined,
             k["prep"], minima, argmins, out["success"], out["strict_success"])

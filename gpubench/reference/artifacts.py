@@ -48,8 +48,9 @@ def softplus_f32(x: float) -> float:
 
 def load_run(root: str, config: dict) -> dict:
     """What the reference needs of a configuration: the parity matrix
-    ``h`` (uint8), the check weight ``w_chk``, the DIA's conv kernels and
-    head, the stopper's two kernels and the decoding path."""
+    ``h`` (uint8), the decoder's raw parameters ``nms`` (its variant's file
+    reads them), the DIA's conv kernels and head, the stopper's two
+    kernels and the decoding path."""
     run_dir = os.path.join(root, config["run_dir"])
     with np.load(os.path.join(root, config["parity_file"])) as blob:
         h = blob["h"].astype(np.uint8)
@@ -61,7 +62,7 @@ def load_run(root: str, config: dict) -> dict:
     p = dia["params"]
     return {
         "h": h,
-        "w_chk": softplus_f32(float(np.asarray(nms["check"]).reshape(-1)[0])),
+        "nms": nms,
         "conv": [np.asarray(p[f"conv{i}"]["kernel"], np.float64)
                  for i in (1, 2, 3)],
         "head_kernel": np.asarray(p["head"]["kernel"], np.float64),

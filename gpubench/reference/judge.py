@@ -7,11 +7,9 @@ system gave the stage before it (its captured rows, its re-decode, its
 refinement, its preparation, its minima), so that a difference in one
 stage is read in that stage and nowhere else:
 
-* ``capture_mismatch``: counters, the failure count, and captured rows
-  (LLR bits or sent word) that differ from the reference's draw, decode
-  and capture rule;
-* ``redecode_mismatch``: re-decode trajectory values (bit for bit) and
-  detected flags that differ;
+* the capture and the re-decode: the numbers of the configuration's
+  decoder, from its file ``variants/<variant>.py`` (``ref["decoder"]``;
+  NMS-1's ``capture_mismatch`` and ``redecode_mismatch``);
 * ``dia_gap``: the largest ``|refined - ref| / (1 + |ref|)``;
 * ``prepare_mismatch``: rows whose column order (of the refined values,
   the channel LLRs and the labels), hard decisions (of both), channel
@@ -26,14 +24,16 @@ stage is read in that stage and nowhere else:
   the success threshold in the reference (counted as ``walk_ties``).
 
 A fused Monte-Carlo step is judged by ``counter_mismatch``: the summed
-absolute difference of its six counters from ``reference_counters``.
+absolute difference of its six counters from ``reference_counters``, by
+the decoder's counters rule.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import decode, osd, sampling
+from ..core import SpecError
+from . import osd, sampling
 
 TIE = 1e-5
 
@@ -48,36 +48,6 @@ def rows_per_block(n_rows: int, budget_elems: int, width: int) -> int:
     """Rows a block of a blocked computation whose rows are ``width``
     elements wide, within ``budget_elems``."""
     return max(1, min(n_rows, budget_elems // max(width, 1)))
-
-
-def capture_numbers(ref, cell, index: int, counters, count, llr, labels):
-    """The capture of round ``index``: the reference draws, decodes and
-    captures the round again from the seed."""
-    h = ref["tables"].h
-    llr_all, words = sampling.awgn_round(cell["seed"], index, ref["g"],
-                                         cell["cap_b"], ref["sigma"])
-    soft = decode.decode(llr_all, ref["tables"], cell["iters"],
-                         ref["weights"], {cell["iters"]})[cell["iters"]]
-    bit_err, detected = decode.frame_stats(soft, words, h)
-    want = decode.count(bit_err, detected)
-    rows = decode.capture(detected, cell["cap"])
-    got = [int(x) for x in counters.tolist()]
-    bad = sum(int(a != b) for a, b in zip(got, want)) + int(int(count) != int(detected.sum()))
-    bad += int(((llr.view(torch.int32) != llr_all[rows].view(torch.int32)).any(1)
-                | (labels.to(torch.int32) != words[rows]).any(1)).sum())
-    return bad
-
-
-def redecode_numbers(ref, cell, llr, labels, traj, detected):
-    """The re-decode of the captured rows: ``traj`` (T+1, B, n) and the
-    detected flags of its last slot."""
-    iters = cell["iters"]
-    soft = decode.decode(llr, ref["tables"], iters, ref["weights"],
-                         set(range(iters + 1)))
-    want = torch.stack([soft[i] for i in range(iters + 1)], 0)
-    bad = int((traj.contiguous().view(torch.int32) != want.view(torch.int32)).sum())
-    _, det = decode.frame_stats(want[iters], labels, ref["tables"].h)
-    return bad + int((det != detected).sum())
 
 
 def stage_numbers(ref, cell, llr, labels, traj, refined, prep, minima,
@@ -141,6 +111,10 @@ def reference_counters(ref, cell, seed: int):
     """The six counters of the fused step of 32-bit seed ``seed`` by the
     reference's rule, with the frame-iterations and decisions its frames
     need (for the roofline)."""
+    rule = getattr(ref["decoder"], "counters", None)
+    if rule is None:
+        raise SpecError(f"the decoder {ref['decoder'].__file__} has no "
+                        "counters rule for a fused step")
     total = [0] * 6
     frame_iters = closings = 0
     chunk = ref["chunk"]
@@ -148,9 +122,8 @@ def reference_counters(ref, cell, seed: int):
         fid = torch.arange(start, min(cell["batch"], start + chunk),
                            dtype=torch.int64, device=ref["g"].device)
         codeword, llr = sampling.hash_frames(fid, seed, ref["g"], ref["sigma"])
-        c, fi, cl = decode.compact_counters(
-            codeword, llr, ref["tables"], cell["iters"], ref["weights"],
-            cell["schedule"], cell["block_frames"], ref.get("round_fn"))
+        c, fi, cl = rule(codeword, llr, ref, cell["iters"], cell["schedule"],
+                         cell["block_frames"], ref.get("round_fn"))
         total = [a + b for a, b in zip(total, c)]
         frame_iters += fi
         closings += cl

@@ -1,20 +1,36 @@
 """The reference's view of one cell: its tables on a device, built from the
-configuration's raw files alone."""
+configuration's raw files alone.
+
+The phase-1 decoder is the configuration's ``variant``, judged by the file
+``variants/<variant>.py`` (``core.decoder``), which holds:
+
+* ``weights(nms_params)``: the decoder's parameters, from the run's raw
+  ``nms_params.pkl``;
+* ``soft_outputs(llr, ref, iters, slots, round_fn=None)``: {slot: (B, n)
+  f32} soft outputs after each iteration in ``slots``, the controls'
+  decode in the system's place;
+* ``capture_numbers(ref, cell, index, counters, count, llr, labels)`` and
+  ``redecode_numbers(ref, cell, llr, labels, traj, detected)``: the
+  capture and the re-decode checks, each ``{number name: value}`` with a
+  limit of each name in the cell's checks file;
+* for a phase-1 cell, ``counters(codeword, llr, ref, iters, schedule,
+  block_frames, round_fn=None)``: the fused step's rule.
+"""
 
 from __future__ import annotations
 
 import torch
 
+from ..core import decoder
 from . import artifacts, codes, osd, sampling
 from .decode import Tables
 
 
 def build(root: str, config: dict, traffic: dict, device, round_fn=None) -> dict:
     """Everything the judge needs: the code's tables, generator and channel
-    sigma, the decoder weights, the DIA filter, the stopper, the TEP table
-    and the memory budgets of the blocked computations."""
-    if config["variant"] != "NMS-1":
-        raise ValueError(f"the reference decodes NMS-1, not {config['variant']}")
+    sigma, the decoder's module and weights, the DIA filter, the stopper,
+    the TEP table and the memory budgets of the blocked computations."""
+    dec = decoder(config["variant"])
     run = artifacts.load_run(root, config)
     h = run["h"]
     g = codes.generator(h)
@@ -33,7 +49,8 @@ def build(root: str, config: dict, traffic: dict, device, round_fn=None) -> dict
         "g": torch.as_tensor(g, dtype=torch.float32, device=device),
         "k": k,
         "sigma": sampling.sigma_for_snr(float(traffic["snr_db"]), k / n),
-        "weights": (1.0, run["w_chk"], 1.0),
+        "decoder": dec,
+        "weights": dec.weights(run["nms"]),
         "taps": taps,
         "bias": bias,
         "w1": run["w1"],

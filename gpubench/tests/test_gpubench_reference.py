@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from gpubench import roofline
+from gpubench import core, roofline
 from gpubench.reference import artifacts, codes, osd, sampling
 from short_ldpc_decoding_osd_tpu_torch.channel.awgn import ChannelSpec, sample_batch
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
@@ -59,7 +59,7 @@ def test_artifacts_match_the_port(name):
     run = artifacts.load_run(ROOT, cfg)
     port = load_run(os.path.join(ROOT, RUNS[name]), "cpu")
     w = torch.nn.functional.softplus(port["nms_params"]["check"])[0]
-    assert run["w_chk"] == float(w)
+    assert core.decoder("NMS-1").weights(run["nms"]) == (1.0, float(w), 1.0)
     taps, bias = osd.dia_filter(run["conv"], run["head_kernel"], run["head_bias"], 13)
     want_taps, want_bias = port["dia"].effective_filter()
     assert np.allclose(taps, want_taps.numpy(), rtol=1e-5, atol=1e-6)

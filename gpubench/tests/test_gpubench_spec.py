@@ -1,12 +1,15 @@
 """BENCHMARK.json against the files under gpubench/: every cell, metric and
-configuration is found by name, and a cell can be added by files alone."""
+configuration is found by name, and a cell or a decoder can be added by
+files alone."""
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+import types
 
 import pytest
 import torch
@@ -77,6 +80,141 @@ def test_new_cell_needs_files_only(tmp_path, monkeypatch):
     assert set(line["metrics"]) == {"system_cw_per_s", "setup_s"}
 
 
+# a second decoder as a later configuration brings it: NMS-r, judged here by
+# the port's plain dense decoder (a stand-in, never shipped: the reference
+# imports nothing of the port), under numbers of its own
+STAND_IN = '''"""NMS-r, a stand-in: the port's plain dense decoder."""
+import numpy as np
+import torch
+
+from gpubench.reference import decode, sampling
+from short_ldpc_decoding_osd_tpu_torch.ops import nms
+
+
+def weights(nms_params):
+    return {k: torch.as_tensor(np.asarray(v, np.float32))
+            for k, v in nms_params.items()}
+
+
+def soft_outputs(llr, ref, iters, slots, round_fn=None):
+    h = ref["tables"].h
+    edge_cols = nms.edge_columns(h.cpu().numpy().astype(np.uint8))
+    traj = nms.decode(ref["weights"], h, llr, iters, "NMS-r", edge_cols)
+    return {s: traj[s] for s in slots}
+
+
+def capture_numbers(ref, cell, index, counters, count, llr, labels):
+    iters = cell["iters"]
+    llr_all, words = sampling.awgn_round(cell["seed"], index, ref["g"],
+                                         cell["cap_b"], ref["sigma"])
+    soft = soft_outputs(llr_all, ref, iters, {iters})[iters]
+    bit_err, detected = decode.frame_stats(soft, words, ref["tables"].h)
+    rows = decode.capture(detected, cell["cap"])
+    bad = sum(int(a != b) for a, b in
+              zip(counters.tolist(), decode.count(bit_err, detected)))
+    bad += int(int(count) != int(detected.sum()))
+    bad += int(((llr != llr_all[rows]).any(1)
+                | (labels.to(torch.int32) != words[rows]).any(1)).sum())
+    return {"capture_differ": bad}
+
+
+def redecode_numbers(ref, cell, llr, labels, traj, detected):
+    iters = cell["iters"]
+    soft = soft_outputs(llr, ref, iters, set(range(iters + 1)))
+    want = torch.stack([soft[i] for i in range(iters + 1)], 0)
+    gap = float(((traj - want).abs() / (1.0 + want.abs())).max())
+    _, det = decode.frame_stats(want[iters], labels, ref["tables"].h)
+    return {"redecode_gap": gap, "detected_differ": int((det != detected).sum())}
+'''
+
+
+def _nmsr_cell(root):
+    """A configuration whose variant is NMS-r and a system cell of it,
+    added to the copy at ``root`` by files alone."""
+    run_dir = root / "runs_nmsr"
+    run_dir.mkdir()
+    base = os.path.join(ROOT, "runs", "r4_pipeline")
+    for fname in ("dia_model_cnn.pkl", "stopper_params.pkl", "decoding_path.json"):
+        shutil.copy(os.path.join(base, fname), run_dir)
+    shutil.copy(os.path.join(ROOT, "runs", "r5_variants_nmsr", "nms_params.pkl"),
+                run_dir)
+    run_cfg = json.load(open(os.path.join(base, "config.json")))
+    (run_dir / "config.json").write_text(json.dumps(dict(run_cfg, variant="NMS-r")))
+    bench = root / "gpubench"
+    cfg = json.load(open(bench / "configs" / "ccsds_128_64.json"))
+    cfg.update(name="ccsds_128_64_nmsr", variant="NMS-r", run_dir="runs_nmsr")
+    (bench / "configs" / "ccsds_128_64_nmsr.json").write_text(json.dumps(cfg))
+    traffic = {"kind": "system", "snr_db": 3.0, "cap_b": 1024, "cap": 32,
+               "warmup_rounds": 1, "checked_rounds": 1, "check_within": 1}
+    (bench / "traffic" / "ccsds-nmsr-system-3.0dB.json").write_text(json.dumps(traffic))
+    limits = json.load(open(bench / "checks" / "ccsds-system-3.0dB.json"))
+    del limits["capture_mismatch"], limits["redecode_mismatch"]
+    limits |= {"capture_differ": 0, "redecode_gap": 1e-6, "detected_differ": 0}
+    (bench / "checks" / "ccsds-nmsr-system-3.0dB.json").write_text(json.dumps(limits))
+    spec = json.load(open(root / "BENCHMARK.json"))
+    spec["configs"].append({"name": "ccsds_128_64_nmsr",
+                            "source": "https://arxiv.org/abs/2404.14165",
+                            "file": "gpubench/configs/ccsds_128_64_nmsr.json",
+                            "reduced": [], "why": "a second decoder"})
+    spec["workloads"].append({"name": "ccsds-nmsr-system-3.0dB",
+                              "config": "ccsds_128_64_nmsr",
+                              "traffic": "ccsds-nmsr-system-3.0dB", "chips": 1,
+                              "why": "a second decoder"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "ccsds-system-3.0dB" in m.get("workloads", []):
+            m["workloads"].append("ccsds-nmsr-system-3.0dB")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return "ccsds-nmsr-system-3.0dB"
+
+
+def test_new_decoder_needs_its_file_only(tmp_path, monkeypatch):
+    root = _bench_copy(tmp_path)
+    for name in ("short_ldpc_decoding_osd_tpu_torch", "runs"):
+        os.symlink(os.path.join(ROOT, name), root / name)
+    name = _nmsr_cell(root)
+    (root / "gpubench" / "reference" / "variants" / "NMS-r.py").write_text(STAND_IN)
+    monkeypatch.setattr(core, "BENCH_DIR", str(root / "gpubench"))
+    line = core.run_cell(str(root), name, 7, 0.2, False, time.perf_counter(),
+                         device=torch.device("cpu"))
+    assert line["correct"] and line["attempted"] >= 1, line["checks"]
+    assert set(line["metrics"]) == {"system_cw_per_s", "setup_s"}
+    assert {"capture_differ", "redecode_gap", "detected_differ",
+            "walk_mismatch"} <= set(line["checks"])
+
+
+def test_missing_decoder_file_fails(tmp_path, monkeypatch):
+    """A cell whose variant has no decoder file gives no result line."""
+    root = _bench_copy(tmp_path)
+    for name in ("short_ldpc_decoding_osd_tpu_torch", "runs"):
+        os.symlink(os.path.join(ROOT, name), root / name)
+    name = _nmsr_cell(root)
+    monkeypatch.setattr(core, "BENCH_DIR", str(root / "gpubench"))
+    want = os.path.join(str(root / "gpubench"), "reference", "variants", "NMS-r.py")
+    with pytest.raises(core.SpecError, match=re.escape(want)):
+        core.run_cell(str(root), name, 7, 0.1, False, time.perf_counter(),
+                      device=torch.device("cpu"))
+
+
+def test_fused_step_needs_a_counters_rule():
+    from gpubench.reference import judge
+
+    ref = {"decoder": types.SimpleNamespace(__file__="NMS-x.py")}
+    with pytest.raises(core.SpecError, match="counters rule"):
+        judge.reference_counters(ref, {"batch": 1024}, 1)
+
+
+@pytest.mark.parametrize("name", [c["name"] for c in SPEC["configs"]])
+def test_config_has_its_decoder_file(name):
+    entry = {c["name"]: c for c in SPEC["configs"]}[name]
+    cfg = json.load(open(os.path.join(ROOT, entry["file"])))
+    dec = core.decoder(cfg["variant"])
+    for fn in ("weights", "soft_outputs", "capture_numbers", "redecode_numbers"):
+        assert callable(getattr(dec, fn)), fn
+    phase1 = [w for w in SPEC["workloads"] if w["config"] == name
+              and core.find_cell(ROOT, w["name"]).traffic["kind"] == "phase1"]
+    assert not phase1 or callable(dec.counters)
+
+
 def _run(args, cwd):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     return subprocess.run([sys.executable, "gpubench/run.py", *args], cwd=cwd,
@@ -122,10 +260,11 @@ def test_forbidden_names_compare_whole():
 def test_reference_imports_nothing_of_the_port():
     import ast
     ref_dir = os.path.join(ROOT, "gpubench", "reference")
-    for fname in os.listdir(ref_dir):
-        if not fname.endswith(".py"):
-            continue
-        tree = ast.parse(open(os.path.join(ref_dir, fname)).read())
+    files = [os.path.join(d, f) for d, _, names in os.walk(ref_dir)
+             for f in names if f.endswith(".py")]
+    assert os.path.join(ref_dir, "variants", "NMS-1.py") in files
+    for fname in files:
+        tree = ast.parse(open(fname).read())
         for node in ast.walk(tree):
             names = []
             if isinstance(node, ast.Import):
@@ -136,9 +275,14 @@ def test_reference_imports_nothing_of_the_port():
                 assert name.split(".")[0] in ("torch", "numpy", "json", "os",
                                               "pickle", "math", "itertools",
                                               "__future__"), (fname, name)
+    variants = sorted(f[:-3] for f in os.listdir(os.path.join(ref_dir, "variants"))
+                      if f.endswith(".py"))
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import gpubench.reference.setup, gpubench.reference.judge\n"
-            "print(sorted(m for m in sys.modules if m.startswith('short_ldpc')))\n" % ROOT)
+            "from gpubench import core\n"
+            "for v in %r:\n    core.decoder(v)\n"
+            "print(sorted(m for m in sys.modules if m.startswith('short_ldpc')))\n"
+            % (ROOT, variants))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -168,8 +312,6 @@ def _events(spans: dict[str, list[tuple[float, float]]]) -> list[dict]:
 
 
 def _system_ctx(summary):
-    import types
-
     import numpy
 
     cell = core.find_cell(ROOT, "ccsds-system-3.0dB")
