@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from .._device import full_f32
 from ..codes import tables
+from ..utils import profiling
 
 VARIANTS = ("NMS-1", "NMS-2", "NMS-3", "NMS-r", "ENMS")
 
@@ -151,20 +152,26 @@ def _check_update_minsum(vc, h, w_chk):
 @full_f32()
 def _check_update_neural(vc, h, params, edge_cols):
     """NMS-r: per edge, the sorted magnitudes of the row's other dc-1 edges
-    through a non-negative 2-layer linear NN."""
+    through a non-negative 2-layer linear NN.  Span ``nmsr.check`` around
+    ``nmsr.sort`` and ``nmsr.net``, and counter ``nmsr.edge_updates``, as
+    the padded layout's update records them."""
     m, dc = edge_cols.shape
-    _, edge_sign = _row_sign_parity(vc, h)
-    cols = torch.as_tensor(edge_cols, device=vc.device)
-    compact = torch.gather(
-        vc.abs(), 2, cols[None].expand(vc.shape[0], m, dc)
-    )  # (B, m, dc)
-    loo_idx = torch.tensor(
-        [[q for q in range(dc) if q != p] for p in range(dc)], device=vc.device
-    )
-    loo = torch.sort(compact[:, :, loo_idx], dim=-1).values  # (B, m, dc, dc-1)
-    mags = ((loo @ params["nn_w1"]) @ params["nn_w2"])[..., 0]  # (B, m, dc)
-    dense = torch.zeros_like(vc).scatter(2, cols[None].expand_as(mags), mags)
-    return dense * edge_sign.detach()
+    with profiling.span("nmsr.check"):
+        profiling.count("nmsr.edge_updates", vc.shape[0] * m * dc)
+        _, edge_sign = _row_sign_parity(vc, h)
+        cols = torch.as_tensor(edge_cols, device=vc.device)
+        with profiling.span("nmsr.sort"):
+            compact = torch.gather(
+                vc.abs(), 2, cols[None].expand(vc.shape[0], m, dc)
+            )  # (B, m, dc)
+            loo_idx = torch.tensor(
+                [[q for q in range(dc) if q != p] for p in range(dc)],
+                device=vc.device)
+            loo = torch.sort(compact[:, :, loo_idx], dim=-1).values  # (B, m, dc, dc-1)
+        with profiling.span("nmsr.net"):
+            mags = ((loo @ params["nn_w1"]) @ params["nn_w2"])[..., 0]  # (B, m, dc)
+        dense = torch.zeros_like(vc).scatter(2, cols[None].expand_as(mags), mags)
+        return dense * edge_sign.detach()
 
 
 def _iterate(params, h, llr, num_iterations, variant, edge_cols, keep_all):

@@ -30,6 +30,7 @@ import torch
 
 from .._device import full_f32
 from ..codes import tables
+from ..utils import profiling
 from . import nms, nms_dense, nms_edge
 
 __all__ = ["edge_layout", "supports", "auto_select", "train_select",
@@ -141,12 +142,20 @@ def _check_update_neural_edge(vc, real, params, loo_idx):
     so no padding).  The NN runs on the (B, m, dc, dc-1) view, as the
     dense update does, so the sort and the products run on the last axis.
     The sort is not stable: its values are the same, and on CUDA a stable
-    sort of this shape takes about four times as long."""
-    edge_sign = _row_signs(vc, real)
-    rows = vc.abs().transpose(1, 2)  # (B, m, dc)
-    loo = torch.sort(rows[:, :, loo_idx], dim=-1).values
-    mags = ((loo @ params["nn_w1"]) @ params["nn_w2"])[..., 0]  # (B, m, dc)
-    return mags.transpose(1, 2) * edge_sign.detach()
+    sort of this shape takes about four times as long.
+
+    Span ``nmsr.check``, around spans ``nmsr.sort`` (the gather and the
+    leave-one-out sort) and ``nmsr.net`` (the two products); counts the
+    edges updated, ``nmsr.edge_updates``."""
+    with profiling.span("nmsr.check"):
+        profiling.count("nmsr.edge_updates", vc.numel())
+        edge_sign = _row_signs(vc, real)
+        with profiling.span("nmsr.sort"):
+            rows = vc.abs().transpose(1, 2)  # (B, m, dc)
+            loo = torch.sort(rows[:, :, loo_idx], dim=-1).values
+        with profiling.span("nmsr.net"):
+            mags = ((loo @ params["nn_w1"]) @ params["nn_w2"])[..., 0]  # (B, m, dc)
+        return mags.transpose(1, 2) * edge_sign.detach()
 
 
 def _build(params, h, variant, device):
@@ -188,7 +197,8 @@ def decode_edge_padded(params: dict, h, llr: torch.Tensor,
                        ) -> torch.Tensor:
     """(T+1, B, n) per-iteration soft outputs (slot 0 = channel input), the
     contract of ``nms.decode`` (JAX ``decode_edge_xla`` :225).  ``h`` is the
-    host (m, n) 0/1 parity matrix."""
+    host (m, n) 0/1 parity matrix.  Counts its frames, ``padded.frames``."""
+    profiling.count("padded.frames", llr.shape[0])
     update, soft_of, shape, w_vc = _build(params, h, variant, llr.device)
     weighted_in = w_vc * llr
     cv = llr.new_zeros((llr.shape[0],) + shape)
@@ -203,7 +213,8 @@ def decode_final_edge_padded(params: dict, h, llr: torch.Tensor,
                              num_iterations: int, variant: str = "NMS-1"
                              ) -> torch.Tensor:
     """Last-iteration soft output (B, n) only (JAX
-    ``decode_final_edge_xla`` :241)."""
+    ``decode_final_edge_xla`` :241); counts its frames, ``padded.frames``."""
+    profiling.count("padded.frames", llr.shape[0])
     update, soft_of, shape, w_vc = _build(params, h, variant, llr.device)
     weighted_in = w_vc * llr
     cv = llr.new_zeros((llr.shape[0],) + shape)

@@ -14,7 +14,7 @@ import torch
 
 from short_ldpc_decoding_osd_tpu_torch import system
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
-from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge
+from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge, nms_edge_padded
 from short_ldpc_decoding_osd_tpu_torch.utils import profiling
 
 from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
@@ -236,3 +236,79 @@ def test_outputs_bit_identical_with_recording(two_phase, unit):
     for a, b in zip(off, on):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
+
+
+def _nmsr_decode(route, batch=16, iters=3):
+    code = get_code("ccsds_128_64")
+    params = nms.init_params("NMS-r", code.h, seed=1)
+    llr = torch.randn((batch, code.n), generator=torch.Generator().manual_seed(2)) + 1.0
+    if route == "padded":
+        return nms_edge_padded.decode_edge_padded(params, code.h, llr, iters, "NMS-r")
+    if route == "padded_final":
+        return nms_edge_padded.decode_final_edge_padded(params, code.h, llr, iters,
+                                                        "NMS-r")
+    return nms.decode(params, code.h, llr, iters, "NMS-r", nms.edge_columns(code.h))
+
+
+@pytest.mark.parametrize("route", ["padded", "padded_final", "dense"])
+def test_nmsr_spans_and_counters(route):
+    """NMS-r's check update is span ``nmsr.check`` around ``nmsr.sort`` and
+    ``nmsr.net``, once an iteration; ``nmsr.edge_updates`` counts frames x
+    512 edges x iterations, and ``padded.frames`` each padded decode's
+    frames."""
+    with profiling.recording():
+        _nmsr_decode(route, batch=16, iters=3)
+    snap = profiling.snapshot()
+    spans = snap["spans"]
+    assert set(spans) == {"nmsr.check", "nmsr.sort", "nmsr.net"}
+    assert spans["nmsr.check"]["calls"] == 3
+    assert spans["nmsr.check"]["parents"] == {None: 3}
+    for name in ("nmsr.sort", "nmsr.net"):
+        assert spans[name]["parents"] == {"nmsr.check": 3}, name
+        assert spans[name]["seconds"] <= spans["nmsr.check"]["seconds"]
+    want = {"nmsr.edge_updates": 16 * 512 * 3}
+    if route != "dense":
+        want["padded.frames"] = 16
+    assert snap["counters"] == want
+
+
+@pytest.mark.parametrize("route", ["padded", "padded_final", "dense"])
+def test_nmsr_off_records_nothing(route, monkeypatch):
+    """Outside ``recording()`` NMS-r's update opens no range, synchronises
+    nothing and counts nothing, and its outputs are the same bit for bit."""
+    with profiling.recording(synchronize=torch.device("cpu")):
+        on = _nmsr_decode(route)
+    profiling.reset()
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("called while nothing records")
+
+    monkeypatch.setattr(profiling, "record_function", forbidden)
+    monkeypatch.setattr(profiling, "synchronize", forbidden)
+    monkeypatch.setattr(profiling, "_Span", forbidden)
+    off = _nmsr_decode(route)
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
+    assert torch.equal(on, off)
+
+
+def test_nmsr_round_counts_its_updates(tmp_path):
+    """A two-phase round of an NMS-r run directory records the update
+    inside both the capture's decode and the re-decode: frames x 512 x
+    iterations each (the CPU takes the dense decoders, so no padded
+    frames)."""
+    import shutil
+
+    root = system._ROOT
+    for name in ("dia_model_cnn.pkl", "stopper_params.pkl", "decoding_path.json"):
+        shutil.copy(f"{root}/runs/r4_pipeline/{name}", tmp_path)
+    shutil.copy(f"{root}/runs/r5_variants_nmsr/nms_params.pkl", tmp_path)
+    cfg = json.load(open(f"{root}/runs/r4_pipeline/config.json"))
+    (tmp_path / "config.json").write_text(json.dumps(dict(cfg, variant="NMS-r")))
+    tp = system.TwoPhase(run_dir=str(tmp_path), cap_b=256, cap=32, device="cpu",
+                         seed=5)
+    with profiling.recording():
+        tp.full_round(0)
+    snap = profiling.snapshot()
+    assert snap["counters"]["nmsr.edge_updates"] == (256 + 32) * 512 * 12
+    assert snap["spans"]["nmsr.check"]["parents"] == {"capture.decode": 12,
+                                                      "redecode": 12}
