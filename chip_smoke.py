@@ -13,9 +13,13 @@ Phases (each raises on failure, so the script never exits 0 after one):
    qc_96_48, wimaxlike_384_192 and wimax_1056_880 (synthetic inputs), against
    an f64 evaluation, with its ptxas lines, the count of IMMA instructions
    in its SASS, its launch shapes, and the main path's block minima and
-   walk from K5 against those from its plain twin; NMS-r's phase-2
-   re-decode at 4,096 captured rows on the padded edge layout against the
-   dense decoder; the GE kernel (bit-packed GF(2) elimination) against its
+   walk from K5 against those from its plain twin; NMS-r's edge kernels at
+   the main path's shapes (final output of the 262,144-frame sample,
+   trajectory of its 32,768 captured rows) bit for bit against their twin
+   and the benchmark's plain reference, against the padded edge layout,
+   timed beside both; NMS-r's phase-2 re-decode at 4,096 captured rows on
+   its kernel against the padded edge layout and the dense decoder; the GE
+   kernel (bit-packed GF(2) elimination) against its
    plain packed twin and the dense route bit for bit on the main path's
    32,768 captured rows (its perm load), on the same rows with columns
    duplicated across word edges (its dense load), on qc_96_48,
@@ -68,7 +72,7 @@ Phases (each raises on failure, so the script never exits 0 after one):
    generator (within 4 frame errors, equal frame counts), both timed:
    ``wimax_1056_880`` at 3.75 dB (4,096 frames) and NMS-r on CCSDS at
    3.0 dB (1,024, 2,048, 4,096 and 262,144 frames), NMS-r's default decoder
-   by batch held to the rule;
+   by batch held to the rule (its edge kernel at every batch on CCSDS);
 10. ``train_nms`` with ``NMSTrainConfig()`` (1,200 steps): the loss must
     fall (the trained factor's loss on the first block's frames below the
     first block's loss); the factor and its 3.0 dB FER are reported;
@@ -202,13 +206,13 @@ Phases (each raises on failure, so the script never exits 0 after one):
     on the first block's ring frames below the initial parameters', NMS-r's
     NN weights non-negative and its FER under 0.2 (its gap to the record
     reported), the record's weights inside ``nms_r_trained.json``'s 99.9%
-    interval on the padded layout; K1, K2 and K6 == their plain twins bit
+    interval on its edge kernel; K1, K2 and K6 == their plain twins bit
     for bit and K4, K3, K7 at 2,097,152 frames with counters equal to their
     twins' at NMS-2's initial weights and at NMS-3's trained ones (w_vc !=
     w_marg, printed), one ``cascade_counters`` call (K8a, K8b) == its twin,
     each timed; ``run_nms_mc`` at 3.0 dB: NMS-2 and NMS-3 (K3) and NMS-2 at
     ``rung="dense"`` (K7) to 2,097,152 frames, ENMS on its capture route
-    (K1), the untrained NMS-r (padded layout, 65,536 frames), each against
+    (K1), the untrained NMS-r (its edge kernel, 65,536 frames), each against
     ``variant_fer.json`` by 99.9% Wilson overlap, NMS-2 == NMS-3 and CCSDS
     ENMS == NMS-1 counter for counter and row for row, the decoders and
     launches of each route; ENMS on ``qc_96_48`` (K1 on the 240 x 96
@@ -217,10 +221,11 @@ Phases (each raises on failure, so the script never exits 0 after one):
     NMS-r's two-phase system: ``recipe.run_recipe`` on
     ``runs/r4_pipeline``'s config with ``"variant": "NMS-r"`` and the
     record's weights (stage 1 reused; the DIA's and the stopper's losses
-    falling, the MRB zero-error count rising, GE and K5 one launch a point
-    and nothing else, the 3.0 dB ``fer_nms_detected`` inside
+    falling, the MRB zero-error count rising, GE and K5 one launch a point,
+    NMS-r's capture kernel and nothing else, the 3.0 dB ``fer_nms_detected`` inside
     ``nms_r_trained.json``'s interval), ``system.TwoPhase`` on it at 3.0 dB
-    (4 rounds; GE and K5 R launches, nothing else; the NMS FER inside the
+    (4 rounds; GE, K5 and NMS-r's re-decode kernel R launches, its capture
+    kernel 2R, nothing else; the NMS FER inside the
     record's interval; cw/s, OSD failures/s, stages, peak memory, the OSD
     success share reported), GE and K5 on one round's rows against their
     plain versions, and the walk card == CPU on 64 of them;
@@ -324,6 +329,8 @@ PH1_BATCH, PH1_STEPS, MC_B = 2_097_152, 8, 262_144
 SWEEP_B, PADDED_B = 262_144, 4096
 # kernel row -> its count in _kernels.LAUNCHES
 LAUNCH_KEY = {"K1 nms_edge_final": "nms_edge_final", "K2 nms_edge_traj": "nms_edge_traj",
+              "K1r nmsr_edge_final": "nmsr_edge_final",
+              "K2r nmsr_edge_traj": "nmsr_edge_traj",
               "K3 mc_compact": "mc_compact", "K4 mc_oneshot": "mc_oneshot",
               "K5 lterm": "lterm", "K6 dense_final": "dense_final",
               "K7 mc_dense": "mc_dense", "K8a cascade_p1": "cascade_p1",
@@ -1190,43 +1197,135 @@ def ge_row(dev, code, perm):
 def nms_r_redecode(dev, run, cap):
     """NMS-r's phase-2 re-decode at 4,096 captured CCSDS rows with the
     trained NMS-r weights of ``runs/r5_variants_nmsr``: the step's route is
-    the padded edge layout, and against the dense decoder its detected
-    flags are identical and its last-iteration hard decisions differ on at
-    most 4 frames (the padded layout's gate in ``phase_padded``).  The
-    trajectory error is logged: over 12 NMS-r iterations on failing frames
-    the two f32 summation orders drift apart (1.06e-2 relative to the
-    largest output on an H100, 4.5e-3 on the CPU), and a soft value near 0
-    can change sign."""
+    NMS-r's edge kernel, and against the padded edge layout and the dense
+    decoder (other f32 orders) its detected flags are identical and its
+    last-iteration hard decisions differ on at most 4 frames (the padded
+    layout's gate in ``phase_padded``).  The trajectory error is logged:
+    over 12 NMS-r iterations on failing frames the f32 summation orders
+    drift apart (1.06e-2 relative to the largest output between the padded
+    and the dense route on an H100, 4.5e-3 on the CPU), and a soft value
+    near 0 can change sign."""
     code = run["code"]
     llr = cap["llr"][:4096].contiguous()
     labels = cap["labels"][:4096]
     trained = load_jax_pickle(os.path.join(ROOT, "runs", "r5_variants_nmsr",
                                            "nms_params.pkl"))
-    params = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=dev)
+    params = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
               for k, v in trained.items()}
     route = engine.redecode_route(code.h, "NMS-r", llr.device, llr.shape[0])
-    if route != "edge_padded":
+    if route != "edge":
         raise AssertionError(f"NMS-r re-decode at 4096 rows took {route!r}")
     trajs = {r: engine.redecode_trajectory(params, code.h, llr, ITERS, "NMS-r", r)
-             for r in ("edge_padded", "dense")}
-    got, ref = trajs["edge_padded"], trajs["dense"]
-    diff = (got - ref).abs()
-    rel = float(diff.max() / ref.abs().max().clamp(min=1.0))
-    beyond = int((diff > 1e-3 * ref.abs().clamp(min=1.0)).sum())
-    det = [nms.frame_stats(t[-1], labels, code.h)["detected_failure"]
-           for t in (got, ref)]
-    frames_differ = int(((got[-1] < 0) != (ref[-1] < 0)).any(1).sum())
-    same_det = torch.equal(*det)
-    log(f"NMS-r re-decode, {llr.shape[0]} captured CCSDS rows, trained "
-        f"weights: route {route}; padded vs dense trajectory error {rel:.3g} "
-        f"relative to the largest output ({beyond} of {diff.numel()} values "
-        f"beyond 1e-3 of their own size, "
-        f"{int(((got < 0) != (ref < 0)).sum())} sign flips over all "
-        f"{ITERS + 1} slots); frames whose last-iteration hard decisions "
-        f"differ: {frames_differ}; detected flags equal {same_det} "
-        f"({int(det[0].sum())} detected)")
-    if not (same_det and frames_differ <= 4):
-        raise AssertionError("NMS-r re-decode: padded and dense routes differ")
+             for r in ("edge", "edge_padded", "dense")}
+    for other in ("edge_padded", "dense"):
+        got, ref = trajs["edge"], trajs[other]
+        diff = (got - ref).abs()
+        rel = float(diff.max() / ref.abs().max().clamp(min=1.0))
+        beyond = int((diff > 1e-3 * ref.abs().clamp(min=1.0)).sum())
+        det = [nms.frame_stats(t[-1], labels, code.h)["detected_failure"]
+               for t in (got, ref)]
+        frames_differ = int(((got[-1] < 0) != (ref[-1] < 0)).any(1).sum())
+        same_det = torch.equal(*det)
+        log(f"NMS-r re-decode, {llr.shape[0]} captured CCSDS rows, trained "
+            f"weights: route {route}; kernel vs {other} trajectory error "
+            f"{rel:.3g} relative to the largest output ({beyond} of "
+            f"{diff.numel()} values beyond 1e-3 of their own size, "
+            f"{int(((got < 0) != (ref < 0)).sum())} sign flips over all "
+            f"{ITERS + 1} slots); frames whose last-iteration hard decisions "
+            f"differ: {frames_differ}; detected flags equal {same_det} "
+            f"({int(det[0].sum())} detected)")
+        if not (same_det and frames_differ <= 4):
+            raise AssertionError(f"NMS-r re-decode: the kernel and {other} differ")
+
+
+def nmsr_kernel_rows(dev, llr, cap):
+    """NMS-r's edge kernels at the main path's shapes, the final output of
+    the 262,144-frame sample and the trajectory of its 32,768 captured
+    rows, with the trained NMS-r weights of ``runs/r5_variants_nmsr``: each
+    bit for bit against its plain twin and against the benchmark's plain
+    reference (``gpubench/reference/variants/NMS-r.py``, the judge), the
+    largest gap to the reference over every row, ties included, and the
+    rows the reference finds near a tie logged; against the padded edge
+    layout (another f32 order) its last hard decisions differ on at most
+    1 frame in 1,000 and its detected flags likewise; each timed by CUDA
+    events beside the twin and the padded layout, against
+    ``gpubench.roofline_nmsr``'s least work.  Returns the kernel rows."""
+    from gpubench import core as bench_core, roofline_nmsr
+    from gpubench.reference import codes as ref_codes, decode as ref_decode
+
+    code = get_code("ccsds_128_64")
+    trained = load_jax_pickle(os.path.join(ROOT, "runs", "r5_variants_nmsr",
+                                           "nms_params.pkl"))
+    params = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32)
+              for k, v in trained.items()}
+    weights = nms_edge.nmsr_weights(params)
+    judge = bench_core.decoder("NMS-r")
+    ref = {"tables": ref_decode.Tables(code.h, *ref_codes.edges(code.h), dev),
+           "weights": judge.weights(trained)}
+    rows = []
+    for name, traj, x, shape in (
+            ("K1r nmsr_edge_final", False, llr,
+             f"llr ({CAP_B}, 128) f32 -> ({CAP_B}, 128), T=12"),
+            ("K2r nmsr_edge_traj", True, cap["llr"].contiguous(),
+             f"llr ({CAP}, 128) f32 -> (13, {CAP}, 128)")):
+        fn = nms_edge.decode_traj_edge if traj else nms_edge.decode_final_edge
+        padded_fn = (nms_edge_padded.decode_edge_padded if traj
+                     else nms_edge_padded.decode_final_edge_padded)
+        got = fn(params, code.h, x, ITERS, "NMS-r")
+        twin = nms_edge._decode_nmsr_plain(x, code.h, ITERS, weights, traj)
+        slots = set(range(ITERS + 1)) if traj else {ITERS}
+        soft, crossed = judge.decode_rows(x, ref, ITERS, slots)
+        want = (torch.stack([soft[i] for i in range(ITERS + 1)]) if traj
+                else soft[ITERS])
+        padded = padded_fn(params, code.h, x, ITERS, "NMS-r")
+        last = [t[-1] if traj else t for t in (got, want, padded)]
+        bits = [torch.equal(got.view(torch.int32), t.view(torch.int32))
+                for t in (twin, want)]
+        gap_ref = float(((got - want).abs() / (1.0 + want.abs())).max())
+        gap_pad = ((got - padded).abs() / (1.0 + padded.abs()))
+        labels = torch.zeros_like(last[0], dtype=torch.int32)
+        det = [nms.frame_stats(t, labels, code.h)["detected_failure"]
+               for t in (last[0], last[2])]
+        frames_differ = int(((last[0] < 0) != (last[2] < 0)).any(1).sum())
+        det_differ = int((det[0] != det[1]).sum())
+        b = x.shape[0]
+        log(f"{name}: == twin {bits[0]}, == reference {bits[1]} (largest gap "
+            f"to the reference {gap_ref:.3g} over all {b} rows, "
+            f"{int(crossed.sum())} near a tie); against the padded layout: "
+            f"gap {float(gap_pad.max()):.3g} (median "
+            f"{float(gap_pad.median()):.3g}), last hard decisions differ on "
+            f"{frames_differ} frames, detected flags on {det_differ}")
+        if not all(bits):
+            raise AssertionError(f"{name}: kernel differs from its twin or the "
+                                 "reference")
+        if max(frames_differ, det_differ) > b // 1000:
+            raise AssertionError(f"{name}: kernel and padded layout part on "
+                                 f"{frames_differ} / {det_differ} frames")
+        del got, twin, soft, want, padded, last, gap_pad
+        torch.cuda.empty_cache()
+        n_slots = ITERS + 1 if traj else 1
+        ops = roofline_nmsr.decode_ops(code.h, b * ITERS, b)
+        ms, bound_by = bound_ms(4 * b * code.n * (1 + n_slots), ops / F32_INSTR)
+        row = {
+            "name": name, "route": "cuda",
+            "source": "short_ldpc_decoding_osd_tpu_torch/csrc/nms_edge.cu",
+            "replaces": "ops/nms_edge_padded._check_update_neural_edge (no TPU "
+                        "kernel: JAX decodes NMS-r in XLA)",
+            "launches": None, "max_abs_err": 0.0, "reference_gap": gap_ref,
+            "ms": cuda_ms(lambda: fn(params, code.h, x, ITERS, "NMS-r"), 20),
+            "plain_ms": cuda_ms(lambda: nms_edge._decode_nmsr_plain(
+                x, code.h, ITERS, weights, traj), 3, warmup=1),
+            "padded_ms": cuda_ms(lambda: padded_fn(params, code.h, x, ITERS,
+                                                   "NMS-r"), 2, warmup=1),
+            "bound_ms": ms, "bound_by": bound_by, "library_ms": None,
+            "shape": shape,
+        }
+        log(f"{name}: kernel {row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, "
+            f"padded {row['padded_ms']:.4f} ms, bound {ms:.4f} ms ({bound_by}; "
+            f"{100 * ms / row['ms']:.2f}% of it)")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_kernels(dev):
@@ -1281,6 +1380,7 @@ def phase_kernels(dev):
     rows.append(k5_row(dev, run, prep, u_l, t_flat, layout))
     rows.append(ge_row(dev, code, torch.sort(refined.abs(), dim=1,
                                              stable=True).indices))
+    rows += nmsr_kernel_rows(dev, llr, cap)
     nms_r_redecode(dev, run, cap)
 
     # the GPU's prepare (stable sort, the GE kernel) bit-exact against the
@@ -1726,9 +1826,11 @@ def phase_padded(dev):
     CCSDS (3.0 dB, untrained NN weights) at 1,024 frames (``run_nms_mc``'s
     default batch), 2,048, 4,096 and 262,144 (the capture step's), each side
     timed by CUDA events: the measurement behind NMS-r's default decoder on
-    CUDA, the plain dense step below ``NMS_R_MIN_BATCH`` frames and the
-    padded layout from there up.  Gate: within 4 frame errors, equal frame
-    counts, and the default decoder of each measured batch is the rule's."""
+    CUDA where its edge kernel does not hold the code, the plain dense step
+    below ``NMS_R_MIN_BATCH`` frames and the padded layout from there up.
+    Gate: within 4 frame errors, equal frame counts, and the default
+    decoder of each measured batch is the rule's: on CCSDS NMS-r's edge
+    kernel at every batch."""
     faster, default = {}, {}
     for name, variant, snr, frames in (("wimax_1056_880", "NMS-1", 3.75, PADDED_B),
                                        ("ccsds_128_64", "NMS-r", 3.0, 1024),
@@ -1763,8 +1865,7 @@ def phase_padded(dev):
                                                      device=dev)
     log(f"NMS-r on CUDA: default decoder by batch {default}; faster by batch "
         f"{faster}")
-    rule = {b: "edge_padded" if b >= nms_edge_padded.NMS_R_MIN_BATCH else "plain"
-            for b in default}
+    rule = {b: "edge" for b in default}
     if default != rule:
         raise AssertionError(f"NMS-r default decoders {default} != the rule {rule}")
 
@@ -4255,7 +4356,8 @@ def variant_points(dev, recs, weight_sets):
     stats, _, decoders, launches = variant_point(
         dev, "NMS-r untrained", code, nms.init_params("NMS-r", code.h), "NMS-r",
         NMS_R_INIT_FRAMES, NMS_R_INIT_FRAMES)
-    expect_route("NMS-r untrained", decoders, launches, ["edge_padded"], [])
+    expect_route("NMS-r untrained", decoders, launches, ["edge"],
+                 ["nmsr_edge_final"])
     results["NMS-r"] = stats
     for name in ("NMS-2", "NMS-3", "ENMS", "NMS-r"):
         s = results[name]
@@ -4408,7 +4510,7 @@ def variant_training(dev, tmp, trained_rec):
     NMS-r`` on a copy of ``runs/r5_variants_nmsr``, three new processes at
     once; then ``eval-nms`` at 3.0 dB on each trained run directory (two
     at once).  Gates: the record's NMS-r inside ``nms_r_trained.json``'s
-    99.9% interval on the padded layout; each training's loss on the first
+    99.9% interval on its edge kernel; each training's loss on the first
     block's ring frames below the initial parameters' loss there, NMS-r's
     NN weights non-negative, its retrained FER under ``NMS_R_MAX_FER`` (its
     gap to the record reported).  Returns the run directories, seconds,
@@ -4435,7 +4537,8 @@ def variant_training(dev, tmp, trained_rec):
         points = {"record NMS-r": eval_point(
             "eval-nms NMS-r (the record's weights) vs nms_r_trained.json",
             dirs["record NMS-r"], probe, trained_rec)}
-        if probe["decoders"] != ["edge_padded"] or probe["launches"]:
+        if (probe["decoders"] != ["edge"]
+                or set(probe["launches"]) != {"nmsr_edge_final"}):
             raise AssertionError(f"eval-nms NMS-r route {probe}")
 
         started = {f"eval-nms {v}": eval_nms(v, dirs[v], f"eval_{v}")
@@ -4461,7 +4564,7 @@ def variant_training(dev, tmp, trained_rec):
                 raise AssertionError("train-nms NMS-r: a negative NN weight")
         done |= {label: cli_wait(label, s) for label, s in started.items()}
     for v, route in (("NMS-3", ([], {"mc_compact", "mc_oneshot"})),
-                     ("NMS-r", (["edge_padded"], set()))):
+                     ("NMS-r", (["edge"], {"nmsr_edge_final"}))):
         probe = done[f"eval-nms {v}"][1]
         if probe["decoders"] != route[0] or not set(probe["launches"]) <= route[1]:
             raise AssertionError(f"eval-nms {v} route {probe}")
@@ -4484,9 +4587,10 @@ def nms_r_recipe(dev, tmp, trained_rec):
     "NMS-r"`` and the record's NMS-r weights (stage 1 reused) through
     ``recipe.run_recipe``: stages 2-5 retrained on the card.  Gates: stage
     1 reused; the DIA's and the stopper's losses fall and the MRB
-    zero-error count rises; the eval sweep launches GE and K5 once a point
-    and nothing else (the capture and the re-decode of NMS-r are plain
-    PyTorch); the 3.0 dB point's ``fer_nms_detected`` inside
+    zero-error count rises; the eval sweep launches GE and K5 once a point,
+    NMS-r's capture kernel at least once a point and nothing else (its
+    phase 2 re-decodes on the dense decoder, as JAX's sweep); the 3.0 dB
+    point's ``fer_nms_detected`` inside
     ``nms_r_trained.json``'s 99.9% interval.  Returns the run directory and
     a summary."""
     d = os.path.join(tmp, "nms_r_system")
@@ -4517,8 +4621,11 @@ def nms_r_recipe(dev, tmp, trained_rec):
     if not val["final_loss"] < val["initial_loss"]:
         raise AssertionError(f"NMS-r recipe: stopper loss {val}")
     want = {key: len(curve["points"]) for key in ("ge_packed", "lterm")}
-    if len(seen) != 1 or {k: n for k, n in seen[0].items() if n} != want:
-        raise AssertionError(f"NMS-r eval sweep launches {seen}, expected {want}")
+    if (len(seen) != 1 or seen[0]["nmsr_edge_final"] < len(curve["points"])
+            or {k: n for k, n in seen[0].items()
+                if n and k != "nmsr_edge_final"} != want):
+        raise AssertionError(f"NMS-r eval sweep launches {seen}, expected {want} "
+                             "and NMS-r's capture kernel")
     texts = []
     for point in curve["points"]:
         osd = point["osd"]
@@ -4582,23 +4689,26 @@ def nms_r_card_vs_cpu(tp, buf, rows: int):
 def nms_r_system(dev, run_dir, trained_rec, card):
     """18(e), the system: ``system.TwoPhase`` on the NMS-r run directory at
     3.0 dB (``cap_b`` 262,144, ``cap`` 32,768): the capture and re-decode
-    on the padded edge layout, a warm-up round, ``measure`` with the launch
-    counts reset just before and read just after (GE and K5 R each,
-    nothing else), ``stage_times``, the peak memory; the NMS FER inside
+    on NMS-r's edge kernels, a warm-up round, ``measure`` with the launch
+    counts reset just before and read just after (GE, K5 and the re-decode
+    kernel R each, the capture kernel 2R, nothing else), ``stage_times``,
+    the peak memory; the NMS FER inside
     ``nms_r_trained.json``'s interval, the OSD success share reported (no
     JAX record).  Then GE and K5 on one round's rows against their plain
     versions (``system_kernels``) and the walk card == CPU on 64 rows."""
     tp = system.TwoPhase(run_dir, CAP_B, CAP, 3.0, dev)
     routes = (tp.capture_step.decoder,
               engine.redecode_route(tp.code.h, tp.variant, dev, CAP))
-    if routes != ("edge_padded", "edge_padded"):
+    if routes != ("edge", "edge"):
         raise AssertionError(f"NMS-r system routes {routes}")
     tp.full_round(10**6)  # warm-up
     synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     _kernels.reset_launches()
     out = tp.measure(NMS_R_ROUNDS)
-    launches = {"ge_packed": NMS_R_ROUNDS, "lterm": NMS_R_ROUNDS}
+    launches = {"ge_packed": NMS_R_ROUNDS, "lterm": NMS_R_ROUNDS,
+                "nmsr_edge_final": 2 * NMS_R_ROUNDS,
+                "nmsr_edge_traj": NMS_R_ROUNDS}
     only_launched("NMS-r system", launches)
     out["system_stage_s"] = tp.stage_times(NMS_R_ROUNDS)
     out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -4677,6 +4787,8 @@ def phase_variants(dev, rows, smi):
             row["nms_r_system"] = k5 | {"launches": NMS_R_ROUNDS}
         elif name == "GE ge_packed":
             row["nms_r_system"] = ge | {"launches": NMS_R_ROUNDS}
+        elif name in ("K1r nmsr_edge_final", "K2r nmsr_edge_traj"):
+            row["launches"] = system_out["system"]["launches"][LAUNCH_KEY[name]]
     seconds["total"] = time.perf_counter() - t0
     log("variants: " + json.dumps({
         "seconds": seconds, "process_seconds": trained["seconds"],

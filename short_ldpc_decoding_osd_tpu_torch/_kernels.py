@@ -37,7 +37,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {"nms_edge_final": 0, "nms_edge_traj": 0, "lterm": 0,
+LAUNCHES = {"nms_edge_final": 0, "nms_edge_traj": 0, "nmsr_edge_final": 0,
+            "nmsr_edge_traj": 0, "lterm": 0,
             "mc_oneshot": 0, "mc_compact": 0, "cascade_p1": 0, "cascade_p2": 0,
             "dense_final": 0, "mc_dense": 0, "ge_packed": 0}
 
@@ -54,6 +55,10 @@ _SIGNATURES = {
         # w_vc, w_chk, w_marg, traj, bucket, warps, frames, stream
         "nms_edge_decode": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
                             _F, _F, _F, _I, _I, _I, _I, _VP],
+        # llr, out, edge_col, var_edges, batch, n, m, dc, dv, iters,
+        # weights (host f32), traj, bucket, warps, frames, stream
+        "nms_edge_decode_nmsr": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                                 _VP, _I, _I, _I, _I, _VP],
     },
     "osd_disc": {
         # m_matrix, u_l, teps, out, batch, m, k, ntot, then the resident

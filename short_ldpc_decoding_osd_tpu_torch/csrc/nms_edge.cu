@@ -13,7 +13,11 @@
 //   * dummy edges of irregular rows (edge_col < 0) are skipped, so they never
 //     win the minimum or flip a sign;
 //   * (w_vc, w_chk, w_marg) come from nms._weights, so NMS-1/2/3 and ENMS run
-//     here; NMS-r (neural check update) is refused by the Python wrapper.
+//     here.
+// NMS-r (the neural check update) has two entries of its own over the same
+// frame loop, nmsr_edge_kernel (entry nms_edge_decode_nmsr): the iteration
+// body's phase A with iterate_neural's phase B, its network's weights a
+// by-value argument (nms_edge_body.cuh).
 //
 // What bounds it on H100: for a 12-iteration decode the f32 edge arithmetic
 // (~8 f32 instructions per edge and iteration) outweighs the bytes (llr in, soft
@@ -75,12 +79,47 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
   }
 }
 
+// NMS-r's decode (entries nms_edge_decode_nmsr): the frame loop of
+// nms_edge_kernel over iterate_neural; the soft outputs add w.w_marg * llr.
 template <class Bk, bool TRAJ>
-int launch(const float* llr, float* out, const int* edge_col,
-           const int* var_edges, int batch, int n, int m, int dc, int dv,
-           int iters, int warps, int frames, float w_vc, float w_chk,
-           float w_marg, cudaStream_t s) {
-  auto kernel = nms_edge_kernel<Bk, TRAJ>;
+__global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
+    nmsr_edge_kernel(const float* __restrict__ llr, float* __restrict__ out,
+                     const int* __restrict__ edge_col,
+                     const int* __restrict__ var_edges, int batch, int n,
+                     int m, int dc, int dv, int iters, int warps, int frames,
+                     const nms_edge::Neural<Bk> w) {
+  const int T = 32 * warps;
+  const int g = threadIdx.x / T;
+  const int t = threadIdx.x - g * T;
+  const size_t words = nms_edge::region_words<Bk>(T, 0);
+  nms_edge::Lane<Bk> L;
+  L.setup(4u * static_cast<unsigned>(g * words), edge_col, var_edges, m, n,
+          dc, dv, t, T, 1 + g);
+  for (long long frame = static_cast<long long>(blockIdx.x) * frames + g;
+       frame < batch; frame += static_cast<long long>(gridDim.x) * frames) {
+    float x[Bk::VPL];
+#pragma unroll
+    for (int i = 0; i < Bk::VPL; ++i) {
+      const int v = t + T * i;
+      x[i] = v < n ? llr[frame * n + v] : 0.f;
+      if (TRAJ && v < n) out[frame * n + v] = x[i];  // slot 0: channel input
+    }
+    L.reset();
+    nms_edge::iterate_neural<Bk>(L, x, iters, w, [&](int it, int i, float s) {
+      const int v = t + T * i;
+      if (v < n && it > 0 && (TRAJ || it == iters)) {
+        const size_t slot = TRAJ ? static_cast<size_t>(it) * batch : 0;
+        out[(slot + frame) * n + v] = s + w.w_marg * x[i];
+      }
+    });
+  }
+}
+
+// Launches `kernel` over batch frames as one persistent wave: as many
+// blocks of `frames` frames of 32 * warps threads as fit the SMs.
+template <class Bk, typename Kernel, typename... Args>
+int start(Kernel kernel, int batch, int warps, int frames, cudaStream_t s,
+          Args... args) {
   const int threads = 32 * warps * frames;
   const size_t smem = 4 * frames * nms_edge::region_words<Bk>(32 * warps, 0);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -98,10 +137,18 @@ int launch(const float* llr, float* out, const int* edge_col,
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const long long need = (static_cast<long long>(batch) + frames - 1) / frames;
   const int grid = static_cast<int>(need < per_sm * sms ? need : per_sm * sms);
-  kernel<<<grid, threads, smem, s>>>(llr, out, edge_col, var_edges, batch, n,
-                                     m, dc, dv, iters, warps, frames, w_vc,
-                                     w_chk, w_marg);
+  kernel<<<grid, threads, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class Bk, bool TRAJ>
+int launch(const float* llr, float* out, const int* edge_col,
+           const int* var_edges, int batch, int n, int m, int dc, int dv,
+           int iters, int warps, int frames, float w_vc, float w_chk,
+           float w_marg, cudaStream_t s) {
+  return start<Bk>(nms_edge_kernel<Bk, TRAJ>, batch, warps, frames, s, llr,
+                   out, edge_col, var_edges, batch, n, m, dc, dv, iters, warps,
+                   frames, w_vc, w_chk, w_marg);
 }
 
 }  // namespace
@@ -133,4 +180,40 @@ extern "C" int nms_edge_decode(const void* llr, void* out, const void* edge_col,
                 : launch<B, false>(l, o, ec, ve, batch, n, m, dc, dv, iters,
                                    warps, frames, w_vc, w_chk, w_marg, s);
   });
+}
+
+// NMS-r (the neural check update; bucket 0, a regular check degree dc of 2
+// to 8): as nms_edge_decode, with `weights` the host f32 values w_vc,
+// w_marg, w2 (4), then w1 ((dc - 1) x 4, row-major), passed to the kernel
+// by value.
+extern "C" int nms_edge_decode_nmsr(const void* llr, void* out,
+                                    const void* edge_col,
+                                    const void* var_edges, int batch, int n,
+                                    int m, int dc, int dv, int iters,
+                                    const void* weights, int traj, int bucket,
+                                    int warps, int frames, void* stream) {
+  using B = nms_edge::Bucket0;
+  if (bucket != 0 || dc < 2 ||
+      !nms_edge::plan_holds<B>(warps, frames, m, n, dc, dv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return 0;
+  const float* wh = static_cast<const float*>(weights);
+  nms_edge::Neural<B> w{};  // value-initialised: w1's rows past dc - 2 are +0
+  w.w_vc = wh[0];
+  w.w_marg = wh[1];
+  for (int j = 0; j < nms_edge::kHidden; ++j) w.w2[j] = wh[2 + j];
+  for (int i = 0; i < dc - 1; ++i)
+    for (int j = 0; j < nms_edge::kHidden; ++j)
+      w.w1[i][j] = wh[2 + nms_edge::kHidden + nms_edge::kHidden * i + j];
+  const float* l = static_cast<const float*>(llr);
+  float* o = static_cast<float*>(out);
+  const int* ec = static_cast<const int*>(edge_col);
+  const int* ve = static_cast<const int*>(var_edges);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return traj ? start<B>(nmsr_edge_kernel<B, true>, batch, warps, frames, s,
+                         l, o, ec, ve, batch, n, m, dc, dv, iters, warps,
+                         frames, w)
+              : start<B>(nmsr_edge_kernel<B, false>, batch, warps, frames, s,
+                         l, o, ec, ve, batch, n, m, dc, dv, iters, warps,
+                         frames, w);
 }

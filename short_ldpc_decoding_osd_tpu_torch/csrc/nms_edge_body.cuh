@@ -8,7 +8,8 @@
 // skipped).  With kClampBig (K6/K7) it also holds the dense-rung TPU
 // kernel's clamp (nms_pallas.py): magnitudes are clamped to kBig and
 // min/submin start at kBig, so a row of degree 1 sends w_chk * kBig where
-// the other kernels send +inf.
+// the other kernels send +inf.  NMS-r's kernels (nms_edge.cu) run the same
+// phase A with a phase B of their own, `iterate_neural` (see its note).
 //
 // What bounds it on the H100: the f32 edge arithmetic (about 8 instructions
 // per edge and iteration) and the shared-memory traffic of the message
@@ -57,6 +58,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 namespace nms_edge {
@@ -232,12 +234,9 @@ struct Lane {
   }
 };
 
-// `iters` iterations from the messages in L.cv on the channel values x
-// (see the header note).  emit(it, i, colsum) for it = 0..iters.
-template <class Bk, bool kClampBig, typename Emit>
-__device__ __forceinline__ void iterate(Lane<Bk>& L, const float (&x)[Bk::VPL],
-                                        int iters, float w_vc, float w_chk,
-                                        Emit emit) {
+// Stores the messages in L.cv to their rows, for the first phase A.
+template <class Bk>
+__device__ __forceinline__ void begin(Lane<Bk>& L) {
   // the region is free once every lane has left the previous frame
   frame_sync(L.bar, L.threads);
 #pragma unroll
@@ -245,16 +244,33 @@ __device__ __forceinline__ void iterate(Lane<Bk>& L, const float (&x)[Bk::VPL],
 #pragma unroll
     for (int j = 0; j < Bk::DC; ++j) sh(L.row[q] + 4u * j) = L.cv[q][j];
   frame_sync(L.bar, L.threads);
+}
+
+// Phase A of iteration `it`: column sums in ascending check order ->
+// emit(it, i, colsum), and the totals while it < iters.
+template <class Bk, typename Emit>
+__device__ __forceinline__ void column_sums(Lane<Bk>& L,
+                                            const float (&x)[Bk::VPL], int it,
+                                            int iters, float w_vc, Emit& emit) {
+#pragma unroll
+  for (int i = 0; i < Bk::VPL; ++i) {
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < Bk::DV; ++d) s += sh(L.ve[i][d]);
+    emit(it, i, s);
+    if (it < iters) L.total(i) = s + w_vc * x[i];
+  }
+}
+
+// `iters` iterations from the messages in L.cv on the channel values x
+// (see the header note).  emit(it, i, colsum) for it = 0..iters.
+template <class Bk, bool kClampBig, typename Emit>
+__device__ __forceinline__ void iterate(Lane<Bk>& L, const float (&x)[Bk::VPL],
+                                        int iters, float w_vc, float w_chk,
+                                        Emit emit) {
+  begin(L);
   for (int it = 0;; ++it) {
-    // phase A: column sums in ascending check order -> totals (and outputs)
-#pragma unroll
-    for (int i = 0; i < Bk::VPL; ++i) {
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < Bk::DV; ++d) s += sh(L.ve[i][d]);
-      emit(it, i, s);
-      if (it < iters) L.total(i) = s + w_vc * x[i];
-    }
+    column_sums(L, x, it, iters, w_vc, emit);
     if (it == iters) break;
     frame_sync(L.bar, L.threads);
     // phase B: per-check tournament and outgoing messages
@@ -286,6 +302,142 @@ __device__ __forceinline__ void iterate(Lane<Bk>& L, const float (&x)[Bk::VPL],
         sh(L.row[q] + 4u * j) = out;
       }
     }
+    frame_sync(L.bar, L.threads);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// NMS-r: the neural check update (the reference code's compute_cv1) in
+// place of the tournament, for a regular check degree dc <= DC.  An edge's
+// magnitude is a two-layer network, (dc-1) -> 4 -> 1 with no activation,
+// over the ascending sort of its row's other dc-1 magnitudes:
+//   hidden_j = x_0 w1[0][j] + x_1 w1[1][j] + ... (ascending i),
+//   out = hidden_0 w2[0] + hidden_1 w2[1] + ... (ascending j),
+// each product and sum rounded on its own (-fmad=false): the order of the
+// plain reference (and of the twin in ops/nms_edge.py), so the soft outputs
+// match it bit for bit.
+//
+// Phase B sorts the row's DC magnitudes once, each carrying its slot and
+// its sign bit (19 compare-exchanges for DC = 8).  The leave-one-out list
+// of the entry at sorted position r is the sorted list less that entry:
+// position i of it is s[i] for i < r and s[i+1] past it, so it weighs
+// s[i] by w1[i] before r and by w1[i-1] after it.  The DC-1 products of
+// each kind and the running sums over the first r entries are shared by
+// every position; only the terms after r are added per position, in the
+// reference's order.  Equal magnitudes give equal lists, whichever copy is
+// removed, so the order the sort gives ties does not matter.  Each
+// position's magnitude goes to the row slot it carries (a store to the
+// shared row, read back into the slot's register), its sign flipped by the
+// parity of the other edges; a zero magnitude (s[0] == 0) zeroes the row.
+//
+// A regular code of dc < DC pads its rows with dummy slots that read the
+// +inf word: their magnitudes are clamped to FLT_MAX (finite), sort last,
+// and meet only the +0 rows of w1 past dc - 2, so they add +0 to a sum,
+// which changes no value.  A real magnitude is never changed by the clamp
+// (only +inf is).
+
+constexpr int kHidden = 4;  // the network's hidden width
+
+// NMS-r's weights, a by-value kernel argument (read through the constant
+// bank): w1's rows past dc - 2 are +0.
+template <class Bk>
+struct Neural {
+  float w1[Bk::DC - 1][kHidden];
+  float w2[kHidden];
+  float w_vc, w_marg;
+};
+
+// Ascending compare-exchange of sorted positions i < k, keys carried.
+template <int D>
+__device__ __forceinline__ void exchange(float (&a)[D], unsigned (&key)[D],
+                                         int i, int k) {
+  const bool swap = a[k] < a[i];
+  const float lo = swap ? a[k] : a[i], hi = swap ? a[i] : a[k];
+  const unsigned klo = swap ? key[k] : key[i], khi = swap ? key[i] : key[k];
+  a[i] = lo;
+  a[k] = hi;
+  key[i] = klo;
+  key[k] = khi;
+}
+
+// Phase B of NMS-r for owned check q (see the note above).
+template <class Bk>
+__device__ __forceinline__ void neural_check(Lane<Bk>& L, int q,
+                                             const Neural<Bk>& w) {
+  static_assert(Bk::DC == 8, "NMS-r's sorting network takes 8 slots");
+  constexpr int D = Bk::DC;
+  float a[D];
+  unsigned key[D];  // the slot, and the sign bit of its vc
+  unsigned parity = 0;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float vc = sh(L.col[q][j]) - L.cv[q][j];
+    a[j] = fminf(fabsf(vc), FLT_MAX);
+    key[j] = static_cast<unsigned>(j) | (__float_as_uint(vc) & 0x80000000u);
+    parity ^= __float_as_uint(vc);
+  }
+  // an optimal sorting network of 8 inputs (depth 6)
+  exchange(a, key, 0, 2); exchange(a, key, 1, 3);
+  exchange(a, key, 4, 6); exchange(a, key, 5, 7);
+  exchange(a, key, 0, 4); exchange(a, key, 1, 5);
+  exchange(a, key, 2, 6); exchange(a, key, 3, 7);
+  exchange(a, key, 0, 1); exchange(a, key, 2, 3);
+  exchange(a, key, 4, 5); exchange(a, key, 6, 7);
+  exchange(a, key, 2, 4); exchange(a, key, 3, 5);
+  exchange(a, key, 1, 4); exchange(a, key, 3, 6);
+  exchange(a, key, 1, 2); exchange(a, key, 3, 4); exchange(a, key, 5, 6);
+  float out[D];
+#pragma unroll
+  for (int j = 0; j < kHidden; ++j) {
+    float lo[D - 1], hi[D];  // s[i] w1[i][j], s[i] w1[i-1][j]
+#pragma unroll
+    for (int i = 0; i < D - 1; ++i) lo[i] = a[i] * w.w1[i][j];
+#pragma unroll
+    for (int i = 1; i < D; ++i) hi[i] = a[i] * w.w1[i - 1][j];
+    float head = 0.f;  // the sum over the first r entries, r >= 1
+#pragma unroll
+    for (int r = 0; r < D; ++r) {
+      float h;
+      if (r == 0) {
+        h = hi[1];
+#pragma unroll
+        for (int i = 2; i < D; ++i) h = h + hi[i];
+      } else {
+        head = r == 1 ? lo[0] : head + lo[r - 1];
+        h = head;
+#pragma unroll
+        for (int i = r + 1; i < D; ++i) h = h + hi[i];
+      }
+      const float term = h * w.w2[j];
+      out[r] = j == 0 ? term : out[r] + term;
+    }
+  }
+  const bool zero = a[0] == 0.f;
+#pragma unroll
+  for (int r = 0; r < D; ++r) {
+    const float v = zero ? 0.f
+                         : __uint_as_float(__float_as_uint(out[r]) ^
+                                           ((key[r] ^ parity) & 0x80000000u));
+    sh(L.row[q] + 4u * (key[r] & 0xffu)) = v;
+  }
+#pragma unroll
+  for (int j = 0; j < D; ++j) L.cv[q][j] = sh(L.row[q] + 4u * j);
+}
+
+// `iters` NMS-r iterations from the messages in L.cv: phase A as
+// `iterate`, phase B `neural_check`.  emit(it, i, colsum) for it = 0..iters.
+template <class Bk, typename Emit>
+__device__ __forceinline__ void iterate_neural(Lane<Bk>& L,
+                                               const float (&x)[Bk::VPL],
+                                               int iters, const Neural<Bk>& w,
+                                               Emit emit) {
+  begin(L);
+  for (int it = 0;; ++it) {
+    column_sums(L, x, it, iters, w.w_vc, emit);
+    if (it == iters) break;
+    frame_sync(L.bar, L.threads);
+#pragma unroll
+    for (int q = 0; q < Bk::CPL; ++q) neural_check(L, q, w);
     frame_sync(L.bar, L.threads);
   }
 }

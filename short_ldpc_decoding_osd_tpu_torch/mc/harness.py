@@ -81,9 +81,11 @@ def select_decoder(decode_h, variant: str, batch: int,
 
     ``decoder`` pins one and raises when it cannot take the code or the
     variant.  Otherwise a scalar variant takes K1 when it holds the code,
-    else K6; then the padded edge layout where
+    else K6; NMS-r takes its edge kernel on CUDA where
+    ``nms_edge.kernel_holds`` says so (on the CPU the dense decoder stays
+    its default); then the padded edge layout where
     ``nms_edge_padded.auto_select`` says so; else the plain dense decoder."""
-    edge_ok = variant != "NMS-r" and nms_edge.kernel_holds(decode_h)
+    edge_ok = nms_edge.kernel_holds(decode_h, variant)
     dense_ok = variant != "NMS-r" and nms_dense.holds(*np.shape(decode_h))
     if decoder is not None:
         ok = {"edge": edge_ok, "dense": dense_ok,
@@ -96,7 +98,7 @@ def select_decoder(decode_h, variant: str, batch: int,
             raise ValueError(f"decoder {decoder!r} cannot take {variant} on an "
                              f"{tuple(np.shape(decode_h))} parity matrix")
         return decoder
-    if edge_ok:
+    if edge_ok and (variant != "NMS-r" or torch.device(device).type == "cuda"):
         return "edge"
     if dense_ok:
         return "dense"
@@ -112,10 +114,11 @@ def build_nms_mc_step(code: Code, variant: str, num_iterations: int,
                       device: str | torch.device = "cuda"):
     """Build ``step(params, generator) -> (counters, capture)``.
 
-    The decode is :func:`select_decoder`'s: by default K1
-    (``nms_edge.decode_final_edge``) for the scalar variants; for NMS-r the
-    padded edge layout on CUDA from ``nms_edge_padded.NMS_R_MIN_BATCH``
-    frames up, else the dense ``nms.decode_final``; ``decoder`` pins one of
+    The decode is :func:`select_decoder`'s: by default the edge kernel
+    (``nms_edge.decode_final_edge``: K1 for the scalar variants, NMS-r's
+    own on CUDA where it holds the code); else, for NMS-r, the padded edge
+    layout on CUDA from ``nms_edge_padded.NMS_R_MIN_BATCH`` frames up or
+    the dense ``nms.decode_final``; ``decoder`` pins one of
     :data:`DECODERS`.
     ``generator`` is a ``torch.Generator`` on ``device``; the step's
     ``decoder`` attribute names the branch it runs.  The step is span
@@ -270,8 +273,8 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
     rung = ladder.apply_pinned_rung(rung)
     spec = spec or ChannelSpec.awgn(snr_db, code.rate)
     capacity = min(batch, capture_limit) if capture_failures else 0
-    # the scalar weights are read on the host by the kernel wrappers; only
-    # the NMS-r decoders need the parameters on the device
+    # the kernel wrappers read the weights on the host; only NMS-r's padded
+    # and dense decoders need the parameters on the device
     params = {k: torch.as_tensor(v).cpu() for k, v in params.items()}
     fused_ok = (
         not capture_failures
@@ -324,7 +327,8 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
                                   device=dev)
         generator = torch.Generator(device=dev)
         step_params = ({k: v.to(dev) for k, v in params.items()}
-                       if variant == "NMS-r" else params)
+                       if variant == "NMS-r" and built.decoder != "edge"
+                       else params)
 
         def step(idx):
             generator.manual_seed(seed * 1_000_003 + idx)
@@ -394,15 +398,23 @@ def _mesh_step(code, params, variant, num_iterations, snr_db, batch, seed,
     numpy, None)``, the counters summed over the ranks."""
     from ..parallel import sharded_fused_mc_step, sharded_nms_mc_step
 
-    step_params = ({k: v.to(mesh.device) for k, v in params.items()}
-                   if variant == "NMS-r" else params)
+    def placed(decoder):
+        # NMS-r's padded and dense decoders take the parameters on the
+        # device; the kernel wrappers read them on the host
+        if variant == "NMS-r" and decoder != "edge":
+            return {k: v.to(mesh.device) for k, v in params.items()}
+        return params
+
     if fused_ok or rung == "xla":
         fused = sharded_fused_mc_step(code, variant, num_iterations, snr_db,
                                       batch, mesh, base_seed=seed, spec=spec,
                                       rung=rung)
+        # NMS-r reaches this branch only pinned to rung "xla": the plain decoder
+        step_params = placed("plain")
         return lambda idx: (fused(step_params, idx)[0].cpu().numpy(), None)
     sharded = sharded_nms_mc_step(code, variant, num_iterations, spec, batch,
                                   mesh)
+    step_params = placed(sharded.decoder)
     generator = torch.Generator(device=mesh.device)
 
     def step(idx):

@@ -12,8 +12,11 @@ arithmetic step for step (same edge order, same tournament, same summation
 order), so on the card kernel and twin agree to the last bit or close to it.
 
 A wrapper runs the twin only when ``llr`` lies on the CPU; for a CUDA tensor
-it launches the kernel or raises.  Only the scalar-normalized variants
-(NMS-1/2/3, ENMS) have a kernel; NMS-r raises, as in JAX.  Every kernel
+it launches the kernel or raises.  The scalar-normalized variants
+(NMS-1/2/3, ENMS) run K1/K2; NMS-r's neural check update has decode
+kernels of its own (the same entry points, ``nms_edge_decode_nmsr``) on a
+regular check degree that bucket 0 takes (:func:`kernel_holds`), and
+raises elsewhere, where JAX raises everywhere.  Every kernel
 runs one iteration body (``csrc/nms_edge_body.cuh``) whose degree bucket
 and launch shape the host picks (:func:`launch_plan`); a code no bucket
 takes raises.  K3's launches after the first resume their frames from the
@@ -42,7 +45,7 @@ from ..channel.awgn import sigma_for_snr
 from ..codes import tables
 from ..utils import profiling
 from . import mc_hash
-from .nms import frame_stats, scalar_weights
+from .nms import _weights, frame_stats, scalar_weights
 
 
 def edge_layout(h):
@@ -127,12 +130,24 @@ def launch_plan(m: int, n: int, dc: int, dv: int, extra_words: int = 0,
     return None
 
 
-def kernel_holds(h) -> bool:
-    """True when K1 takes ``h``: every check has degree >= 2 and a launch
-    plan holds the code (:func:`launch_plan`)."""
-    if np.asarray(h, dtype=np.int64).sum(axis=1).min() < 2:
+# the bucket NMS-r's kernels are built for: its sorting network of 8 slots
+# and its (dc-1) x 4 weights by value take a regular check degree up to 8
+NMSR_BUCKET = 0
+
+
+def kernel_holds(h, variant: str = "NMS-1") -> bool:
+    """True when the edge kernels take ``h`` for ``variant``: every check
+    has degree >= 2 and a launch plan holds the code (:func:`launch_plan`);
+    for NMS-r also a regular check degree and the plan's bucket
+    :data:`NMSR_BUCKET`."""
+    degrees = np.asarray(h, dtype=np.int64).sum(axis=1)
+    if degrees.min() < 2:
         return False
-    return launch_plan(*np.shape(h), *tables.degrees(h)) is not None
+    plan = launch_plan(*np.shape(h), *tables.degrees(h))
+    if variant == "NMS-r":
+        return (plan is not None and plan.bucket == NMSR_BUCKET
+                and bool((degrees == degrees[0]).all()))
+    return plan is not None
 
 
 def _edge_tables(h, device):
@@ -141,19 +156,19 @@ def _edge_tables(h, device):
     return tuple(torch.tensor(a, device=device) for a in edge_layout(h))
 
 
-def _decode_edge_plain(llr, h, num_iterations, weights, traj, cv0=None,
-                       return_cv=False):
-    """Plain PyTorch twin of ``csrc/nms_edge.cu`` (same operation order).
-    ``cv0`` (B, dc*m), e = j*m + c: the check-to-variable messages to
-    resume from (default zero); ``return_cv`` also returns the messages
-    after the last iteration, so that a decode resumed from them runs on
-    exactly as an uninterrupted one."""
-    w_vc, w_chk, w_marg = weights
+def _iterate_plain(llr, h, num_iterations, w_vc, w_marg, traj, check,
+                   cv0=None):
+    """The twins' iteration (the kernels' order): each variable sums its
+    messages in ascending check order, ``total = colsum + w_vc * llr``,
+    each edge's ``vc = total - cv`` (B, dc, m) goes through ``check`` to
+    the new messages, and the soft outputs are ``colsum + w_marg * llr``.
+    ``cv0`` (B, dc*m), e = j*m + c: the messages to resume from (default
+    zero).  Returns (the (T+1, B, n) trajectory or the last soft output,
+    the messages after the last iteration)."""
     edge_col, var_edges = tables.get(h, _edge_tables, llr.device)
     dc, m = edge_col.shape
     batch, n = llr.shape
     num_edges = dc * m
-    valid = edge_col >= 0
     cols = edge_col.clamp(min=0).long()
     # padded variable slots read a message slot that stays zero
     var_idx = torch.where(var_edges >= 0, var_edges, num_edges).long()
@@ -173,46 +188,70 @@ def _decode_edge_plain(llr, h, num_iterations, weights, traj, cv0=None,
         if it == num_iterations:
             break
         total = s + w_vc * llr
-        msgs = cv[:, :num_edges].view(batch, dc, m)
-        vc = total[:, cols] - msgs  # (B, dc, m)
-        mag = torch.where(valid, vc.abs(), torch.inf)
-        sgn = torch.where(vc > 0, 1.0, torch.where(vc < 0, -1.0, 0.0))
-        sgn = torch.where(valid, sgn, 1.0)
-        min1 = torch.full((batch, m), torch.inf, device=llr.device)
-        min2 = torch.full((batch, m), torch.inf, device=llr.device)
-        sign_prod = torch.ones((batch, m), device=llr.device)
-        for j in range(dc):
-            min2 = torch.minimum(min2, torch.maximum(min1, mag[:, j]))
-            min1 = torch.minimum(min1, mag[:, j])
-            sign_prod = sign_prod * sgn[:, j]
-        emag = torch.where(mag > min1[:, None], (w_chk * min1)[:, None],
-                           (w_chk * min2)[:, None])
-        new = torch.where(valid, emag * (sign_prod[:, None] * sgn), 0.0)
-        cv[:, :num_edges] = new.reshape(batch, num_edges)
+        vc = total[:, cols] - cv[:, :num_edges].view(batch, dc, m)
+        cv[:, :num_edges] = check(vc).reshape(batch, num_edges)
     if traj:
         out = torch.stack(outs, 0)
     elif soft is not None:
         out = soft
     else:  # zero iterations: the column sums of the initial messages
         out = w_marg * llr if cv0 is None else s + w_marg * llr
-    return (out, cv[:, :num_edges]) if return_cv else out
+    return out, cv[:, :num_edges]
 
 
-def _decode_edge_kernel(llr, h, num_iterations, weights, traj):
+def _decode_edge_plain(llr, h, num_iterations, weights, traj, cv0=None,
+                       return_cv=False):
+    """Plain PyTorch twin of ``csrc/nms_edge.cu`` (same operation order).
+    ``cv0`` (B, dc*m), e = j*m + c: the check-to-variable messages to
+    resume from (default zero); ``return_cv`` also returns the messages
+    after the last iteration, so that a decode resumed from them runs on
+    exactly as an uninterrupted one."""
+    w_vc, w_chk, w_marg = weights
+    valid = tables.get(h, _edge_tables, llr.device)[0] >= 0
+
+    def tournament(vc):
+        batch, dc, m = vc.shape
+        mag = torch.where(valid, vc.abs(), torch.inf)
+        sgn = torch.where(vc > 0, 1.0, torch.where(vc < 0, -1.0, 0.0))
+        sgn = torch.where(valid, sgn, 1.0)
+        min1 = torch.full((batch, m), torch.inf, device=vc.device)
+        min2 = torch.full((batch, m), torch.inf, device=vc.device)
+        sign_prod = torch.ones((batch, m), device=vc.device)
+        for j in range(dc):
+            min2 = torch.minimum(min2, torch.maximum(min1, mag[:, j]))
+            min1 = torch.minimum(min1, mag[:, j])
+            sign_prod = sign_prod * sgn[:, j]
+        emag = torch.where(mag > min1[:, None], (w_chk * min1)[:, None],
+                           (w_chk * min2)[:, None])
+        return torch.where(valid, emag * (sign_prod[:, None] * sgn), 0.0)
+
+    out, cv = _iterate_plain(llr, h, num_iterations, w_vc, w_marg, traj,
+                             tournament, cv0)
+    return (out, cv) if return_cv else out
+
+
+def _kernel_tables(llr, h):
+    """The edge tables of ``h`` on ``llr``'s device and the launch plan
+    of the edge kernels, after checking ``llr`` against them."""
     if llr.dtype != torch.float32 or llr.dim() != 2 or not llr.is_contiguous():
         raise ValueError("llr must be a contiguous (B, n) float32 tensor")
     edge_col, var_edges = tables.get(h, _edge_tables, llr.device)
     dc, m = edge_col.shape
     dv, n = var_edges.shape
-    batch = llr.shape[0]
     if llr.shape[1] != n:
         raise ValueError(f"llr has {llr.shape[1]} columns, h has {n}")
     plan = launch_plan(m, n, dc, dv)
     if plan is None:
         raise ValueError(f"no launch plan of the edge kernels holds an ({m}, "
                          f"{n}) code of degrees ({dc}, {dv})")
-    if batch >= 2**31:
-        raise ValueError(f"batch {batch} exceeds the kernel's int32 count")
+    if llr.shape[0] >= 2**31:
+        raise ValueError(f"batch {llr.shape[0]} exceeds the kernel's int32 count")
+    return edge_col, var_edges, plan
+
+
+def _decode_edge_kernel(llr, h, num_iterations, weights, traj):
+    edge_col, var_edges, plan = _kernel_tables(llr, h)
+    (dc, m), (dv, n), batch = edge_col.shape, var_edges.shape, llr.shape[0]
     if num_iterations == 0 and not traj:
         return weights[2] * llr
     shape = (num_iterations + 1, batch, n) if traj else (batch, n)
@@ -229,19 +268,114 @@ def _decode_edge_kernel(llr, h, num_iterations, weights, traj):
     return out
 
 
+def nmsr_weights(params: dict) -> tuple:
+    """NMS-r's kernel operands as host values: ``(w_vc, w_marg, w1, w2)``,
+    the bit scalars' softplus as floats and the network's (dc-1, 4) and
+    (4, 1) weights as f32 arrays (host parameters: no device read)."""
+    w_vc, _, w_marg = _weights(params, "NMS-r")
+    w1, w2 = (np.asarray(torch.as_tensor(params[k]).detach().cpu(), np.float32)
+              for k in ("nn_w1", "nn_w2"))
+    return float(w_vc), float(w_marg), w1, w2
+
+
+def _network_by_position(a, w1, w2):
+    """(B, dc, m) magnitudes of NMS-r's network for each sorted position r
+    of the rows' ascending magnitudes ``a`` (B, dc, m): over the list ``a``
+    less entry r, ``(x @ w1) @ w2`` with each sum in ascending index order,
+    as the kernel computes it (the products s[i] w1[i] before r and
+    s[i] w1[i-1] after it, the sums over the first r entries shared)."""
+    dc = a.shape[1]
+    out = None
+    for j in range(w1.shape[1]):
+        lo = [a[:, i] * w1[i, j] for i in range(dc - 1)]
+        hi = [None] + [a[:, i] * w1[i - 1, j] for i in range(1, dc)]
+        hidden, head = [], None
+        for r in range(dc):
+            if r == 0:
+                h = hi[1]
+            else:
+                head = lo[0] if r == 1 else head + lo[r - 1]
+                h = head
+            for i in range(max(r + 1, 2), dc):
+                h = h + hi[i]
+            hidden.append(h)
+        term = torch.stack(hidden, 1) * w2[j, 0]
+        out = term if out is None else out + term
+    return out
+
+
+def _decode_nmsr_plain(llr, h, num_iterations, weights, traj):
+    """Plain PyTorch twin of NMS-r's kernels (``nmsr_edge_kernel``): the
+    iteration of :func:`_iterate_plain` with, per row, one ascending sort
+    of the magnitudes carrying each slot, :func:`_network_by_position`,
+    each position's magnitude back to its slot, its sign the parity of the
+    other edges' sign bits, and a zero magnitude zeroing the row.  The
+    kernel's rows of a code of degree dc < 8 carry dummy slots that add +0
+    to its sums; the twin has none, and the same values."""
+    w_vc, w_marg, w1, w2 = weights
+    w1 = torch.as_tensor(w1, device=llr.device)
+    w2 = torch.as_tensor(w2, device=llr.device)
+
+    def neural(vc):
+        a, slot = torch.sort(vc.abs(), dim=1)
+        mag = torch.empty_like(a).scatter_(1, slot, _network_by_position(a, w1, w2))
+        neg = torch.signbit(vc)
+        flip = neg ^ (neg.sum(1, keepdim=True) % 2 == 1)
+        return torch.where(a[:, :1] == 0, 0.0, torch.where(flip, -mag, mag))
+
+    return _iterate_plain(llr, h, num_iterations, w_vc, w_marg, traj, neural)[0]
+
+
+def _decode_nmsr_kernel(llr, h, num_iterations, weights, traj):
+    """Launch ``nms_edge_decode_nmsr`` (``weights`` as :func:`_decode`
+    checked them: the entry reads 6 + 4 (dc - 1) host values); counts the
+    frames decoded after a launch that succeeded, ``nmsr.kernel_frames``."""
+    edge_col, var_edges, plan = _kernel_tables(llr, h)
+    (dc, m), (dv, n), batch = edge_col.shape, var_edges.shape, llr.shape[0]
+    w_vc, w_marg, w1, w2 = weights
+    if num_iterations == 0 and not traj:
+        return w_marg * llr
+    shape = (num_iterations + 1, batch, n) if traj else (batch, n)
+    out = torch.empty(shape, dtype=torch.float32, device=llr.device)
+    host = np.concatenate([[w_vc, w_marg], w2.ravel(), w1.ravel()]).astype(np.float32)
+    status = _kernels.library("nms_edge").nms_edge_decode_nmsr(
+        llr.data_ptr(), out.data_ptr(), edge_col.data_ptr(),
+        var_edges.data_ptr(), batch, n, m, dc, dv, num_iterations,
+        host.ctypes.data, int(traj), plan.bucket, plan.warps, plan.frames,
+        _kernels.stream_handle(llr.device))
+    _kernels.check(status, "nms_edge_decode_nmsr")
+    _kernels.LAUNCHES["nmsr_edge_traj" if traj else "nmsr_edge_final"] += 1
+    profiling.count("nmsr.kernel_frames", batch)
+    return out
+
+
 def _decode(params, h, llr, num_iterations, variant, traj):
-    weights = scalar_weights(params, variant)
+    if variant == "NMS-r":
+        if not kernel_holds(h, variant):
+            raise ValueError("NMS-r's edge kernels take a regular check degree "
+                             f"of 2 to 8 (bucket {NMSR_BUCKET}); not this "
+                             f"{tuple(np.shape(h))} code")
+        weights = nmsr_weights(params)
+        dc = tables.degrees(h)[0]
+        if weights[2].shape != (dc - 1, 4) or weights[3].shape != (4, 1):
+            raise ValueError(f"NMS-r's network must be ({dc - 1}, 4) -> (4, 1), "
+                             f"got {weights[2].shape} and {weights[3].shape}")
+        plain, kernel = _decode_nmsr_plain, _decode_nmsr_kernel
+    else:
+        weights = scalar_weights(params, variant)
+        plain, kernel = _decode_edge_plain, _decode_edge_kernel
     if llr.device.type == "cpu":
-        return _decode_edge_plain(llr, h, num_iterations, weights, traj)
+        return plain(llr, h, num_iterations, weights, traj)
     if llr.device.type != "cuda":
         raise ValueError(f"unsupported device {llr.device}")
-    return _decode_edge_kernel(llr, h, num_iterations, weights, traj)
+    return kernel(llr, h, num_iterations, weights, traj)
 
 
 def decode_final_edge(params: dict, h, llr: torch.Tensor, num_iterations: int,
                       variant: str = "NMS-1") -> torch.Tensor:
     """Final-iteration soft outputs (B, n), ``colsum + w_marg * llr``
-    (kernel K1 on CUDA).  ``h`` is the host (m, n) 0/1 parity matrix."""
+    (kernel K1 on CUDA; NMS-r its own kernel).  ``h`` is the host (m, n)
+    0/1 parity matrix."""
     return _decode(params, h, llr, num_iterations, variant, traj=False)
 
 
@@ -249,8 +383,8 @@ def decode_traj_edge(params: dict, h, llr: torch.Tensor, num_iterations: int,
                      variant: str = "NMS-1") -> torch.Tensor:
     """Per-iteration soft-output trajectories (T+1, B, n) in the
     ``nms.decode`` convention: slot 0 = llr, slot t = colsum after t
-    updates + w_marg * llr (kernel K2 on CUDA).  Full f32 throughout, the
-    JAX kernel's ``mode="highest"``."""
+    updates + w_marg * llr (kernel K2 on CUDA; NMS-r its own kernel).  Full
+    f32 throughout, the JAX kernel's ``mode="highest"``."""
     return _decode(params, h, llr, num_iterations, variant, traj=True)
 
 

@@ -1,5 +1,6 @@
 """NMS decoding on the padded edge layout, in plain PyTorch: the decoder for
-NMS-r, for codes no kernel takes, and for training large codes.
+codes no kernel takes (NMS-r's among them) and for training (NMS-r, large
+codes).
 
 Port of ``short_ldpc_decoding_osd_tpu/ops/nms_edge_xla.py``.  Messages live
 in the padded edge layout (B, dc, m): slot q of check row i, dc the largest
@@ -60,25 +61,27 @@ def supports(h, variant: str) -> bool:
     return bool((degs == degs[0]).all())
 
 
-# the smallest batch at which NMS-r takes this layout by default: on an H100
-# (chip_smoke.py) the plain dense step was faster at 1,024 CCSDS frames,
-# where both are bound by host launches, and this layout from 2,048 frames
-# up (1.9x at 262,144, in about a third of the memory)
+# the smallest batch at which NMS-r takes this layout by default on a code
+# its edge kernel does not hold: on an H100 (chip_smoke.py) the plain dense
+# step was faster at 1,024 CCSDS frames, where both are bound by host
+# launches, and this layout from 2,048 frames up (1.9x at 262,144, in about
+# a third of the memory)
 NMS_R_MIN_BATCH = 2048
 
 
 def auto_select(h, variant: str, device: str | torch.device,
                 batch: int) -> bool:
     """The port's rule for serving ``variant`` on ``h`` through this module
-    by default, for steps of ``batch`` frames: on CUDA only; NMS-r (no
-    kernel has the neural check update) whenever :func:`supports` and
-    ``batch >= NMS_R_MIN_BATCH``; a scalar variant only when neither K1
-    (``nms_edge.kernel_holds``) nor K6 (``nms_dense.holds``) takes the
-    code."""
+    by default, for steps of ``batch`` frames: on CUDA only; NMS-r whenever
+    :func:`supports`, its own edge kernel does not hold the code
+    (``nms_edge.kernel_holds``) and ``batch >= NMS_R_MIN_BATCH``; a scalar
+    variant only when neither K1 (``nms_edge.kernel_holds``) nor K6
+    (``nms_dense.holds``) takes the code."""
     if torch.device(device).type != "cuda" or not supports(h, variant):
         return False
     if variant == "NMS-r":
-        return batch >= NMS_R_MIN_BATCH
+        return (batch >= NMS_R_MIN_BATCH
+                and not nms_edge.kernel_holds(h, variant))
     return not (nms_edge.kernel_holds(h) or nms_dense.holds(*np.shape(h)))
 
 

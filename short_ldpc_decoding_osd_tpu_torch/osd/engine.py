@@ -370,13 +370,18 @@ def sliding_osd(prep: PreparedBatch, layout: TepLayout, fcn_params: dict,
 
 def redecode_route(decode_h, variant: str, device, batch: int) -> str:
     """The phase-2 trajectory re-decode's route for ``batch`` rows: a scalar
-    variant takes ``"edge"`` (kernel K2 on CUDA); NMS-r, whose neural check
-    update no kernel has, takes the padded edge layout (``"edge_padded"``)
-    where ``nms_edge_padded.auto_select`` says so (CUDA, a regular check
-    degree, ``NMS_R_MIN_BATCH`` rows or more), else the dense ``nms.decode``
-    (``"dense"``), as JAX's ``"auto"`` takes its edge-layout rung for NMS-r
+    variant takes ``"edge"`` (kernel K2 on CUDA); NMS-r takes ``"edge"``
+    too on CUDA where its kernel holds the code
+    (``nms_edge.kernel_holds``), else the padded edge layout
+    (``"edge_padded"``) where ``nms_edge_padded.auto_select`` says so (CUDA,
+    a regular check degree, ``NMS_R_MIN_BATCH`` rows or more), else the
+    dense ``nms.decode`` (``"dense"``), as JAX's ``"auto"`` takes its
+    edge-layout rung for NMS-r
     (``short_ldpc_decoding_osd_tpu/osd/engine.py:653-671``)."""
     if variant != "NMS-r":
+        return "edge"
+    if (torch.device(device).type == "cuda"
+            and nms_edge.kernel_holds(decode_h, variant)):
         return "edge"
     if nms_edge_padded.auto_select(decode_h, variant, device, batch):
         return "edge_padded"

@@ -128,9 +128,10 @@ def capture_batch(cfg: RecipeConfig, code: Code,
     :data:`CAPTURE_MAX_FRAMES`, whose :func:`capture_frame_bytes` on the
     route ``harness.select_decoder`` picks fit in
     :data:`CAPTURE_MEMORY_SHARE` of ``torch.cuda.mem_get_info``'s free
-    bytes.  NMS-r's route depends on the batch, so a batch that changes it
-    is sized again on the new route.  (JAX sizes this from a TPU HBM
-    model, ``recipe.py:76-115``; the port does not copy it.)"""
+    bytes.  Where its edge kernel does not hold the code, NMS-r's route
+    depends on the batch, so a batch that changes it is sized again on the
+    new route.  (JAX sizes this from a TPU HBM model,
+    ``recipe.py:76-115``; the port does not copy it.)"""
     if cfg.capture_batch is not None:
         return cfg.capture_batch
     dev = torch.device(device)

@@ -26,7 +26,9 @@ from short_ldpc_decoding_osd_tpu_torch import _kernels
 from short_ldpc_decoding_osd_tpu_torch.channel import ChannelSpec
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.mc import harness
-from short_ldpc_decoding_osd_tpu_torch.ops import mc_dense, nms, nms_dense, nms_edge
+from short_ldpc_decoding_osd_tpu_torch.ops import (mc_dense, nms, nms_dense, nms_edge,
+                                                  nms_edge_padded)
+from short_ldpc_decoding_osd_tpu_torch.osd import engine
 
 from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
@@ -154,9 +156,14 @@ def test_holds_the_five_dense_rung_codes():
     ("ccsds_128_64", "NMS-1", "cpu", {}, "edge"),
     ("ccsds_128_64", "NMS-1", "cuda", {}, "edge"),
     ("ccsds_128_64", "NMS-r", "cpu", {}, "plain"),
-    ("ccsds_128_64", "NMS-r", "cuda", {}, "edge_padded"),
-    ("ccsds_128_64", "NMS-r", "cuda", {"batch": 1024}, "plain"),  # small batch
+    ("ccsds_128_64", "NMS-r", "cuda", {}, "edge"),  # NMS-r's own kernel
+    ("ccsds_128_64", "NMS-r", "cuda", {"batch": 1024}, "edge"),  # any batch
     ("qc_96_48", "NMS-r", "cuda", {}, "plain"),  # irregular: not supported
+    # dc 11: no NMS-r kernel, so the padded layout from NMS_R_MIN_BATCH up
+    ("array_121_60", "NMS-r", "cuda", {}, "edge_padded"),
+    ("array_121_60", "NMS-r", "cuda", {"batch": 1024}, "plain"),
+    ("ccsds_128_64", "NMS-r", "cuda", {"decoder": "edge_padded"}, "edge_padded"),
+    ("ccsds_128_64", "NMS-r", "cpu", {"decoder": "edge"}, "edge"),  # the twin
     ("wimax_1056_880", "NMS-1", "cuda", {}, "edge"),
     ("ccsds_128_64", "NMS-1", "cuda", {"decoder": "plain"}, "plain"),
     ("ccsds_128_64", "NMS-1", "cpu", {"decoder": "edge_padded"}, "edge_padded"),
@@ -170,8 +177,29 @@ def test_select_decoder(name, variant, device, kw, want):
     assert harness.select_decoder(h, variant, device=device, **kw) == want
 
 
+@pytest.mark.parametrize("name,holds", [
+    ("ccsds_128_64", True), ("code1_64_32", True),  # regular, dc 8 and 6
+    ("qc_96_48", False), ("wimaxlike_384_192", False),  # irregular
+    ("array_121_60", False), ("wimax_1056_880", False),  # dc 11 and 20
+])
+def test_nmsr_kernel_route_leaves_the_trainer_padded(name, holds):
+    """On CUDA NMS-r's capture step and re-decode take its edge kernel
+    where it holds the code (a regular check degree of bucket 0), at every
+    batch; the trainer, which needs gradients, keeps the padded layout
+    wherever the layout supports the code."""
+    h = get_code(name).h
+    assert nms_edge.kernel_holds(h, "NMS-r") is holds
+    for batch in (256, 262_144):
+        picked = harness.select_decoder(h, "NMS-r", batch, device="cuda")
+        route = engine.redecode_route(h, "NMS-r", torch.device("cuda"), batch)
+        assert (picked == "edge") is holds and (route == "edge") is holds
+    assert (nms_edge_padded.train_select(h, "NMS-r", "cuda")
+            is nms_edge_padded.supports(h, "NMS-r"))
+
+
 @pytest.mark.parametrize("name,variant,decoder", [
-    ("wimax_1056_880", "NMS-1", "dense"), ("ccsds_128_64", "NMS-r", "edge"),
+    ("wimax_1056_880", "NMS-1", "dense"), ("qc_96_48", "NMS-r", "edge"),
+    ("array_121_60", "NMS-r", "edge"),  # dc 11: above NMS-r's kernel bucket
     ("ccsds_128_64", "NMS-r", "dense"), ("qc_96_48", "NMS-r", "edge_padded"),
     ("ccsds_128_64", "NMS-1", "xla")])
 def test_pinned_decoder_that_cannot_take_the_code_raises(name, variant, decoder):

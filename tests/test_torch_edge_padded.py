@@ -97,9 +97,12 @@ def test_nms_r_irregular_raises():
 
 
 @pytest.mark.parametrize("name,variant,device,batch,want", [
-    ("ccsds_128_64", "NMS-r", "cuda", 4096, True),
-    ("ccsds_128_64", "NMS-r", "cuda", pad.NMS_R_MIN_BATCH, True),
-    ("ccsds_128_64", "NMS-r", "cuda", 1024, False),  # the dense step is faster
+    ("ccsds_128_64", "NMS-r", "cuda", 4096, False),  # NMS-r's kernel holds it
+    ("ccsds_128_64", "NMS-r", "cuda", pad.NMS_R_MIN_BATCH, False),
+    ("array_121_60", "NMS-r", "cuda", 4096, True),  # dc 11: no NMS-r kernel
+    ("array_121_60", "NMS-r", "cuda", pad.NMS_R_MIN_BATCH, True),
+    ("array_121_60", "NMS-r", "cuda", 1024, False),  # the dense step is faster
+    ("ccsds_128_64", "NMS-r", "cuda", 1024, False),
     ("ccsds_128_64", "NMS-r", "cpu", 4096, False),
     ("qc_96_48", "NMS-r", "cuda", 4096, False),
     ("ccsds_128_64", "NMS-1", "cuda", 4096, False),  # K1 and K6 hold it

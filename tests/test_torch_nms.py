@@ -148,11 +148,18 @@ def test_edge_layout_reconstructs_h(code_name):
 
 
 def test_edge_wrappers_refuse_nms_r_and_count_no_cpu_launch():
+    """The edge wrappers take NMS-r only where its kernel holds the code (a
+    regular check degree of bucket 0): an irregular code raises.  On the
+    CPU they run the plain twins and launch nothing."""
+    irregular = jax_get_code("qc_96_48").h
+    with pytest.raises(ValueError, match="NMS-r"):
+        nms_edge.decode_final_edge(
+            _torch(_params("NMS-r", irregular, 0)), irregular,
+            torch.as_tensor(_llr(irregular.shape[1], 4, seed=8)), 4, "NMS-r")
     h = jax_get_code("ccsds_128_64").h
     llr = torch.as_tensor(_llr(h.shape[1], 4, seed=8))
-    with pytest.raises(ValueError, match="NMS-r"):
-        nms_edge.decode_final_edge(_torch(_params("NMS-r", h, 0)), h, llr, 4,
-                                   "NMS-r")
     _kernels.reset_launches()
     nms_edge.decode_traj_edge({"check": torch.tensor([0.1])}, h, llr, 4)
+    nms_edge.decode_final_edge(_torch(_params("NMS-r", h, 0)), h, llr, 4,
+                               "NMS-r")
     assert sum(_kernels.LAUNCHES.values()) == 0  # the CPU runs the plain twin

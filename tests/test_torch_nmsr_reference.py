@@ -24,7 +24,7 @@ from gpubench import control_decoder, core
 from gpubench.reference import codes, decode
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.codes.code import make_regular_ldpc
-from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge_padded as pad
+from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge, nms_edge_padded as pad
 
 from torch_threads import one_intra_op_thread  # noqa: F401  (autouse)
 
@@ -84,6 +84,121 @@ def _decodes(h, params, llr):
 
 def _gap(got, want):
     return float(((got - want).abs() / (1.0 + want.abs())).max())
+
+
+def _reference(h, params, llr):
+    """(T+1, B, n) the reference's soft outputs of ``llr``."""
+    soft, _ = DEC.decode_rows(llr, _ref(h, params), ITERS, set(range(ITERS + 1)))
+    return torch.stack([soft[i] for i in range(ITERS + 1)])
+
+
+def _edge(h, params, llr, form):
+    """NMS-r through the edge wrappers (on the CPU the kernels' twin):
+    the trajectory, or the final output alone."""
+    p = {k: torch.as_tensor(v) for k, v in params.items()}
+    if form == "trajectory":
+        return nms_edge.decode_traj_edge(p, h, llr, ITERS, "NMS-r")
+    return nms_edge.decode_final_edge(p, h, llr, ITERS, "NMS-r")
+
+
+def _bits_equal(got, want):
+    return got.shape == want.shape and torch.equal(got.view(torch.int32),
+                                                   want.view(torch.int32))
+
+
+@pytest.mark.parametrize("form", ["trajectory", "final"])
+@pytest.mark.parametrize("name", ["ccsds_128_64", "regular_32_16"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernel_twin_is_the_reference_bit_for_bit(name, seed, form):
+    """NMS-r's kernel twin sums and multiplies in the reference's f32
+    order, so every soft output of every frame, near-tie frames included,
+    equals the reference's to the bit."""
+    h = _h(name)
+    params = _params(h, seed)
+    llr = _frames(h, seed)
+    want = _reference(h, params, llr)
+    got = _edge(h, params, llr, form)
+    assert _bits_equal(got, want if form == "trajectory" else want[ITERS])
+
+
+@pytest.mark.parametrize("name", ["ccsds_128_64", "regular_32_16"])
+@pytest.mark.parametrize("form", ["trajectory", "final"])
+def test_kernel_twin_duplicate_magnitudes(name, form):
+    """Channel values on a coarse grid give rows with equal magnitudes (at
+    the first iteration most rows have some): whichever copy a sort puts
+    first, the outputs are the reference's to the bit."""
+    h = _h(name)
+    params = _params(h, 5)
+    llr = torch.round(_frames(h, 5) * 2.0) / 2.0 + 0.25
+    mags = llr[:, torch.as_tensor(nms.edge_columns(h))].abs()  # (B, m, dc)
+    sorted_mags = torch.sort(mags, dim=-1).values
+    tied = (sorted_mags[..., 1:] == sorted_mags[..., :-1]).any(-1)
+    assert float(tied.float().mean()) > 0.5
+    want = _reference(h, params, llr)
+    got = _edge(h, params, llr, form)
+    assert _bits_equal(got, want if form == "trajectory" else want[ITERS])
+
+
+@pytest.mark.parametrize("name", ["ccsds_128_64", "regular_32_16"])
+@pytest.mark.parametrize("form", ["trajectory", "final"])
+def test_kernel_twin_zero_check_input(name, form):
+    """A zero channel value makes its checks' inputs zero at the first
+    iteration, which zeroes those rows' messages: the reference's sign
+    rule, to the bit."""
+    h = _h(name)
+    params = _params(h, 6)
+    llr = _frames(h, 6)
+    llr[::3, 5] = 0.0
+    llr[1::3, :3] = 0.0
+    want = _reference(h, params, llr)
+    got = _edge(h, params, llr, form)
+    assert _bits_equal(got, want if form == "trajectory" else want[ITERS])
+    # a zeroed row sends 0 on every edge: one iteration on the frames whose
+    # only zero is bit 5 reads as on H without bit 5's rows
+    p = {k: torch.as_tensor(v) for k, v in params.items()}
+    rest = np.ascontiguousarray(h[h[:, 5] == 0])
+    assert _bits_equal(nms_edge.decode_final_edge(p, h, llr[::3], 1, "NMS-r"),
+                       nms_edge.decode_final_edge(p, rest, llr[::3], 1, "NMS-r"))
+
+
+@pytest.mark.parametrize("name", ["ccsds_128_64", "regular_32_16"])
+def test_kernel_twin_within_tolerance_of_the_dense_decoder(name):
+    """The twin against the dense ``nms.decode``, whose products run in
+    another order: within the re-decode limit on the frames clear of a
+    tie, with the same hard decisions."""
+    h = _h(name)
+    params = _params(h, 3)
+    llr = _frames(h, 3)
+    want, near, got = _decodes(h, params, llr)
+    clear = ~near
+    twin = _edge(h, params, llr, "trajectory")
+    assert _gap(twin[:, clear], got["dense"][:, clear]) < GAP
+    assert torch.equal(twin[ITERS][clear] < 0, got["dense"][ITERS][clear] < 0)
+
+
+@pytest.mark.parametrize("dc", range(2, 9))
+def test_padded_slots_change_no_value(dc):
+    """The kernel's rows hold 8 slots: a code of degree dc < 8 fills the
+    rest with magnitudes clamped to FLT_MAX (they sort last) and w1 with
+    +0 rows.  Its network by position then equals the unpadded one, and
+    that the literal network over each leave-one-out list, to the bit."""
+    rng = np.random.default_rng(dc)
+    a = torch.as_tensor(np.sort(np.abs(3.0 * rng.standard_normal((256, dc, 16))),
+                                axis=1).astype(np.float32))
+    a[:64, 1] = a[:64, 0]  # ties
+    w1 = torch.as_tensor(rng.uniform(0.0, 1.0, (dc - 1, 4)).astype(np.float32))
+    w2 = torch.as_tensor(rng.uniform(0.0, 1.0, (4, 1)).astype(np.float32))
+    want = nms_edge._network_by_position(a, w1, w2)
+    big = torch.full((256, 8 - dc, 16), np.finfo(np.float32).max)
+    padded = nms_edge._network_by_position(
+        torch.cat([a, big], 1), torch.cat([w1, torch.zeros(8 - dc, 4)]), w2)
+    assert _bits_equal(padded[:, :dc], want)
+    assert bool(torch.isfinite(padded).all())
+    literal = []
+    for r in range(dc):
+        x = torch.cat([a[:, :r], a[:, r + 1:]], 1)
+        literal.append(DEC._products(x.transpose(1, 2), w1, w2, None))
+    assert _bits_equal(want, torch.stack(literal, 1))
 
 
 def test_regular_code_is_regular():

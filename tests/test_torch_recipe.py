@@ -212,8 +212,9 @@ def test_run_recipe_end_to_end_small(tmp_path, tiny_recipe):
 def test_capture_batch_sizing(monkeypatch):
     """Frames a capture step: the config's value, ``eval_batch`` on the
     CPU, and on the card what the route's bytes a frame fit in half the
-    free memory (``torch.cuda.mem_get_info`` stubbed), NMS-r re-sized when
-    the fitted batch changes its route."""
+    free memory (``torch.cuda.mem_get_info`` stubbed), NMS-r sized as its
+    edge kernel's route where that holds the code, and elsewhere (dc 11)
+    re-sized when the fitted batch changes its route."""
     code = get_code("ccsds_128_64")
     cfg = rec.RecipeConfig(eval_batch=4096)
     assert rec.capture_batch(cfg, code, "cpu") == 4096
@@ -230,13 +231,16 @@ def test_capture_batch_sizing(monkeypatch):
     b = rec.capture_batch(cfg, code, "cuda")
     assert b % 256 == 0 and b * sizes["edge"] <= 0.5e8 < (b + 256) * sizes["edge"]
     nms_r = dataclasses.replace(cfg, variant="NMS-r")
-    padded = rec.capture_frame_bytes(code.h, "NMS-r", "edge_padded")
-    plain = rec.capture_frame_bytes(code.h, "NMS-r", "plain")
+    assert rec.capture_frame_bytes(code.h, "NMS-r", "edge") == sizes["edge"]
+    assert rec.capture_batch(nms_r, code, "cuda") == b
+    array = get_code("array_121_60")
+    padded = rec.capture_frame_bytes(array.h, "NMS-r", "edge_padded")
+    plain = rec.capture_frame_bytes(array.h, "NMS-r", "plain")
     free["bytes"] = 2 * 1.5e9
-    b = rec.capture_batch(nms_r, code, "cuda")
+    b = rec.capture_batch(nms_r, array, "cuda")
     assert b == 1.5e9 // padded // 256 * 256 >= 2048
     free["bytes"] = 2 * 1000 * padded  # too small for the padded layout
-    b = rec.capture_batch(nms_r, code, "cuda")
+    b = rec.capture_batch(nms_r, array, "cuda")
     assert b == max(256, 2 * 1000 * padded // 2 // plain // 256 * 256)
 
 

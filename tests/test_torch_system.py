@@ -84,16 +84,20 @@ def test_dl_osd_step_from_llr_matches_jax(r4, refparity_jax):
 
 @pytest.mark.parametrize("code_name,variant,device,batch,route", [
     ("ccsds_128_64", "NMS-1", "cuda", 4096, "edge"),
-    ("ccsds_128_64", "NMS-r", "cuda", 4096, "edge_padded"),
+    ("ccsds_128_64", "NMS-r", "cuda", 4096, "edge"),
     ("ccsds_128_64", "NMS-r", "cuda", nms_edge_padded.NMS_R_MIN_BATCH,
-     "edge_padded"),
-    ("ccsds_128_64", "NMS-r", "cuda", 1024, "dense"),  # small batch
+     "edge"),
+    ("ccsds_128_64", "NMS-r", "cuda", 1024, "edge"),  # the kernel at any batch
+    # dc 11: no NMS-r kernel, so the padded layout from NMS_R_MIN_BATCH up
+    ("array_121_60", "NMS-r", "cuda", 4096, "edge_padded"),
+    ("array_121_60", "NMS-r", "cuda", 1024, "dense"),
     ("ccsds_128_64", "NMS-r", "cpu", 4096, "dense"),
     ("qc_96_48", "NMS-r", "cuda", 4096, "dense"),  # irregular check degree
 ])
 def test_redecode_route_rule(code_name, variant, device, batch, route):
-    """NMS-r's phase-2 re-decode takes the padded edge layout where the
-    capture step's rule does (JAX's "auto" takes its edge-layout rung)."""
+    """NMS-r's phase-2 re-decode takes its edge kernel on CUDA where it
+    holds the code, and the padded edge layout where the capture step's
+    rule does (JAX's "auto" takes its edge-layout rung)."""
     h = get_code(code_name).h
     assert engine.redecode_route(h, variant, torch.device(device), batch) == route
 

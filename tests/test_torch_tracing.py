@@ -7,12 +7,14 @@ outputs are the same bit for bit."""
 
 import collections
 import contextlib
+import ctypes
 import json
 
+import numpy as np
 import pytest
 import torch
 
-from short_ldpc_decoding_osd_tpu_torch import system
+from short_ldpc_decoding_osd_tpu_torch import _kernels, system
 from short_ldpc_decoding_osd_tpu_torch.codes import get_code
 from short_ldpc_decoding_osd_tpu_torch.ops import nms, nms_edge, nms_edge_padded
 from short_ldpc_decoding_osd_tpu_torch.utils import profiling
@@ -312,3 +314,62 @@ def test_nmsr_round_counts_its_updates(tmp_path):
     assert snap["counters"]["nmsr.edge_updates"] == (256 + 32) * 512 * 12
     assert snap["spans"]["nmsr.check"]["parents"] == {"capture.decode": 12,
                                                       "redecode": 12}
+
+
+@pytest.mark.parametrize("status", [0, 719])
+def test_nmsr_kernel_counts_its_frames(monkeypatch, status):
+    """Each NMS-r kernel launch that succeeded adds its frames to
+    ``nmsr.kernel_frames`` and one launch to its ``LAUNCHES`` entry, and
+    hands the kernel its weights as host values (w_vc, w_marg, w2, w1); a
+    refused launch raises and counts nothing; it opens none of the padded
+    path's spans.  The launch is a stand-in: there is no card here."""
+    code = get_code("ccsds_128_64")
+    params = nms.init_params("NMS-r", code.h, seed=1)
+    w_vc, w_marg, w1, w2 = nms_edge.nmsr_weights(params)
+    llr = torch.randn((16, code.n), generator=torch.Generator().manual_seed(2))
+    launched = []
+
+    class Library:
+        def nms_edge_decode_nmsr(self, *args):
+            launched.append(args)
+            weights = np.ctypeslib.as_array(
+                (ctypes.c_float * 34).from_address(args[10]))
+            assert weights[:2].tolist() == [np.float32(w_vc), np.float32(w_marg)]
+            assert (weights[2:6] == w2.ravel()).all()
+            assert (weights[6:] == w1.ravel()).all()
+            return status
+
+    monkeypatch.setattr(nms_edge._kernels, "library", lambda name: Library())
+    monkeypatch.setattr(nms_edge._kernels, "stream_handle", lambda dev: 0)
+    _kernels.reset_launches()
+    weights = nms_edge.nmsr_weights(params)
+    with profiling.recording():
+        for traj in (False, True):
+            if status:
+                with pytest.raises(RuntimeError, match="cudaError 719"):
+                    nms_edge._decode_nmsr_kernel(llr, code.h, 3, weights, traj)
+            else:
+                nms_edge._decode_nmsr_kernel(llr, code.h, 3, weights, traj)
+    assert len(launched) == 2
+    snap = profiling.snapshot()
+    assert snap["spans"] == {}
+    assert snap["counters"] == ({} if status else {"nmsr.kernel_frames": 2 * 16})
+    want = 0 if status else 1
+    assert (_kernels.LAUNCHES["nmsr_edge_final"],
+            _kernels.LAUNCHES["nmsr_edge_traj"]) == (want, want)
+
+
+@pytest.mark.parametrize("traj", [False, True])
+def test_nmsr_twin_counts_no_kernel_frames(traj):
+    """On the CPU the NMS-r edge wrappers run the kernels' twin: no
+    ``nmsr.kernel_frames``, no launch, and none of the padded path's spans
+    or counters."""
+    code = get_code("ccsds_128_64")
+    params = nms.init_params("NMS-r", code.h, seed=1)
+    llr = torch.randn((16, code.n), generator=torch.Generator().manual_seed(2))
+    fn = nms_edge.decode_traj_edge if traj else nms_edge.decode_final_edge
+    _kernels.reset_launches()
+    with profiling.recording():
+        fn(params, code.h, llr, 3, "NMS-r")
+    assert profiling.snapshot() == {"spans": {}, "counters": {}}
+    assert sum(_kernels.LAUNCHES.values()) == 0
