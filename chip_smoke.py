@@ -41,7 +41,11 @@ Phases (each raises on failure, so the script never exits 0 after one):
    that every degree bucket of the iteration body runs, and the encode's
    counters of those K3 runs (``mc.columns_as_bit``,
    ``mc.columns_encoded``: G's unit columns and the others, a launch); K4's
-   split on wimax_1056_880 at 262,144 frames and 4.0 dB;
+   split on wimax_1056_880 at 262,144 frames and 4.0 dB; then
+   (``phase_enms_wimax``) K4 and K3 on the extended matrix ENMS decodes
+   wimax_1056_880 on (220 x 1,056, bucket 4) at 4.0 dB: their launch
+   shapes, both equal to their twins counter for counter, ``enms.frames``
+   a launch, K3 on H in ENMS's place beside it, both timed at 262,144;
 3. the two-phase main path at full width: 8 rounds of the 262,144-frame
    capture step plus phase 2 (capture 32,768) at 3.0 dB with the
    ``runs/r4_pipeline`` artifacts, with every launch count reset just
@@ -212,11 +216,12 @@ Phases (each raises on failure, so the script never exits 0 after one):
     w_marg, printed), one ``cascade_counters`` call (K8a, K8b) == its twin,
     each timed; ``run_nms_mc`` at 3.0 dB: NMS-2 and NMS-3 (K3) and NMS-2 at
     ``rung="dense"`` (K7) to 2,097,152 frames, ENMS on its capture route
-    (K1), the untrained NMS-r (its edge kernel, 65,536 frames), each against
-    ``variant_fer.json`` by 99.9% Wilson overlap, NMS-2 == NMS-3 and CCSDS
-    ENMS == NMS-1 counter for counter and row for row, the decoders and
-    launches of each route; ENMS on ``qc_96_48`` (K1 on the 240 x 96
-    extended matrix, reported); the capture step pinned to K6 == the K1
+    (K1) and without capture (K3), the untrained NMS-r (its edge kernel,
+    65,536 frames), each against ``variant_fer.json`` by 99.9% Wilson
+    overlap, NMS-2 == NMS-3 and CCSDS ENMS == NMS-1 counter for counter
+    (row for row on the capture route), the decoders and launches of each
+    route; ENMS on ``qc_96_48`` (K3 on the 240 x 96 extended matrix,
+    reported); the capture step pinned to K6 == the K1
     step and the raw-LLR phase-2 step (K2) at both weight sets; then
     NMS-r's two-phase system: ``recipe.run_recipe`` on
     ``runs/r4_pipeline``'s config with ``"variant": "NMS-r"`` and the
@@ -1653,6 +1658,79 @@ def phase_mc_other_codes(dev):
         if name == "wimax_1056_880":
             # the wimax-phase1-4.0dB cell's step size and SNR
             k4_split(name, code, params, 4.0, 262_144, 5, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+ENMS_RUN = os.path.join(ROOT, "runs", "r29_enms_wimax")
+
+
+def phase_enms_wimax(dev, batch: int = 65_536, timed: int = 262_144):
+    """K4 and K3 on the matrix ENMS decodes WiMAX (1056,880) on, its
+    extended H (220 x 1,056: 176 checks of degree 20, 44 of degree 36;
+    bucket 4), at the wimax-enms-phase1-4.0dB cell's SNR, groups and
+    schedule: their launch shapes, K4 and K3 against their plain twins
+    (K3 against the literal rule and against the chain of STAGE, rank and
+    resumed COUNT twins) counter for counter, ``enms.frames`` a launch, and
+    both timed at the cell's 262,144 frames against their bound.  The
+    weights are ``runs/r29_enms_wimax``'s where it holds them, else ENMS's
+    initial ones."""
+    code = get_code("wimax_1056_880")
+    if os.path.exists(os.path.join(ENMS_RUN, "nms_params.pkl")):
+        params = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in
+                  load_jax_pickle(os.path.join(ENMS_RUN, "nms_params.pkl")).items()}
+        label = "r29_enms_wimax weights"
+    else:
+        params, label = nms.init_params("ENMS"), "initial weights"
+    snr, block, seed = 4.0, 512, 7
+    mc = nms_edge.mc_setup(code, params, "ENMS", snr, seed, dev)
+    if mc.h.shape != code.extended().h.shape or mc.plan.bucket != 4:
+        raise AssertionError(f"ENMS WiMAX: matrix {mc.h.shape}, plan {mc.plan}")
+    for stage in (False, True):
+        log_launch_shape("wimax_1056_880 ENMS", mc, stage)
+    rows_s, final = nms_edge.build_rows_schedule(
+        nms_edge.DEFAULT_COMPACT_SCHEDULE, block, ITERS)
+    with profiling.recording(record=profiling.Record()) as rec:
+        k4 = nms_edge.fused_counters_edge(code, params, "ENMS", ITERS, snr,
+                                          batch, seed, device=dev)
+        k3 = nms_edge.fused_counters_edge_compact(
+            code, params, "ENMS", ITERS, snr, batch, seed, block_frames=block,
+            schedule=nms_edge.DEFAULT_COMPACT_SCHEDULE, device=dev)
+    counters_equal("K4 ENMS wimax", k4,
+                   nms_edge._mc_frames_plain(mc, ITERS, batch)[0][:5])
+    counters_equal("K3 ENMS wimax", k3, nms_edge._compact_plain(
+        mc, batch, block, rows_s, final))
+    counters_equal("K3 ENMS wimax (chain of twins)", k3,
+                   nms_edge._compact_chain(mc, batch, block, rows_s, final,
+                                           frames_fn=nms_edge._mc_frames_plain,
+                                           rank_fn=nms_edge._group_rank_plain))
+    frames = rec.snapshot()["counters"].get("enms.frames")
+    want = 2 * batch + batch // block * rows_s[0][1]
+    if frames != want:
+        raise AssertionError(f"enms.frames {frames}, want {want}")
+    log(f"ENMS wimax_1056_880 {mc.h.shape} at {snr} dB ({label}), {batch} "
+        f"frames: K4 {k4.tolist()}, K3 {k3.tolist()} (overflow {int(k3[5])}), "
+        f"each equal to its twin counter for counter; enms.frames {frames}")
+    k3_h = nms_edge.fused_counters_edge_compact(
+        code, params, "NMS-1", ITERS, snr, batch, seed, block_frames=block,
+        schedule=nms_edge.DEFAULT_COMPACT_SCHEDULE, device=dev)
+    log(f"ENMS wimax_1056_880: K3 on H in ENMS's place {k3_h.tolist()} "
+        f"({code.h.shape}): {'equal' if torch.equal(k3_h, k3) else 'differs'}")
+    torch.cuda.empty_cache()
+    k4_ms = cuda_ms(lambda: nms_edge.fused_counters_edge(
+        code, params, "ENMS", ITERS, snr, timed, seed, device=dev), 5)
+    k3_ms = cuda_ms(lambda: nms_edge.fused_counters_edge_compact(
+        code, params, "ENMS", ITERS, snr, timed, seed, block_frames=block,
+        schedule=nms_edge.DEFAULT_COMPACT_SCHEDULE, device=dev), 5)
+    k4_bound = bound_ms(8 * 5, nms_edge_ops(mc.h, timed, ITERS) / F32_INSTR)[0]
+    # K3's bound with every carried row taken (the most its schedule runs)
+    carried = timed // block * rows_s[0][1]
+    k3_bound = bound_ms(8 * 6, edge_ops(mc.h, timed * rows_s[0][0]
+                                        + carried * final,
+                                        timed + carried) / F32_INSTR)[0]
+    log(f"ENMS wimax_1056_880 timed at {timed} frames: K4 {k4_ms:.4f} ms "
+        f"(bound {k4_bound:.4f}), K3 {k3_ms:.4f} ms (bound at full rows "
+        f"{k3_bound:.4f}), {timed / k3_ms * 1e3:.0f} frames/s through K3")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -4346,13 +4424,18 @@ def variant_points(dev, recs, weight_sets):
         f"({se.frame_errors} frame errors, {len(fe.labels)} failure rows "
         f"captured, equal)")
     del captured, fe, f1
-    stats, _, decoders, launches = variant_point(
-        dev, "ENMS", code, p1, "ENMS", VARIANT_FRAMES, SWEEP_B)
-    expect_route("ENMS", decoders, launches, ["edge"], ["nms_edge_final"])
-    if stats != se:
-        raise AssertionError("ENMS without capture differs from its capture route")
-    count(launches)
-    results["ENMS"] = stats
+    fused = {}
+    for name in ("ENMS", "NMS-1"):
+        stats, _, decoders, launches = variant_point(
+            dev, name, code, p1, name, VARIANT_FRAMES, SWEEP_B)
+        # the fused branch: K3, and K4 from an overflowed step on
+        expect_route(name, decoders, launches, [], ["mc_compact"]
+                     + (["mc_oneshot"] if "mc_oneshot" in launches else []))
+        count(launches)
+        fused[name] = stats
+    if fused["ENMS"] != fused["NMS-1"]:
+        raise AssertionError("CCSDS ENMS differs from NMS-1 on the fused branch")
+    results["ENMS"] = fused["ENMS"]
     stats, _, decoders, launches = variant_point(
         dev, "NMS-r untrained", code, nms.init_params("NMS-r", code.h), "NMS-r",
         NMS_R_INIT_FRAMES, NMS_R_INIT_FRAMES)
@@ -4369,19 +4452,21 @@ def variant_points(dev, recs, weight_sets):
     shapes = []
 
     def wrap(plain):
-        def decode(params, h, *args, **kwargs):
-            shapes.append(tuple(np.shape(h)))
-            return plain(params, h, *args, **kwargs)
-        return decode
-    with patched(nms_edge, "decode_final_edge", wrap):
+        def setup(*args, **kwargs):
+            mc = plain(*args, **kwargs)
+            shapes.append(mc.h.shape)
+            return mc
+        return setup
+    with patched(nms_edge, "mc_setup", wrap):
         stats, _, decoders, launches = variant_point(
             dev, "ENMS qc_96_48", qc, p1, "ENMS", 4 * NMS_R_INIT_FRAMES,
             NMS_R_INIT_FRAMES)
-    expect_route("ENMS qc_96_48", decoders, launches, ["edge"], ["nms_edge_final"])
+    expect_route("ENMS qc_96_48", decoders, launches, [], ["mc_compact"]
+                 + (["mc_oneshot"] if "mc_oneshot" in launches else []))
     if set(shapes) != {qc.extended().h.shape}:
         raise AssertionError(f"ENMS qc_96_48 decoded on {set(shapes)}")
     count(launches)
-    log(f"variants ENMS qc_96_48 (reported, no record): K1 on the extended "
+    log(f"variants ENMS qc_96_48 (reported, no record): K3 on the extended "
         f"{qc.extended().h.shape} matrix, FER {stats.fer:.6f} of {stats.frames}")
 
     for label, (params, variant) in weight_sets.items():
@@ -4990,6 +5075,7 @@ def main():
     smi = phase_environment()
     rows = phase_kernels(dev) + phase_mc_kernels(dev) + phase_dense_kernels(dev)
     phase_mc_other_codes(dev)
+    phase_enms_wimax(dev)
     phase_card_vs_cpu(dev)
     phase_path(dev)
     system_out = phase_main_path(dev, rows)

@@ -230,8 +230,9 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
     steps of ``batch`` frames until the frame errors exceed
     ``error_budget`` or ``max_frames`` frames were decoded.
 
-    * Fused branch (no capture, a scalar variant other than ENMS, the plain
-      AWGN spec of ``snr_db``, ``batch % 32 == 0``): each step is kernel K3
+    * Fused branch (no capture, a scalar variant (ENMS on its extended
+      matrix), the plain AWGN spec of ``snr_db``, ``batch % 32 == 0``):
+      each step is kernel K3
       (``fused_counters_edge_compact``, ``DEFAULT_COMPACT_SCHEDULE``,
       t1 = 4, groups of ``ladder.ladder_blocks`` frames) with the step seed
       ``(seed * 100003 + step) & 0x7FFFFFFF``.  A step whose compaction
@@ -246,8 +247,9 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
       (``mc_dense.fused_counters``) every step, with the same step seeds;
       ``"xla"`` the plain step (``build_nms_mc_step(decoder="plain")``).  A
       fused rung raises outside the fused branch's conditions, and
-      ``"dense"`` for a code K7 does not hold: a pinned rung never falls
-      back to another.
+      ``"dense"`` for a matrix K7 does not hold (ENMS's extended one): a
+      pinned rung never falls back to another, and none decodes H in
+      ENMS's place.
     * ``resume_path``: a json file persisting (step, counters); both
       branches derive their frames from the step index, so a resumed sweep
       decodes exactly the frames that would have followed.
@@ -278,7 +280,7 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
     params = {k: torch.as_tensor(v).cpu() for k, v in params.items()}
     fused_ok = (
         not capture_failures
-        and variant not in ("NMS-r", "ENMS")
+        and variant != "NMS-r"
         and spec == ChannelSpec.awgn(snr_db, code.rate)
         and batch % 32 == 0
     )
@@ -287,13 +289,12 @@ def run_nms_mc(code: Code, params: dict, variant: str, num_iterations: int,
     if rung in ("compact", "oneshot", "dense") and not fused_ok:
         raise ValueError(
             f"rung {rung!r} needs the fused branch (no capture, a scalar "
-            "variant other than ENMS, plain AWGN, batch % 32 == 0)")
+            "variant, plain AWGN, batch % 32 == 0)")
     if rung == "compact" and not compact_enabled:
         raise ValueError(f"rung 'compact' does not apply to batch {batch} "
                          f"with {num_iterations} iterations")
-    if rung == "dense" and not nms_dense.holds(code.m, code.n, code.k):
-        raise ValueError(f"rung 'dense': kernel K7 does not hold the "
-                         f"({code.m}, {code.n}) code {code.name}")
+    if rung == "dense":
+        mc_dense.check_holds(code, variant)
     if mesh is not None:
         step = _mesh_step(code, params, variant, num_iterations, snr_db, batch,
                           seed, spec, rung, fused_ok, mesh)

@@ -113,13 +113,30 @@ def mc_fused(weights, seed: int, h: torch.Tensor, g: torch.Tensor,
                             mean)
 
 
+def _decode_matrix(code, variant: str) -> np.ndarray:
+    """The matrix the dense rung decodes ``variant`` on: ``code.h``, or
+    ENMS's ``code.extended().h``."""
+    return code.extended().h if variant == "ENMS" else code.h
+
+
+def check_holds(code, variant: str) -> None:
+    """Raise where K7 does not hold the matrix ``variant`` decodes on."""
+    m, n = _decode_matrix(code, variant).shape
+    if not nms_dense.holds(m, n, code.k):
+        raise ValueError(f"rung 'dense': kernel K7 does not hold {variant}'s "
+                         f"({m}, {n}) matrix of the code {code.name}")
+
+
 def fused_counters(code, params: dict, variant: str, num_iterations: int,
                    snr_db: float, batch: int, seed: int,
                    device: str | torch.device = "cuda") -> torch.Tensor:
     """The harness's counter convention over :func:`mc_fused`: ``batch``
-    hash frames of ``seed`` at ``snr_db`` (plain AWGN) on ``code.h`` (not
-    extended, as in JAX), (5,) int64 on ``device``."""
+    hash frames of ``seed`` at ``snr_db`` (plain AWGN) on ``code.h``, or
+    ENMS's ``code.extended().h`` (raising where K7 does not hold it),
+    (5,) int64 on ``device``."""
+    check_holds(code, variant)
     dev = resolve_device(device)
-    h, g = tables.f32(code.h, dev), tables.f32(code.g, dev)
+    h = tables.f32(_decode_matrix(code, variant), dev)
+    g = tables.f32(code.g, dev)
     return mc_fused(nms.scalar_weights(params, variant), seed, h, g,
                     num_iterations, batch, sigma_for_snr(snr_db, code.rate))

@@ -249,7 +249,11 @@ def _kernel_tables(llr, h):
     return edge_col, var_edges, plan
 
 
-def _decode_edge_kernel(llr, h, num_iterations, weights, traj):
+def _decode_edge_kernel(llr, h, num_iterations, weights, traj,
+                        extended=False):
+    """Launch ``nms_edge_decode`` (K1, or K2 with ``traj``); with
+    ``extended`` (ENMS's matrix) counts the frames decoded after a launch
+    that succeeded, ``enms.frames``."""
     edge_col, var_edges, plan = _kernel_tables(llr, h)
     (dc, m), (dv, n), batch = edge_col.shape, var_edges.shape, llr.shape[0]
     if num_iterations == 0 and not traj:
@@ -265,6 +269,8 @@ def _decode_edge_kernel(llr, h, num_iterations, weights, traj):
     )
     _kernels.check(status, "nms_edge_decode")
     _kernels.LAUNCHES["nms_edge_traj" if traj else "nms_edge_final"] += 1
+    if extended:
+        profiling.count("enms.frames", batch)
     return out
 
 
@@ -363,7 +369,9 @@ def _decode(params, h, llr, num_iterations, variant, traj):
         plain, kernel = _decode_nmsr_plain, _decode_nmsr_kernel
     else:
         weights = scalar_weights(params, variant)
-        plain, kernel = _decode_edge_plain, _decode_edge_kernel
+        plain = _decode_edge_plain
+        kernel = functools.partial(_decode_edge_kernel,
+                                   extended=variant == "ENMS")
     if llr.device.type == "cpu":
         return plain(llr, h, num_iterations, weights, traj)
     if llr.device.type != "cuda":
@@ -375,7 +383,7 @@ def decode_final_edge(params: dict, h, llr: torch.Tensor, num_iterations: int,
                       variant: str = "NMS-1") -> torch.Tensor:
     """Final-iteration soft outputs (B, n), ``colsum + w_marg * llr``
     (kernel K1 on CUDA; NMS-r its own kernel).  ``h`` is the host (m, n)
-    0/1 parity matrix."""
+    0/1 parity matrix the decoder runs on (ENMS: ``Code.extended().h``)."""
     return _decode(params, h, llr, num_iterations, variant, traj=False)
 
 
@@ -472,11 +480,15 @@ def parity_columns(encode: torch.Tensor, n: int, k: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class MCSetup:
-    """What every fused Monte-Carlo launch of one call shares: the code's
-    tables on ``device``, the decoder weights, the channel (AWGN around a
-    mean of 1) and the seed."""
+    """What every fused Monte-Carlo launch of one call shares: the tables
+    of the matrix the decoder runs on and of the code's G on ``device``,
+    the decoder weights, the channel (AWGN around a mean of 1) and the
+    seed.  ENMS decodes on ``Code.extended().h``: H and the pairwise sums
+    of its rows, so a word's syndrome on it is zero exactly when it is on
+    H, and the counters keep their meaning."""
 
-    h: np.ndarray  # (m, n) 0/1 parity matrix (host)
+    h: np.ndarray  # (m, n) 0/1 matrix the decoder runs on (host)
+    extended: bool  # h is ENMS's extended matrix
     k: int
     weights: tuple  # (w_vc, w_chk, w_marg) as f32 values
     sigma: float  # f32 value
@@ -515,11 +527,16 @@ def mc_plan(m: int, n: int, dc: int, dv: int, k: int) -> LaunchPlan | None:
 def mc_setup(code, params: dict, variant: str, snr_db: float, seed: int,
              device: str | torch.device = "cuda") -> MCSetup:
     """The shared state of a fused Monte-Carlo call on ``device`` (plain
-    AWGN at ``snr_db``); the code's tables come from ``codes.tables``."""
+    AWGN at ``snr_db``): the edge tables of ``code.h``, or for ENMS of
+    ``code.extended().h``; G, its encode tables and the sampler stay the
+    code's.  The tables come from ``codes.tables``."""
     dev = resolve_device(device)
-    edge_col, var_edges = tables.get(code.h, _edge_tables, dev)
+    extended = variant == "ENMS"
+    h = code.extended().h if extended else code.h
+    edge_col, var_edges = tables.get(h, _edge_tables, dev)
     return MCSetup(
-        h=code.h, k=code.g.shape[0], weights=scalar_weights(params, variant),
+        h=h, extended=extended, k=code.g.shape[0],
+        weights=scalar_weights(params, variant),
         sigma=float(np.float32(sigma_for_snr(snr_db, code.rate))),
         seed=int(seed) & 0xFFFFFFFF, edge_col=edge_col, var_edges=var_edges,
         g32=tables.f32(code.g, dev),
@@ -620,7 +637,8 @@ def _mc_frames_kernel(mc: MCSetup, iters: int, count: int, ids=None,
     """Launch ``mc_frames`` (csrc/mc_fused.cu); same contract as
     :func:`_mc_frames_plain`.  Counts G's columns of each kind, once a
     launch: ``mc.columns_as_bit`` (unit columns, read as a message bit) and
-    ``mc.columns_encoded`` (the others, popcounted)."""
+    ``mc.columns_encoded`` (the others, popcounted); on ENMS's extended
+    matrix also the launch's ``count`` slots, ``enms.frames``."""
     if ids is not None:
         _check_i32("ids", ids, count, mc.device)
     if (msgs_in is None) != (src is None) or (keep and not stage):
@@ -662,6 +680,8 @@ def _mc_frames_kernel(mc: MCSetup, iters: int, count: int, ids=None,
     _kernels.check(status, "mc_frames")
     profiling.count("mc.columns_as_bit", n - p)
     profiling.count("mc.columns_encoded", p)
+    if mc.extended:
+        profiling.count("enms.frames", count)
     return counters, stat, msgs_out
 
 
@@ -779,7 +799,8 @@ def fused_counters_edge(code, params: dict, variant: str, num_iterations: int,
                         snr_db: float, batch: int, seed: int,
                         device: str | torch.device = "cuda") -> torch.Tensor:
     """One-shot fused Monte-Carlo step (kernel K4 on CUDA): ``batch`` hash
-    frames of ``seed`` at ``snr_db`` through ``num_iterations`` iterations;
+    frames of ``seed`` at ``snr_db`` through ``num_iterations`` iterations
+    on ``mc_setup``'s matrix (ENMS: the extended one);
     returns (5,) int64 [frames, frame_err, bit_err, detected, undetected]
     on ``device``.  Span ``mc.step``, its set-up ``mc.setup``."""
     with profiling.span("mc.step"):
@@ -800,7 +821,8 @@ def fused_counters_edge_compact(code, params: dict, variant: str,
                                 ) -> torch.Tensor:
     """Early-termination counters via convergence compaction (kernel K3 on
     CUDA): (6,) int64 [frames, frame_err, bit_err, detected, undetected,
-    overflow] on ``device``.
+    overflow] on ``device``, decoded on ``mc_setup``'s matrix (ENMS: the
+    extended one).
 
     ``schedule`` is a tuple of ``(iters, frac)`` stages (fractions of
     ``block_frames``, see :func:`build_rows_schedule`); when None, one

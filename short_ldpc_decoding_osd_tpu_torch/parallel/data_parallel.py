@@ -139,11 +139,11 @@ def sharded_fused_mc_step(code: Code, variant: str, num_iterations: int,
             return xla(params, generator), None
 
         return step_xla
-    if (variant in ("NMS-r", "ENMS") or batch % 32
+    if (variant == "NMS-r" or batch % 32
             or spec != ChannelSpec.awgn(snr_db, code.rate)):
-        raise ValueError("the fused mesh step needs a scalar variant other "
-                         "than ENMS, plain AWGN and a batch that is a "
-                         "multiple of 32; pin rung='xla'")
+        raise ValueError("the fused mesh step needs a scalar variant, plain "
+                         "AWGN and a batch that is a multiple of 32; pin "
+                         "rung='xla'")
     t1 = 4
     cblock, compact_enabled = ladder.ladder_blocks(batch, num_iterations, t1)
     if rung == "compact" and not compact_enabled:

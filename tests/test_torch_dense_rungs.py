@@ -181,7 +181,7 @@ def test_run_nms_mc_oneshot_and_xla_rungs():
 
 @pytest.mark.parametrize("case", [
     dict(name="wimax_1056_880", variant="NMS-1", rung="dense", batch=64),
-    dict(name="ccsds_128_64", variant="ENMS", rung="dense", batch=64),
+    dict(name="qc_96_48", variant="ENMS", rung="dense", batch=64),
     dict(name="ccsds_128_64", variant="NMS-r", rung="oneshot", batch=64),
     dict(name="ccsds_128_64", variant="NMS-1", rung="compact", batch=96),
     dict(name="ccsds_128_64", variant="NMS-1", rung="dense", batch=100),

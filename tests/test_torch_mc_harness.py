@@ -41,11 +41,12 @@ def test_run_nms_mc_error_budget_stops():
     assert idx >= 2 and stats == want
 
 
-@pytest.mark.parametrize("variant", ["NMS-1", "ENMS"], ids=["fused", "step"])
-def test_run_nms_mc_resume_reproduces(variant, tmp_path):
+@pytest.mark.parametrize("rung", [None, "xla"], ids=["fused", "step"])
+def test_run_nms_mc_resume_reproduces(rung, tmp_path):
     code = get_code("ccsds_128_64")
+    variant = "NMS-1"
     kw = dict(batch=256, error_budget=10**6, max_frames=3 * 256, seed=4,
-              device="cpu")
+              rung=rung, device="cpu")
     whole, _ = harness.run_nms_mc(code, _params(), variant, 6, 2.5, **kw)
     path = str(tmp_path / "resume.json")
     first, _ = harness.run_nms_mc(code, _params(), variant, 6, 2.5,

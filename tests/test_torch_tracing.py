@@ -197,6 +197,67 @@ def test_launch_counts_encode_columns(monkeypatch, status):
     assert profiling.snapshot()["counters"] == want
 
 
+@pytest.mark.parametrize("status", [0, 719])
+@pytest.mark.parametrize("variant", ["ENMS", "NMS-1"])
+def test_launch_counts_enms_frames(monkeypatch, variant, status):
+    """Each ``mc_frames`` launch that succeeded on ENMS's extended matrix
+    adds its slots to ``enms.frames``, and each K1/K2 launch with the
+    variant ENMS its frames; NMS-1's launches and a refused launch count
+    none.  The launches are stand-ins: there is no card here."""
+    code = get_code("wimax_1056_880")
+    params = nms.init_params(variant)
+    mc = nms_edge.mc_setup(code, params, variant, 4.0, 1, "cpu")
+    assert mc.extended == (variant == "ENMS")
+    launched = []
+
+    class Library:
+        def mc_frames(self, *args):
+            launched.append(args)
+            return status
+
+        def nms_edge_decode(self, *args):
+            launched.append(args)
+            return status
+
+    monkeypatch.setattr(nms_edge._kernels, "library", lambda name: Library())
+    monkeypatch.setattr(nms_edge._kernels, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(nms_edge, "mc_occupancy", lambda *a: {
+        "blocks_per_sm": 1, "sms": 132, "table_shared": 1})
+    llr = torch.zeros((16, code.n))
+    weights = nms.scalar_weights(params, variant)
+    with profiling.recording():
+        for call in (lambda: nms_edge._mc_frames_kernel(mc, 4, 1024),
+                     lambda: nms_edge._decode_edge_kernel(
+                         llr, mc.h, 3, weights, False, variant == "ENMS"),
+                     lambda: nms_edge._decode_edge_kernel(
+                         llr, mc.h, 3, weights, True, variant == "ENMS")):
+            if status:
+                with pytest.raises(RuntimeError, match="cudaError 719"):
+                    call()
+            else:
+                call()
+    assert len(launched) == 3
+    counters = profiling.snapshot()["counters"]
+    want = 1024 + 2 * 16 if variant == "ENMS" and not status else None
+    assert counters.get("enms.frames") == want
+
+
+def test_enms_twins_count_no_frames():
+    """On the CPU the fused step and the edge wrappers run the kernels'
+    twins on ENMS's extended matrix: no ``enms.frames``."""
+    code = get_code("wimax_1056_880")
+    params = nms.init_params("ENMS")
+    llr = torch.zeros((8, code.n))
+    with profiling.recording():
+        nms_edge.fused_counters_edge_compact(
+            code, params, "ENMS", 6, 4.0, 128, seed=3, block_frames=128,
+            device="cpu")
+        nms_edge.fused_counters_edge(code, params, "ENMS", 4, 4.0, 32, seed=3,
+                                     device="cpu")
+        nms_edge.decode_final_edge(params, code.extended().h, llr, 3, "ENMS")
+    assert "enms.frames" not in profiling.snapshot()["counters"]
+
+
 def test_recording_into_a_record_of_its_own(two_phase):
     """``stage_times`` times one round by its spans and leaves the shared
     record as it was."""

@@ -134,7 +134,8 @@ def test_nms2_and_nms3_at_init_give_the_same_counters():
 def test_ccsds_enms_is_nms1_frame_for_frame():
     """ENMS decodes on ``extended().h``, which for CCSDS is H itself, so on
     the capture route (K1's twin here) it captures the same failures as
-    NMS-1 with the same counters."""
+    NMS-1 with the same counters, and on the fused branch (K3's twin, hash
+    frames) it counts as NMS-1 does."""
     code = get_code("ccsds_128_64")
     assert np.array_equal(code.extended().h, code.h)
     params = nms.init_params("NMS-1")
@@ -145,10 +146,11 @@ def test_ccsds_enms_is_nms1_frame_for_frame():
     assert got[0] == want[0] and got[0].frame_errors > 0
     np.testing.assert_array_equal(got[1].trajectories, want[1].trajectories)
     np.testing.assert_array_equal(got[1].labels, want[1].labels)
-    # and the route without capture is the same step
-    plain, _ = harness.run_nms_mc(code, params, "ENMS", 12, 3.0,
-                                  **kw | {"capture_failures": False})
-    assert plain == got[0]
+    # and the route without capture is the fused branch, NMS-1's too
+    fused = {v: harness.run_nms_mc(code, params, v, 12, 3.0,
+                                   **kw | {"capture_failures": False})[0]
+             for v in ("ENMS", "NMS-1")}
+    assert fused["ENMS"] == fused["NMS-1"] and fused["ENMS"].frames == 1024
 
 
 # --- NMS-r's phase 2 against JAX ----------------------------------------------
