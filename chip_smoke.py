@@ -43,9 +43,13 @@ Phases (each raises on failure, so the script never exits 0 after one):
    ``mc.columns_encoded``: G's unit columns and the others, a launch); K4's
    split on wimax_1056_880 at 262,144 frames and 4.0 dB; then
    (``phase_enms_wimax``) K4 and K3 on the extended matrix ENMS decodes
-   wimax_1056_880 on (220 x 1,056, bucket 4) at 4.0 dB: their launch
-   shapes, both equal to their twins counter for counter, ``enms.frames``
-   a launch, K3 on H in ENMS's place beside it, both timed at 262,144;
+   wimax_1056_880 on (220 x 1,056, the split bucket 4: 264 segment lanes)
+   at 4.0 dB: their launch shapes, both equal to their twins counter for
+   counter, ``enms.frames`` and ``split.frames`` a launch, K3 on H in
+   ENMS's place beside it, both timed at 262,144; and K1, K6 and K7 at
+   the split bucket on a synthetic mask (rows of degree 21 to 40 beside
+   rows of 8 to 20) against their twins, so that the dense rung's lane
+   map built on the card runs;
 3. the two-phase main path at full width: 8 rounds of the 262,144-frame
    capture step plus phase 2 (capture 32,768) at 3.0 dB with the
    ``runs/r4_pipeline`` artifacts, with every launch count reset just
@@ -1555,9 +1559,14 @@ def log_launch_shape(name, mc, stage):
                                 mc.device.index or 0)
     dc, dv = nms_edge.BUCKETS[plan.bucket][:2]
     where = "shared" if occ["table_shared"] else "global"
+    split = ""
+    if plan.bucket == nms_edge.SPLIT_BUCKET:
+        split = (f", split: {nms_edge.split_lanes(mc.h)} segment lanes of "
+                 f"{nms_edge.SPLIT_SLOTS} slots")
     log(f"mc_frames launch shape, {name} {'STAGE' if stage else 'COUNT'}: "
-        f"bucket {plan.bucket} (dc <= {dc}, dv <= {dv}), {plan.warps} warp(s) a "
-        f"frame, {plan.frames} frames a block ({occ['threads']} threads), "
+        f"bucket {plan.bucket} (dc <= {dc}, dv <= {dv}{split}), "
+        f"{plan.warps} warp(s) a frame, {plan.frames} frames a block "
+        f"({occ['threads']} threads), "
         f"{occ['registers']} registers and {occ['local_bytes']} local bytes a "
         f"thread, {occ['smem_bytes']} shared bytes a block, "
         f"{occ['blocks_per_sm']} resident blocks per SM "
@@ -1608,7 +1617,7 @@ def phase_mc_other_codes(dev):
         h_ext = get_code(name).extended().h
         x = torch.randn((1024, h_ext.shape[1]), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(3)) + 1.0
-        plan = nms_edge.launch_plan(*h_ext.shape, *tables.degrees(h_ext))
+        plan = nms_edge.matrix_plan(h_ext)
         for traj, fn in ((False, nms_edge.decode_final_edge),
                          (True, nms_edge.decode_traj_edge)):
             if not torch.equal(fn(params, h_ext, x, ITERS),
@@ -1665,16 +1674,70 @@ def phase_mc_other_codes(dev):
 ENMS_RUN = os.path.join(ROOT, "runs", "r29_enms_wimax")
 
 
+SPLIT_SIGMA = float(np.float32(0.8))  # K7's channel on the split mask
+
+
+def split_mask(n: int = 60) -> np.ndarray:
+    """A synthetic (12, n) mask of the split bucket: rows of degree 40,
+    36, 30, 24, 22 and 21 (twice), each on two lanes, beside rows of 20
+    (twice), 16, 12 and 8 on one; each row's columns run on from the
+    previous row's (mod n), so a column has degree 4 or 5."""
+    degrees = [40, 21, 36, 24, 22, 30, 20, 8, 12, 20, 16, 21]
+    h = np.zeros((len(degrees), n), np.uint8)
+    col = 0
+    for row, d in enumerate(degrees):
+        h[row, (col + np.arange(d)) % n] = 1
+        col += d
+    return h
+
+
+def split_mask_kernels(dev, batch: int = 65_536):
+    """K1, K6 and K7 at the split bucket on :func:`split_mask`: K1 and K6
+    bit for bit against their twins (the dense rung builds its lane map on
+    the card), K7's counters against its twin's (G of zeros: the all-zero
+    codeword), ``split.frames`` a launch."""
+    h = split_mask()
+    plan = nms_edge.matrix_plan(h)
+    if plan.bucket != nms_edge.SPLIT_BUCKET:
+        raise AssertionError(f"split mask: plan {plan}")
+    params = nms.init_params("NMS-1")
+    weights = nms.scalar_weights(params, "NMS-1")
+    x = torch.randn((batch, h.shape[1]), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5)) + 1.0
+    mask = torch.tensor(h, dtype=torch.float32, device=dev)
+    g = torch.zeros((8, h.shape[1]), dtype=torch.float32, device=dev)
+    with profiling.recording(record=profiling.Record()) as rec:
+        k1 = nms_edge.decode_final_edge(params, h, x, ITERS)
+        k6 = nms_dense.decode_final_dense(params, mask, x, ITERS)
+        k7 = mc_dense.mc_fused(weights, 9, mask, g, ITERS, batch, SPLIT_SIGMA)
+    if not torch.equal(k1, nms_edge._decode_edge_plain(x, h, ITERS, weights,
+                                                       False)):
+        raise AssertionError("K1 on the split mask differs from its twin")
+    if not torch.equal(k6, nms_dense._decode_dense_plain(mask, x, ITERS,
+                                                         weights)):
+        raise AssertionError("K6 on the split mask differs from its twin")
+    counters_err("K7 split mask", k7, mc_dense._mc_dense_plain(
+        weights, 9, mask, g, ITERS, batch, SPLIT_SIGMA, 1.0))
+    frames = rec.snapshot()["counters"].get("split.frames")
+    if frames != 3 * batch:
+        raise AssertionError(f"split mask: split.frames {frames}")
+    log(f"split mask {h.shape} (bucket {plan.bucket}, "
+        f"{nms_edge.split_lanes(h)} lanes, {plan.warps} warp(s) a frame): K1 "
+        f"and K6 bit for bit with their twins, K7 {k7.tolist()} with its "
+        f"twin's; split.frames {frames}")
+
+
 def phase_enms_wimax(dev, batch: int = 65_536, timed: int = 262_144):
     """K4 and K3 on the matrix ENMS decodes WiMAX (1056,880) on, its
     extended H (220 x 1,056: 176 checks of degree 20, 44 of degree 36;
-    bucket 4), at the wimax-enms-phase1-4.0dB cell's SNR, groups and
-    schedule: their launch shapes, K4 and K3 against their plain twins
-    (K3 against the literal rule and against the chain of STAGE, rank and
-    resumed COUNT twins) counter for counter, ``enms.frames`` a launch, and
-    both timed at the cell's 262,144 frames against their bound.  The
-    weights are ``runs/r29_enms_wimax``'s where it holds them, else ENMS's
-    initial ones."""
+    the split bucket, each check of 36 on two lanes), at the
+    wimax-enms-phase1-4.0dB cell's SNR, groups and schedule: their launch
+    shapes, K4 and K3 against their plain twins (K3 against the literal
+    rule and against the chain of STAGE, rank and resumed COUNT twins)
+    counter for counter, ``enms.frames`` and ``split.frames`` a launch,
+    and both timed at the cell's 262,144 frames against their bound; then
+    :func:`split_mask_kernels`.  The weights are ``runs/r29_enms_wimax``'s
+    where it holds them, else ENMS's initial ones."""
     code = get_code("wimax_1056_880")
     if os.path.exists(os.path.join(ENMS_RUN, "nms_params.pkl")):
         params = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in
@@ -1684,7 +1747,8 @@ def phase_enms_wimax(dev, batch: int = 65_536, timed: int = 262_144):
         params, label = nms.init_params("ENMS"), "initial weights"
     snr, block, seed = 4.0, 512, 7
     mc = nms_edge.mc_setup(code, params, "ENMS", snr, seed, dev)
-    if mc.h.shape != code.extended().h.shape or mc.plan.bucket != 4:
+    if (mc.h.shape != code.extended().h.shape
+            or mc.plan.bucket != nms_edge.SPLIT_BUCKET):
         raise AssertionError(f"ENMS WiMAX: matrix {mc.h.shape}, plan {mc.plan}")
     for stage in (False, True):
         log_launch_shape("wimax_1056_880 ENMS", mc, stage)
@@ -1704,13 +1768,16 @@ def phase_enms_wimax(dev, batch: int = 65_536, timed: int = 262_144):
                    nms_edge._compact_chain(mc, batch, block, rows_s, final,
                                            frames_fn=nms_edge._mc_frames_plain,
                                            rank_fn=nms_edge._group_rank_plain))
-    frames = rec.snapshot()["counters"].get("enms.frames")
+    counts = rec.snapshot()["counters"]
+    frames = counts.get("enms.frames")
     want = 2 * batch + batch // block * rows_s[0][1]
-    if frames != want:
-        raise AssertionError(f"enms.frames {frames}, want {want}")
+    if frames != want or counts.get("split.frames") != want:
+        raise AssertionError(f"enms.frames {frames}, split.frames "
+                             f"{counts.get('split.frames')}, want {want}")
     log(f"ENMS wimax_1056_880 {mc.h.shape} at {snr} dB ({label}), {batch} "
         f"frames: K4 {k4.tolist()}, K3 {k3.tolist()} (overflow {int(k3[5])}), "
-        f"each equal to its twin counter for counter; enms.frames {frames}")
+        f"each equal to its twin counter for counter; enms.frames and "
+        f"split.frames {frames}")
     k3_h = nms_edge.fused_counters_edge_compact(
         code, params, "NMS-1", ITERS, snr, batch, seed, block_frames=block,
         schedule=nms_edge.DEFAULT_COMPACT_SCHEDULE, device=dev)
@@ -1731,6 +1798,9 @@ def phase_enms_wimax(dev, batch: int = 65_536, timed: int = 262_144):
     log(f"ENMS wimax_1056_880 timed at {timed} frames: K4 {k4_ms:.4f} ms "
         f"(bound {k4_bound:.4f}), K3 {k3_ms:.4f} ms (bound at full rows "
         f"{k3_bound:.4f}), {timed / k3_ms * 1e3:.0f} frames/s through K3")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    split_mask_kernels(dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -3410,7 +3480,7 @@ def edge_entry(label, name, params, variant, h, x, traj, launches):
     timed against its bound: the kernel row's entry for one path."""
     fn = nms_edge.decode_traj_edge if traj else nms_edge.decode_final_edge
     weights = nms.scalar_weights(params, variant)
-    plan = nms_edge.launch_plan(*h.shape, *tables.degrees(h))
+    plan = nms_edge.matrix_plan(h)
     b, n = x.shape
     got = fn(params, h, x, ITERS, variant)
     want = nms_edge._decode_edge_plain(x, h, ITERS, weights, traj)

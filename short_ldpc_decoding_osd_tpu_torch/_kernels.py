@@ -51,10 +51,10 @@ BUILD_LOG: dict[str, str] = {}
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     "nms_edge": {
-        # llr, out, edge_col, var_edges, batch, n, m, dc, dv, iters,
-        # w_vc, w_chk, w_marg, traj, bucket, warps, frames, stream
-        "nms_edge_decode": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
-                            _F, _F, _F, _I, _I, _I, _I, _VP],
+        # llr, out, edge_col, var_edges, split, batch, n, m, dc, dv, iters,
+        # w_vc, w_chk, w_marg, traj, bucket, warps, frames, lanes, stream
+        "nms_edge_decode": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
+                            _F, _F, _F, _I, _I, _I, _I, _I, _VP],
         # llr, out, edge_col, var_edges, batch, n, m, dc, dv, iters,
         # weights (host f32), traj, bucket, warps, frames, stream
         "nms_edge_decode_nmsr": [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I,
@@ -89,24 +89,24 @@ _SIGNATURES = {
         # bucket, warps, frames, k, stage, table_words, out (int32 [7])
         "mc_frames_occupancy": [_I, _I, _I, _I, _I, _I, _VP],
         # ids, src, msgs_in, msgs_out, stat, counters, edge_col, var_edges,
-        # encode, count, n, m, dc, dv, k, p, iters, bucket, warps, frames,
-        # grid, table_shared, seed, sigma, mean, w_vc, w_chk, w_marg, stream
-        "mc_frames": [_VP] * 9 + [_I] * 13 + [_U, _F, _F, _F, _F, _F, _VP],
+        # split, encode, count, n, m, dc, dv, k, p, iters, bucket, warps,
+        # frames, lanes, grid, table_shared, seed, sigma, mean, w_vc, w_chk,
+        # w_marg, stream
+        "mc_frames": [_VP] * 10 + [_I] * 14 + [_U, _F, _F, _F, _F, _F, _VP],
         # stat, ids_in, ids_out, src_out, partials, groups, group_size,
         # rows_next, stream
         "mc_group_rank": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     },
     "nms_dense": {
-        # bucket, warps, frames, m, n, dc, dv, k, p
-        "dense_max_blocks": [_I, _I, _I, _I, _I, _I, _I, _I, _I],
+        # bucket, warps, frames, lanes, m, n, dc, dv, k, p
+        "dense_max_blocks": [_I] * 10,
         # h, llr, out, batch, m, n, dc, dv, iters, bucket, warps, frames,
-        # blocks, w_vc, w_chk, w_marg, stream
-        "dense_decode": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _F, _F, _F, _VP],
+        # lanes, blocks, w_vc, w_chk, w_marg, stream
+        "dense_decode": [_VP, _VP, _VP] + [_I] * 11 + [_F, _F, _F, _VP],
         # h, encode, p, partials, count, m, n, k, dc, dv, iters, bucket,
-        # warps, frames, blocks, seed, sigma, mean, w_vc, w_chk, w_marg,
-        # stream
-        "dense_mc": [_VP, _VP, _I, _VP] + [_I] * 11
+        # warps, frames, lanes, blocks, seed, sigma, mean, w_vc, w_chk,
+        # w_marg, stream
+        "dense_mc": [_VP, _VP, _I, _VP] + [_I] * 12
                     + [_U, _F, _F, _F, _F, _F, _VP],
     },
     "gf2_ge": {

@@ -14,12 +14,13 @@ Every item derived from a matrix is built by a function ``build(host,
 device)`` of the matrix as host uint8 0/1 numpy (read-only), on the first
 :func:`get` with that function and device, and kept for the next: the
 matrix as f32 or int8 on a device, its degrees and rank (``device`` None:
-a host item), the kernels' edge tables (``ops.nms_edge``), the padded
-layout's tables (``ops.nms_edge_padded``), H packed by columns for the GE
-kernel (``ops.gf2_bitpack``), G's encode tables (``ops.nms_edge``: its
-columns by kind and its parity columns word-major) and the neighbourhood
-table (``models.extras``).  A kernel's own build functions
-live beside its wrapper; the items several wrappers read are here.
+a host item), the kernels' edge tables and the split bucket's lane map
+and lane count (``ops.nms_edge``), the padded layout's tables
+(``ops.nms_edge_padded``), H packed by columns for the GE kernel
+(``ops.gf2_bitpack``), G's encode tables (``ops.nms_edge``: its columns by
+kind and its parity columns word-major) and the neighbourhood table
+(``models.extras``).  A kernel's own build functions live beside its
+wrapper; the items several wrappers read are here.
 """
 
 from __future__ import annotations

@@ -131,7 +131,7 @@ __device__ __forceinline__ int2 run(nms_edge::Lane<Bk>& L, unsigned words,
     int par = 0;
 #pragma unroll
     for (int j = 0; j < Bk::DC; ++j) par ^= sh(L.col[q][j]) < 0.f;  // +inf: 0
-    odd |= par;
+    odd |= nms_edge::check_parity(L, par);
   }
   errs = __reduce_add_sync(0xffffffffu, errs);
   odd = __any_sync(0xffffffffu, odd);

@@ -91,7 +91,8 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
     const int* __restrict__ encode, int count, int n, int m, int dc, int dv,
     int k, int p, int iters,
     int warps, int frames, int table_shared, unsigned seed, float sigma,
-    float mean, float w_vc, float w_chk, float w_marg) {
+    float mean, float w_vc, float w_chk, float w_marg,
+    const int* __restrict__ split) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned long long* s_count = reinterpret_cast<unsigned long long*>(smem);
   if (threadIdx.x < kLanes) s_count[threadIdx.x] = 0;
@@ -113,7 +114,7 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
   const int t = threadIdx.x - g * T;
   const unsigned region = kCountBytes + 4u * static_cast<unsigned>(g * words);
   nms_edge::Lane<Bk> L;
-  L.setup(region, edge_col, var_edges, m, n, dc, dv, t, T, 1 + g);
+  L.setup(region, edge_col, var_edges, split, m, n, dc, dv, t, T, 1 + g);
   const unsigned extra =
       region + 4u * static_cast<unsigned>(nms_edge::region_words<Bk>(T, 0));
   const size_t num_edges = static_cast<size_t>(dc) * m;
@@ -262,10 +263,10 @@ int occupancy(int threads, size_t smem, int* regs, int* local_bytes) {
 }
 
 bool plan_holds(int bucket, int warps, int frames, int m, int n, int dc,
-                int dv) {
+                int dv, int lanes) {
   return nms_edge::with_bucket(bucket, [&](auto bk) {
            return static_cast<int>(nms_edge::plan_holds<decltype(bk)>(
-               warps, frames, m, n, dc, dv));
+               warps, frames, m, n, dc, dv, lanes));
          }) == 1;
 }
 
@@ -316,21 +317,25 @@ extern "C" int mc_frames_occupancy(int bucket, int warps, int frames, int k,
 // of msgs_in, with msgs_in f32 (rows, dc*m), or both NULL (from scratch);
 // msgs_out: f32 (count, dc*m) or NULL (STAGE only); stat: int32 (count,)
 // for a STAGE launch, NULL for COUNT; counters: int64 (6,), zeroed by the
-// caller; encode: int32 (n + ceil(k/32) p,), G's encode tables with p
-// parity columns (mc_frame::run).  bucket, warps, frames: the launch plan;
-// grid: resident blocks and table_shared: where the tables go (both from
-// mc_frames_occupancy); grid at most enough for `count`.
+// caller; split: int32 (512 + m,), the lane map of the split bucket
+// (ops/nms_edge.py split_map), NULL at another bucket; encode: int32 (n +
+// ceil(k/32) p,), G's encode tables with p parity columns (mc_frame::run).
+// bucket, warps, frames: the launch plan, lanes: the lanes its checks take
+// at the split bucket; grid: resident blocks and table_shared: where the
+// tables go (both from mc_frames_occupancy); grid at most enough for
+// `count`.
 extern "C" int mc_frames(const void* ids, const void* src, const void* msgs_in,
                          void* msgs_out, void* stat, void* counters,
                          const void* edge_col, const void* var_edges,
-                         const void* encode, int count, int n, int m, int dc,
-                         int dv, int k, int p, int iters, int bucket,
-                         int warps, int frames, int grid, int table_shared,
-                         unsigned seed, float sigma, float mean, float w_vc,
-                         float w_chk, float w_marg, void* stream) {
-  if (!plan_holds(bucket, warps, frames, m, n, dc, dv) || grid < 0 ||
-      p < 0 || p > n || (msgs_in != nullptr) != (src != nullptr) ||
-      (msgs_out && !stat))
+                         const void* split, const void* encode, int count,
+                         int n, int m, int dc, int dv, int k, int p, int iters,
+                         int bucket, int warps, int frames, int lanes,
+                         int grid, int table_shared, unsigned seed,
+                         float sigma, float mean, float w_vc, float w_chk,
+                         float w_marg, void* stream) {
+  if (!plan_holds(bucket, warps, frames, m, n, dc, dv, lanes) ||
+      !nms_edge::split_given(bucket, split) || grid < 0 || p < 0 || p > n ||
+      (msgs_in != nullptr) != (src != nullptr) || (msgs_out && !stat))
     return static_cast<int>(cudaErrorInvalidValue);
   if (count == 0 || grid == 0) return 0;
   const int threads = 32 * warps * frames;
@@ -346,6 +351,7 @@ extern "C" int mc_frames(const void* ids, const void* src, const void* msgs_in,
   auto* cnt = static_cast<unsigned long long*>(counters);
   const int* ec = static_cast<const int*>(edge_col);
   const int* ve = static_cast<const int*>(var_edges);
+  const int* sp = static_cast<const int*>(split);
   const int* enc = static_cast<const int*>(encode);
   return nms_edge::with_bucket(bucket, [&](auto bk) {
     using B = decltype(bk);
@@ -357,7 +363,7 @@ extern "C" int mc_frames(const void* ids, const void* src, const void* msgs_in,
     kernel<<<grid, threads, smem, s>>>(id, sr, mi, mo, st, cnt, ec, ve, enc,
                                        count, n, m, dc, dv, k, p, iters, warps,
                                        frames, table_shared, seed, sigma, mean,
-                                       w_vc, w_chk, w_marg);
+                                       w_vc, w_chk, w_marg, sp);
     return static_cast<int>(cudaGetLastError());
   });
 }

@@ -35,8 +35,9 @@
 // VMEM; a dense CCSDS frame is 32 KB per temporary, so that layout would fit
 // at most 6 frames in a Hopper block.  Instead each block derives K1's slab
 // tables from the dense mask once, at launch, into shared memory
-// (build_slab: edge_col (dc, m) and var_edges (dv, n), -1 padded), and K7
-// copies G's encode tables there; then each group of lanes reads its share
+// (build_slab: edge_col (dc, m) and var_edges (dv, n), -1 padded; at the
+// split bucket also its lane map, build_split), and K7 copies G's encode
+// tables there; then each group of lanes reads its share
 // of the tables into registers and runs the shared bodies over real edges
 // only (nms_edge_body.cuh: a frame on one warp or a group of warps, each
 // check's messages in registers, frame-scoped barriers).  The block is
@@ -93,6 +94,46 @@ __device__ size_t build_slab(const float* __restrict__ h, int m, int n,
   return static_cast<size_t>(dc) * m + static_cast<size_t>(dv) * n;
 }
 
+// Words of the split bucket's lane map of an m-check code.
+__host__ __device__ inline size_t split_words(int m) {
+  return nms_edge::kMaxThreads + m;
+}
+
+// The split bucket (Bk::kSplit, slots DC a lane) only: the lane map of
+// ops/nms_edge.py split_map, from the slab's edge_col (dc, m), at s: entry
+// l < kMaxThreads 2 c + h for the lane owning segment h of check c, -1
+// for a lane owning none, then entry kMaxThreads + c the first lane of
+// check c; the checks of degree above DC first, two lanes each, then the
+// others, each in check order.  Returns the words written (0 at another
+// bucket).  Every thread of the block must call it (at the split bucket
+// it synchronises).
+template <class Bk>
+__device__ size_t build_split(const int* edge_col, int m, int dc, int* s) {
+  if constexpr (!Bk::kSplit) {
+    return 0;
+  } else {
+    for (int l = threadIdx.x; l < nms_edge::kMaxThreads; l += blockDim.x)
+      s[l] = -1;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int lane = 0;
+      for (int pass = 0; pass < 2; ++pass)
+        for (int c = 0; c < m; ++c) {
+          // slot DC holds an edge exactly when the degree is above DC
+          const bool wide = dc > Bk::DC && edge_col[Bk::DC * m + c] >= 0;
+          const int span = wide ? 2 : 1;
+          if (wide != (pass == 0) || lane + span > nms_edge::kMaxThreads)
+            continue;
+          s[nms_edge::kMaxThreads + c] = lane;
+          s[lane++] = 2 * c;
+          if (wide) s[lane++] = 2 * c + 1;
+        }
+    }
+    __syncthreads();
+    return split_words(m);
+  }
+}
+
 template <class Bk>
 __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
     dense_decode_kernel(const float* __restrict__ h,
@@ -102,14 +143,16 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
                                     int warps, int frames, float w_vc,
                                     float w_chk, float w_marg) {
   extern __shared__ __align__(16) int smem_i[];
-  const size_t table = build_slab(h, m, n, dc, dv, smem_i);
+  size_t table = build_slab(h, m, n, dc, dv, smem_i);
+  const int* split = smem_i + table;
+  table += build_split<Bk>(smem_i, m, dc, smem_i + table);
   const int T = 32 * warps;
   const int g = threadIdx.x / T;
   const int t = threadIdx.x - g * T;
   const size_t words = nms_edge::region_words<Bk>(T, 0);
   nms_edge::Lane<Bk> L;
   L.setup(4u * static_cast<unsigned>(table + g * words), smem_i,
-          smem_i + dc * m, m, n, dc, dv, t, T, 1 + g);
+          smem_i + dc * m, split, m, n, dc, dv, t, T, 1 + g);
   for (long long frame = static_cast<long long>(blockIdx.x) * frames + g;
        frame < batch; frame += static_cast<long long>(gridDim.x) * frames) {
     float x[Bk::VPL];
@@ -140,7 +183,9 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
   unsigned long long* s_count = smem_u64;
   if (threadIdx.x < kCountWords / 2) s_count[threadIdx.x] = 0;
   int* tables = reinterpret_cast<int*>(smem_u64) + kCountWords;
-  const size_t table = build_slab(h, m, n, dc, dv, tables);
+  size_t table = build_slab(h, m, n, dc, dv, tables);
+  const int* split = tables + table;
+  table += build_split<Bk>(tables, m, dc, tables + table);
   // G's encode tables (mc_frame::run)
   const int enc = n + (k + 31) / 32 * p;
   int* s_encode = tables + table;
@@ -153,7 +198,7 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
   const unsigned region =
       4u * static_cast<unsigned>(kCountWords + table + enc + g * words);
   nms_edge::Lane<Bk> L;
-  L.setup(region, tables, tables + dc * m, m, n, dc, dv, t, T, 1 + g);
+  L.setup(region, tables, tables + dc * m, split, m, n, dc, dv, t, T, 1 + g);
   const unsigned extra =
       region + 4u * static_cast<unsigned>(nms_edge::region_words<Bk>(T, 0));
   for (long long slot = static_cast<long long>(blockIdx.x) * frames + g;
@@ -192,15 +237,16 @@ size_t dense_smem(int bucket, int warps, int frames, int m, int n, int dc,
   });
   size_t words = static_cast<size_t>(dc) * m + static_cast<size_t>(dv) * n +
                  frames * region;
+  if (bucket == nms_edge::kSplitBucket) words += split_words(m);
   if (k) words += kCountWords + n + static_cast<size_t>(p) * ((k + 31) / 32);
   return 4 * words;
 }
 
 bool dense_plan_holds(int bucket, int warps, int frames, int m, int n, int dc,
-                      int dv, int k, int p) {
+                      int dv, int lanes, int k, int p) {
   const bool ok = nms_edge::with_bucket(bucket, [&](auto bk) {
                     return static_cast<int>(nms_edge::plan_holds<decltype(bk)>(
-                        warps, frames, m, n, dc, dv));
+                        warps, frames, m, n, dc, dv, lanes));
                   }) == 1;
   return ok && p >= 0 && p <= n &&
          dense_smem(bucket, warps, frames, m, n, dc, dv, k, p) <= kSmemLimit;
@@ -224,13 +270,14 @@ int max_blocks(Kernel kernel, int threads, size_t smem) {
 }  // namespace
 
 // Blocks a launch of K6 (k = 0) or K7 (k message bits, p parity columns
-// of G) with the plan (bucket, warps a frame, frames a block) on an (m, n)
-// mask of largest degrees (dc, dv) runs at once on the current device: the
-// grid of a full launch (the blocks are persistent).  -1 when the plan
-// cannot launch.
-extern "C" int dense_max_blocks(int bucket, int warps, int frames, int m,
-                                int n, int dc, int dv, int k, int p) {
-  if (!dense_plan_holds(bucket, warps, frames, m, n, dc, dv, k, p)) return -1;
+// of G) with the plan (bucket, warps a frame, frames a block; lanes: the
+// lanes its checks take at the split bucket) on an (m, n) mask of largest
+// degrees (dc, dv) runs at once on the current device: the grid of a full
+// launch (the blocks are persistent).  -1 when the plan cannot launch.
+extern "C" int dense_max_blocks(int bucket, int warps, int frames, int lanes,
+                                int m, int n, int dc, int dv, int k, int p) {
+  if (!dense_plan_holds(bucket, warps, frames, m, n, dc, dv, lanes, k, p))
+    return -1;
   const int threads = 32 * warps * frames;
   const size_t smem = dense_smem(bucket, warps, frames, m, n, dc, dv, k, p);
   return nms_edge::with_bucket(bucket, [&](auto bk) {
@@ -244,10 +291,10 @@ extern "C" int dense_max_blocks(int bucket, int warps, int frames, int m,
 // (batch, n); blocks: from dense_max_blocks, at most enough for batch.
 extern "C" int dense_decode(const void* h, const void* llr, void* out,
                             int batch, int m, int n, int dc, int dv, int iters,
-                            int bucket, int warps, int frames, int blocks,
-                            float w_vc, float w_chk, float w_marg,
+                            int bucket, int warps, int frames, int lanes,
+                            int blocks, float w_vc, float w_chk, float w_marg,
                             void* stream) {
-  if (!dense_plan_holds(bucket, warps, frames, m, n, dc, dv, 0, 0) ||
+  if (!dense_plan_holds(bucket, warps, frames, m, n, dc, dv, lanes, 0, 0) ||
       blocks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0 || batch == 0) return 0;
@@ -273,11 +320,11 @@ extern "C" int dense_decode(const void* h, const void* llr, void* out,
 extern "C" int dense_mc(const void* h, const void* encode, int p,
                         void* partials, int count, int m, int n, int k,
                         int dc, int dv, int iters, int bucket, int warps,
-                        int frames, int blocks, unsigned seed, float sigma,
-                        float mean, float w_vc, float w_chk, float w_marg,
-                        void* stream) {
+                        int frames, int lanes, int blocks, unsigned seed,
+                        float sigma, float mean, float w_vc, float w_chk,
+                        float w_marg, void* stream) {
   if (k < 1 ||
-      !dense_plan_holds(bucket, warps, frames, m, n, dc, dv, k, p) ||
+      !dense_plan_holds(bucket, warps, frames, m, n, dc, dv, lanes, k, p) ||
       blocks < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (blocks == 0) return 0;

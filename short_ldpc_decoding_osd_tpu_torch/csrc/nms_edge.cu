@@ -50,14 +50,14 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
                                 const int* __restrict__ var_edges, int batch,
                                 int n, int m, int dc, int dv, int iters,
                                 int warps, int frames, float w_vc, float w_chk,
-                                float w_marg) {
+                                float w_marg, const int* __restrict__ split) {
   const int T = 32 * warps;
   const int g = threadIdx.x / T;
   const int t = threadIdx.x - g * T;
   const size_t words = nms_edge::region_words<Bk>(T, 0);
   nms_edge::Lane<Bk> L;
-  L.setup(4u * static_cast<unsigned>(g * words), edge_col, var_edges, m, n,
-          dc, dv, t, T, 1 + g);
+  L.setup(4u * static_cast<unsigned>(g * words), edge_col, var_edges, split,
+          m, n, dc, dv, t, T, 1 + g);
   for (long long frame = static_cast<long long>(blockIdx.x) * frames + g;
        frame < batch; frame += static_cast<long long>(gridDim.x) * frames) {
     float x[Bk::VPL];
@@ -93,8 +93,8 @@ __global__ void __launch_bounds__(nms_edge::kMaxThreads, 1)
   const int t = threadIdx.x - g * T;
   const size_t words = nms_edge::region_words<Bk>(T, 0);
   nms_edge::Lane<Bk> L;
-  L.setup(4u * static_cast<unsigned>(g * words), edge_col, var_edges, m, n,
-          dc, dv, t, T, 1 + g);
+  L.setup(4u * static_cast<unsigned>(g * words), edge_col, var_edges, nullptr,
+          m, n, dc, dv, t, T, 1 + g);
   for (long long frame = static_cast<long long>(blockIdx.x) * frames + g;
        frame < batch; frame += static_cast<long long>(gridDim.x) * frames) {
     float x[Bk::VPL];
@@ -143,42 +143,48 @@ int start(Kernel kernel, int batch, int warps, int frames, cudaStream_t s,
 
 template <class Bk, bool TRAJ>
 int launch(const float* llr, float* out, const int* edge_col,
-           const int* var_edges, int batch, int n, int m, int dc, int dv,
-           int iters, int warps, int frames, float w_vc, float w_chk,
-           float w_marg, cudaStream_t s) {
+           const int* var_edges, const int* split, int batch, int n, int m,
+           int dc, int dv, int iters, int warps, int frames, float w_vc,
+           float w_chk, float w_marg, cudaStream_t s) {
   return start<Bk>(nms_edge_kernel<Bk, TRAJ>, batch, warps, frames, s, llr,
                    out, edge_col, var_edges, batch, n, m, dc, dv, iters, warps,
-                   frames, w_vc, w_chk, w_marg);
+                   frames, w_vc, w_chk, w_marg, split);
 }
 
 }  // namespace
 
 // llr: f32 (batch, n); out: f32 (batch, n), or (iters + 1, batch, n) with
-// traj; edge_col int32 (dc, m), var_edges int32 (dv, n); bucket, warps,
-// frames: the launch plan (ops/nms_edge.py launch_plan).
+// traj; edge_col int32 (dc, m), var_edges int32 (dv, n); split: int32
+// (512 + m,), the split bucket's lane map (ops/nms_edge.py split_map),
+// NULL at another bucket; bucket, warps, frames, lanes: the launch plan
+// (ops/nms_edge.py launch_plan) and the lanes its checks take.
 extern "C" int nms_edge_decode(const void* llr, void* out, const void* edge_col,
-                               const void* var_edges, int batch, int n, int m,
-                               int dc, int dv, int iters, float w_vc,
-                               float w_chk, float w_marg, int traj, int bucket,
-                               int warps, int frames, void* stream) {
+                               const void* var_edges, const void* split,
+                               int batch, int n, int m, int dc, int dv,
+                               int iters, float w_vc, float w_chk,
+                               float w_marg, int traj, int bucket, int warps,
+                               int frames, int lanes, void* stream) {
   const bool ok = nms_edge::with_bucket(bucket, [&](auto bk) {
                     return static_cast<int>(
                         nms_edge::plan_holds<decltype(bk)>(warps, frames, m, n,
-                                                           dc, dv));
+                                                           dc, dv, lanes));
                   }) == 1;
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!ok || !nms_edge::split_given(bucket, split))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const float* l = static_cast<const float*>(llr);
   float* o = static_cast<float*>(out);
   const int* ec = static_cast<const int*>(edge_col);
   const int* ve = static_cast<const int*>(var_edges);
+  const int* sp = static_cast<const int*>(split);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return nms_edge::with_bucket(bucket, [&](auto bk) {
     using B = decltype(bk);
-    return traj ? launch<B, true>(l, o, ec, ve, batch, n, m, dc, dv, iters,
-                                  warps, frames, w_vc, w_chk, w_marg, s)
-                : launch<B, false>(l, o, ec, ve, batch, n, m, dc, dv, iters,
-                                   warps, frames, w_vc, w_chk, w_marg, s);
+    return traj ? launch<B, true>(l, o, ec, ve, sp, batch, n, m, dc, dv,
+                                  iters, warps, frames, w_vc, w_chk, w_marg, s)
+                : launch<B, false>(l, o, ec, ve, sp, batch, n, m, dc, dv,
+                                   iters, warps, frames, w_vc, w_chk, w_marg,
+                                   s);
   });
 }
 
@@ -194,7 +200,7 @@ extern "C" int nms_edge_decode_nmsr(const void* llr, void* out,
                                     int warps, int frames, void* stream) {
   using B = nms_edge::Bucket0;
   if (bucket != 0 || dc < 2 ||
-      !nms_edge::plan_holds<B>(warps, frames, m, n, dc, dv))
+      !nms_edge::plan_holds<B>(warps, frames, m, n, dc, dv, m))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return 0;
   const float* wh = static_cast<const float*>(weights);

@@ -54,6 +54,21 @@
 // the body returns without a closing barrier: a caller that reads what
 // `emit` wrote from another lane synchronises the frame first.  Every
 // thread of the group must call the body (it synchronises the group).
+//
+// Split checks (the split bucket, Bk::kSplit): a lane owns one *segment*
+// of at most DC slots instead of a whole check, and a check of degree
+// above DC spans two lanes 2p, 2p + 1 of one warp, the split checks first
+// in check order and then the others (the lane map of ops/nms_edge.py
+// split_map).  Each lane runs the tournament over its segment; the pair
+// then exchanges min1, min2 and the sign parity with one __shfl_xor_sync
+// each (`combine`) and takes the row's: min1 = min(a1, b1), min2 =
+// min(max(a1, b1), min(a2, b2)), parity = pa ^ pb, exact and independent
+// of order, so every message is the one-lane tournament's bit for bit.
+// Message rows are kept per segment (S = DC | 1 words a lane); edge
+// e = j*m + c of a split check lives in segment first[c] + j / DC, slot
+// j % DC.  Phase A is unchanged but for those addresses; load and save
+// keep the (dc, m) layout.  A bucket that does not split compiles as if
+// this paragraph did not exist (if constexpr).
 
 #pragma once
 
@@ -65,24 +80,31 @@ namespace nms_edge {
 
 constexpr float kBig = 3.4e38f;
 
-// Compile-time degree buckets: the largest check degree DC and variable
-// degree DV they take, and the checks and variables a lane owns.  The
-// packaged codes: dc 6-8 (code1_64_32, qc_96_48, ccsds_128_64,
+// Compile-time degree buckets: the slots DC a lane keeps of a check and
+// the largest variable degree DV they take, the checks and variables a
+// lane owns, and whether a check of degree above DC splits over two lanes
+// (then the bucket takes degrees up to 2 DC, a lane owns one segment).
+// The packaged codes: dc 6-8 (code1_64_32, qc_96_48, ccsds_128_64,
 // wimaxlike_384_192) take bucket 0, dc 11 (array_121_*) bucket 1, dc 20
 // (wimax_1056_880) bucket 2; the extended matrices ENMS decodes on take
-// bucket 3 (qc_96_48: dv 27, wimaxlike_384_192: dv 60) and bucket 4
-// (wimax_1056_880: dc 36).  ops/nms_edge.py (BUCKETS) mirrors this table.
-template <int DC_, int DV_, int CPL_, int VPL_>
+// bucket 3 (qc_96_48: dv 27, wimaxlike_384_192: dv 60) and the split
+// bucket 4 (wimax_1056_880: dc 36).  ops/nms_edge.py (BUCKETS) mirrors
+// this table.
+template <int DC_, int DV_, int CPL_, int VPL_, bool SPLIT_ = false>
 struct Bucket {
   static constexpr int DC = DC_, DV = DV_, CPL = CPL_, VPL = VPL_;
-  static constexpr int S = DC_ | 1;  // words of a check's message row
+  static constexpr bool kSplit = SPLIT_;
+  static constexpr int kDegree = SPLIT_ ? 2 * DC_ : DC_;  // largest dc
+  static constexpr int S = DC_ | 1;  // words of a check's (segment's) row
+  static_assert(!SPLIT_ || CPL_ == 1, "a split lane owns one segment");
 };
 using Bucket0 = Bucket<8, 6, 2, 4>;
 using Bucket1 = Bucket<11, 6, 2, 4>;
 using Bucket2 = Bucket<20, 6, 1, 4>;
 using Bucket3 = Bucket<12, 64, 2, 1>;
-using Bucket4 = Bucket<40, 6, 1, 4>;
+using Bucket4 = Bucket<20, 6, 1, 4, true>;
 constexpr int kBuckets = 5;
+constexpr int kSplitBucket = 4;
 // at most 16 warps a frame and 512 threads a block, so that every kernel
 // over the body compiles with __launch_bounds__(kMaxThreads, 1): at most
 // 128 registers a thread (without the cap the fused MC kernel takes 160-176
@@ -115,14 +137,24 @@ __host__ __device__ inline size_t region_words(int threads, int extra) {
 }
 
 // True when `warps` warps a frame and `frames` frames a block of bucket Bk
-// take an (m, n) code of largest degrees (dc, dv).
+// take an (m, n) code of largest degrees (dc, dv) whose checks take
+// `lanes` lanes at the split bucket (m plus its checks of degree above
+// DC; ignored by the others).
 template <class Bk>
-inline bool plan_holds(int warps, int frames, int m, int n, int dc, int dv) {
+inline bool plan_holds(int warps, int frames, int m, int n, int dc, int dv,
+                       int lanes) {
   const int threads = 32 * warps;
+  const bool checks = Bk::kSplit ? lanes >= m && lanes <= threads
+                                 : m <= Bk::CPL * threads;
   return warps >= 1 && warps <= kMaxWarps && frames >= 1 &&
          frames <= kMaxFrames && threads * frames <= kMaxThreads &&
-         dc >= 1 && dc <= Bk::DC && dv >= 1 && dv <= Bk::DV &&
-         m <= Bk::CPL * threads && n <= Bk::VPL * threads;
+         dc >= 1 && dc <= Bk::kDegree && dv >= 1 && dv <= Bk::DV && checks &&
+         n <= Bk::VPL * threads;
+}
+
+// True when the lane map is given exactly where the bucket splits.
+inline bool split_given(int bucket, const void* split) {
+  return (bucket == kSplitBucket) == (split != nullptr);
 }
 
 // The dynamic shared memory of every kernel starts here; offsets below are
@@ -150,15 +182,23 @@ struct Lane {
   unsigned tot;                   // offset of total[t]; total[t + T i] at + 4 T i
   int t, threads, bar;
   float cv[Bk::CPL][Bk::DC];      // the owned checks' check-to-variable messages
+  // split bucket only: 4 c + 2 p + h for segment h of check c, p = 1 when
+  // the check spans this lane and lane t ^ 1; -4 for a lane owning none
+  int seg;
 
   // Reads the code's tables (edge_col (dc, m): slot j of check c, -1 for a
   // dummy edge; var_edges (dv, n): edge e = j*m + c of variable v in
   // ascending check order, -1 padded; global or shared memory) into this
   // lane's registers for the frame region at byte offset `region`, lane t
-  // of `threads`, barrier `bar`.  Lane 0 writes the region's +inf and zero
-  // words; the first frame's barriers order them before any read.
+  // of `threads`, barrier `bar`.  `split` (the split bucket only, else
+  // unread): the lane map, entry l < kMaxThreads 2 c + h for lane l owning
+  // segment h of check c (slots DC h ..), -1 for a lane that owns none,
+  // then entry kMaxThreads + c the first lane of check c.  Lane 0 writes
+  // the region's +inf and zero words; the first frame's barriers order
+  // them before any read.
   __device__ __forceinline__ void setup(unsigned region, const int* edge_col,
-                                        const int* var_edges, int m, int n,
+                                        const int* var_edges,
+                                        const int* split, int m, int n,
                                         int dc, int dv, int lane, int nthreads,
                                         int barrier) {
     t = lane;
@@ -168,14 +208,27 @@ struct Lane {
     const unsigned rows = inf_word + 4u;
     const unsigned zero_word = rows + 4u * (Bk::CPL * nthreads * Bk::S);
     tot = region + 4u * lane;
-#pragma unroll
-    for (int q = 0; q < Bk::CPL; ++q) {
-      const int c = lane + nthreads * q;
-      row[q] = rows + 4u * static_cast<unsigned>(c * Bk::S);
+    if constexpr (Bk::kSplit) {
+      const int s = split[lane];
+      const bool pair = s >= 0 && (split[lane ^ 1] >> 1) == (s >> 1);
+      seg = s >= 0 ? 2 * s - (s & 1) + 2 * pair : -4;
+      row[0] = rows + 4u * static_cast<unsigned>(lane * Bk::S);
 #pragma unroll
       for (int j = 0; j < Bk::DC; ++j) {
-        const int v = (c < m && j < dc) ? edge_col[j * m + c] : -1;
-        col[q][j] = v >= 0 ? region + 4u * v : inf_word;
+        const int jj = (s & 1) * Bk::DC + j, v =
+            (s >= 0 && jj < dc) ? edge_col[jj * m + (s >> 1)] : -1;
+        col[0][j] = v >= 0 ? region + 4u * v : inf_word;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < Bk::CPL; ++q) {
+        const int c = lane + nthreads * q;
+        row[q] = rows + 4u * static_cast<unsigned>(c * Bk::S);
+#pragma unroll
+        for (int j = 0; j < Bk::DC; ++j) {
+          const int v = (c < m && j < dc) ? edge_col[j * m + c] : -1;
+          col[q][j] = v >= 0 ? region + 4u * v : inf_word;
+        }
       }
     }
 #pragma unroll
@@ -184,9 +237,17 @@ struct Lane {
 #pragma unroll
       for (int d = 0; d < Bk::DV; ++d) {
         const int e = (v < n && d < dv) ? var_edges[d * n + v] : -1;
-        ve[i][d] = e >= 0 ? rows + 4u * static_cast<unsigned>(
-                                     (e % m) * Bk::S + e / m)
-                          : zero_word;
+        if constexpr (Bk::kSplit) {  // segment first[c] + j / DC, slot j % DC
+          ve[i][d] = e >= 0 ? rows + 4u * static_cast<unsigned>(
+                                       (split[kMaxThreads + e % m] +
+                                        e / m / Bk::DC) * Bk::S +
+                                       e / m % Bk::DC)
+                            : zero_word;
+        } else {
+          ve[i][d] = e >= 0 ? rows + 4u * static_cast<unsigned>(
+                                       (e % m) * Bk::S + e / m)
+                            : zero_word;
+        }
       }
     }
     if (lane == 0) {
@@ -205,12 +266,20 @@ struct Lane {
 
   // Messages saved by `save` (src: (dc, m) f32, e = j*m + c).
   __device__ __forceinline__ void load(const float* src, int m, int dc) {
+    if constexpr (Bk::kSplit) {
 #pragma unroll
-    for (int q = 0; q < Bk::CPL; ++q) {
-      const int c = t + threads * q;
+      for (int j = 0; j < Bk::DC; ++j) {
+        const int jj = (seg & 1) * Bk::DC + j;
+        cv[0][j] = (seg >= 0 && jj < dc) ? src[jj * m + (seg >> 2)] : 0.f;
+      }
+    } else {
 #pragma unroll
-      for (int j = 0; j < Bk::DC; ++j)
-        cv[q][j] = (c < m && j < dc) ? src[j * m + c] : 0.f;
+      for (int q = 0; q < Bk::CPL; ++q) {
+        const int c = t + threads * q;
+#pragma unroll
+        for (int j = 0; j < Bk::DC; ++j)
+          cv[q][j] = (c < m && j < dc) ? src[j * m + c] : 0.f;
+      }
     }
   }
 
@@ -218,12 +287,21 @@ struct Lane {
   // dummy edge's slot gets 0, as in the plain twin).
   __device__ __forceinline__ void save(float* dst, int m, int dc) const {
     const unsigned inf_word = tot - 4u * t + 4u * (Bk::VPL * threads);
+    if constexpr (Bk::kSplit) {
 #pragma unroll
-    for (int q = 0; q < Bk::CPL; ++q) {
-      const int c = t + threads * q;
+      for (int j = 0; j < Bk::DC; ++j) {
+        const int jj = (seg & 1) * Bk::DC + j;
+        if (seg >= 0 && jj < dc)
+          dst[jj * m + (seg >> 2)] = col[0][j] == inf_word ? 0.f : cv[0][j];
+      }
+    } else {
 #pragma unroll
-      for (int j = 0; j < Bk::DC; ++j)
-        if (c < m && j < dc) dst[j * m + c] = col[q][j] == inf_word ? 0.f : cv[q][j];
+      for (int q = 0; q < Bk::CPL; ++q) {
+        const int c = t + threads * q;
+#pragma unroll
+        for (int j = 0; j < Bk::DC; ++j)
+          if (c < m && j < dc) dst[j * m + c] = col[q][j] == inf_word ? 0.f : cv[q][j];
+      }
     }
   }
 
@@ -262,6 +340,36 @@ __device__ __forceinline__ void column_sums(Lane<Bk>& L,
   }
 }
 
+// Split bucket: the two lanes of a split check hand each other their
+// segment's tournament and sign parity, and each keeps the row's (see the
+// header note).  Every lane of the warp runs the shuffles; a lane that
+// holds a whole check (or none) keeps its own.  Nothing at another bucket.
+template <class Bk>
+__device__ __forceinline__ void combine(const Lane<Bk>& L, float& min1,
+                                        float& min2, unsigned& parity) {
+  if constexpr (Bk::kSplit) {
+    const float b1 = __shfl_xor_sync(0xffffffffu, min1, 1);
+    const float b2 = __shfl_xor_sync(0xffffffffu, min2, 1);
+    const unsigned pb = __shfl_xor_sync(0xffffffffu, parity, 1);
+    if (L.seg & 2) {
+      min2 = fminf(fmaxf(min1, b1), fminf(min2, b2));
+      min1 = fminf(min1, b1);
+      parity ^= pb;
+    }
+  }
+}
+
+// The syndrome bit of an owned check from `par`, its owned slots' share:
+// at the split bucket the pair's two shares together.
+template <class Bk>
+__device__ __forceinline__ int check_parity(const Lane<Bk>& L, int par) {
+  if constexpr (Bk::kSplit) {
+    const int other = __shfl_xor_sync(0xffffffffu, par, 1);
+    if (L.seg & 2) par ^= other;
+  }
+  return par;
+}
+
 // `iters` iterations from the messages in L.cv on the channel values x
 // (see the header note).  emit(it, i, colsum) for it = 0..iters.
 template <class Bk, bool kClampBig, typename Emit>
@@ -287,6 +395,7 @@ __device__ __forceinline__ void iterate(Lane<Bk>& L, const float (&x)[Bk::VPL],
         min1 = fminf(min1, mag);
         parity ^= __float_as_uint(vc);
       }
+      combine(L, min1, min2, parity);
       // a zero vc (then min1 == 0) zeroes every message of the row
       const float wmin1 = min1 == 0.f ? 0.f : w_chk * min1;
       const float wmin2 = min1 == 0.f ? 0.f : w_chk * min2;

@@ -77,17 +77,19 @@ def _mc_dense_kernel(weights, seed: int, h: torch.Tensor, g: torch.Tensor,
     m = h.shape[0]
     encode = tables.get(g, nms_edge.encode_tensor, h.device)
     p = nms_edge.parity_columns(encode, n, k)
-    dc, dv, plan = nms_dense.dense_plan(h, k, p)
-    blocks = min(nms_dense.max_blocks(plan, m, n, dc, dv, k, p,
+    dc, dv, lanes, plan = nms_dense.dense_plan(h, k, p)
+    blocks = min(nms_dense.max_blocks(plan, lanes, m, n, dc, dv, k, p,
                                       h.device.index or 0),
                  max(-(-batch // plan.frames), 1))
     partials = torch.empty((blocks, _LANES), dtype=torch.int64, device=h.device)
     status = _kernels.library("nms_dense").dense_mc(
         h.data_ptr(), encode.data_ptr(), p, partials.data_ptr(), batch, m, n,
         k, dc, dv, num_iterations, plan.bucket, plan.warps, plan.frames,
-        blocks, seed, sigma, mean, *weights, _kernels.stream_handle(h.device))
+        lanes, blocks, seed, sigma, mean, *weights,
+        _kernels.stream_handle(h.device))
     _kernels.check(status, "dense_mc")
     _kernels.LAUNCHES["mc_dense"] += 1
+    nms_edge.count_split(plan, batch)
     return partials.sum(0)
 
 

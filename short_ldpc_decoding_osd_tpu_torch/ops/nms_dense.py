@@ -120,33 +120,39 @@ def _decode_dense_plain(h: torch.Tensor, llr: torch.Tensor,
 
 
 def dense_plan(h: torch.Tensor, k: int = 0, p: int = 0):
-    """(dc, dv, plan): the largest check and variable degrees of the mask
-    ``h`` on the card and the launch plan of K6 (``k == 0``) or K7 (``k``
-    message bits, ``p`` parity columns of G) for them: the slab tables
-    (and, for K7, the counters and G's encode tables) once a block, one
-    frame region a frame.  The degrees are ``codes.tables``' (read once
-    per mask)."""
+    """(dc, dv, lanes, plan): the largest check and variable degrees of
+    the mask ``h`` on the card, the lanes its checks take at the split
+    bucket (``nms_edge.split_lanes``) and the launch plan of K6 (``k ==
+    0``) or K7 (``k`` message bits, ``p`` parity columns of G) for them:
+    the slab tables (at the split bucket also its lane map, which the
+    kernel builds beside them; for K7 the counters and G's encode tables)
+    once a block, one frame region a frame.  The degrees and lanes are
+    ``codes.tables``' (read once per mask)."""
     dc, dv = tables.degrees(h)
+    lanes = nms_edge.split_lanes(h)
     m, n = h.shape
     table, extra = dc * m + dv * n, 0
     if k:
         kw = (k + 31) // 32
         table, extra = table + 16 + n + p * kw, kw + 2
-    plan = nms_edge.launch_plan(m, n, dc, dv, extra, table)
+    plan = nms_edge.launch_plan(m, n, dc, dv, extra, table, lanes)
+    if plan is not None and plan.bucket == nms_edge.SPLIT_BUCKET:
+        plan = nms_edge.launch_plan(m, n, dc, dv, extra,
+                                    table + nms_edge.MAX_LANES + m, lanes)
     if plan is None:
         raise ValueError(f"no launch plan of the dense-rung kernels holds an "
                          f"({m}, {n}) mask of degrees ({dc}, {dv})")
-    return dc, dv, plan
+    return dc, dv, lanes, plan
 
 
 @functools.lru_cache(maxsize=16)
-def max_blocks(plan: nms_edge.LaunchPlan, m: int, n: int, dc: int, dv: int,
-               k: int, p: int, device_index: int) -> int:
+def max_blocks(plan: nms_edge.LaunchPlan, lanes: int, m: int, n: int,
+               dc: int, dv: int, k: int, p: int, device_index: int) -> int:
     """The persistent grid of a full launch: the blocks of the plan that
     run at once on the card (``device_index`` keys the cache)."""
     del device_index  # the launch runs on the current device
     blocks = _kernels.library("nms_dense").dense_max_blocks(
-        plan.bucket, plan.warps, plan.frames, m, n, dc, dv, k, p)
+        plan.bucket, plan.warps, plan.frames, lanes, m, n, dc, dv, k, p)
     if blocks < 1:
         raise RuntimeError(f"dense_max_blocks({plan}, k={k}) failed")
     return blocks
@@ -177,15 +183,17 @@ def _decode_dense_kernel(h, llr, num_iterations, weights):
     if batch >= 2**31:
         raise ValueError(f"batch {batch} exceeds the kernel's int32 count")
     out = torch.empty_like(llr)
-    dc, dv, plan = dense_plan(h)
-    blocks = min(max_blocks(plan, m, n, dc, dv, 0, 0, llr.device.index or 0),
+    dc, dv, lanes, plan = dense_plan(h)
+    blocks = min(max_blocks(plan, lanes, m, n, dc, dv, 0, 0,
+                            llr.device.index or 0),
                  -(-batch // plan.frames))
     status = _kernels.library("nms_dense").dense_decode(
         h.data_ptr(), llr.data_ptr(), out.data_ptr(), batch, m, n, dc, dv,
-        num_iterations, plan.bucket, plan.warps, plan.frames, blocks, *weights,
-        _kernels.stream_handle(llr.device))
+        num_iterations, plan.bucket, plan.warps, plan.frames, lanes, blocks,
+        *weights, _kernels.stream_handle(llr.device))
     _kernels.check(status, "dense_decode")
     _kernels.LAUNCHES["dense_final"] += 1
+    nms_edge.count_split(plan, batch)
     return out
 
 

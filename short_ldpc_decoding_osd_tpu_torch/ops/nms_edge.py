@@ -19,9 +19,12 @@ regular check degree that bucket 0 takes (:func:`kernel_holds`), and
 raises elsewhere, where JAX raises everywhere.  Every kernel
 runs one iteration body (``csrc/nms_edge_body.cuh``) whose degree bucket
 and launch shape the host picks (:func:`launch_plan`); a code no bucket
-takes raises.  K3's launches after the first resume their frames from the
-messages the previous launch saved, as the TPU kernel carries its
-compacted rows' messages; the twins take the same route.
+takes raises.  At the split bucket (checks of degree 21 to 40) a check of
+degree above 20 spans two lanes, placed by a lane map the host builds once
+(:func:`split_map`, a ``codes.tables`` item); such a launch counts its
+frames in ``split.frames``.  K3's launches after the first resume their
+frames from the messages the previous launch saved, as the TPU kernel
+carries its compacted rows' messages; the twins take the same route.
 
 Layout: check-centric edges numbered slab-major, ``e = j*m + c`` for slot
 ``j`` of check ``c``.  Irregular rows pad with dummy edges (``edge_col < 0``)
@@ -81,10 +84,15 @@ def edge_layout(h):
 # the extended matrices of ENMS buckets 3 and 4.
 BUCKETS = ((8, 6, 2, 4), (11, 6, 2, 4), (20, 6, 1, 4), (12, 64, 2, 1),
            (40, 6, 1, 4))
+# The split bucket: a lane keeps one segment of SPLIT_SLOTS slots, so a
+# check of degree above that spans two lanes (:func:`split_map`)
+SPLIT_BUCKET = 4
+SPLIT_SLOTS = 20
 # warps of one frame and of one block (csrc/nms_edge_body.cuh kMaxWarps,
 # kMaxThreads / 32); a block holds max(1, 4 // warps) frames
 _MAX_WARPS = 16
 _BLOCK_WARPS = 4
+MAX_LANES = 32 * _MAX_WARPS  # kMaxThreads: the lane map's lane entries
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory a Hopper block can use
 
 
@@ -102,24 +110,75 @@ class LaunchPlan:
 def region_words(bucket: int, threads: int, extra: int = 0) -> int:
     """Shared words of one frame of ``threads`` lanes (``region_words`` of
     csrc/nms_edge_body.cuh): the column totals and the +inf word, one
-    message row of ``dc | 1`` words per owned check and the zero word, and
-    ``extra`` words of the kernel."""
+    message row of ``slots | 1`` words per owned check (a lane's segment at
+    the split bucket, :data:`SPLIT_SLOTS` slots; else ``dc`` slots) and the
+    zero word, and ``extra`` words of the kernel."""
     dc, _, cpl, vpl = BUCKETS[bucket]
-    return vpl * threads + 1 + cpl * threads * (dc | 1) + 1 + extra
+    slots = SPLIT_SLOTS if bucket == SPLIT_BUCKET else dc
+    return vpl * threads + 1 + cpl * threads * (slots | 1) + 1 + extra
+
+
+def split_lanes(h) -> int:
+    """The lanes the checks of ``h`` take at the split bucket: one a
+    check, two a check of degree above :data:`SPLIT_SLOTS`."""
+    return tables.get(h, _split_lanes)
+
+
+def _split_lanes(host, device):
+    del device
+    degrees = host.sum(axis=1)
+    return len(degrees) + int((degrees > SPLIT_SLOTS).sum())
+
+
+def split_map(h) -> np.ndarray:
+    """The split bucket's lane map of ``h`` (m, n), int32 (MAX_LANES + m,):
+    entry ``l`` is ``2 c + s`` for the lane that owns segment ``s`` of check
+    ``c`` (its slots ``SPLIT_SLOTS s ..``), -1 for a lane that owns none;
+    entry ``MAX_LANES + c`` is check c's first lane.  The checks of degree
+    above :data:`SPLIT_SLOTS` come first, each on an even lane and the next
+    (one warp), then the others, each in check order; so no lane is left
+    out.  ``csrc/nms_dense.cu``'s ``build_split`` makes the same map on the
+    card."""
+    degrees = np.asarray(h, dtype=np.int64).sum(axis=1)
+    m = len(degrees)
+    wide = np.flatnonzero(degrees > SPLIT_SLOTS)
+    whole = np.flatnonzero(degrees <= SPLIT_SLOTS)
+    if 2 * len(wide) + len(whole) > MAX_LANES:
+        raise ValueError(f"{m} checks need more than {MAX_LANES} lanes")
+    first = np.empty(m, np.int32)
+    first[wide] = 2 * np.arange(len(wide))
+    first[whole] = 2 * len(wide) + np.arange(len(whole))
+    lanes = np.full(MAX_LANES, -1, np.int32)
+    lanes[first[wide]] = 2 * wide
+    lanes[first[wide] + 1] = 2 * wide + 1
+    lanes[first[whole]] = 2 * whole
+    return np.concatenate([lanes, first])
+
+
+def _split_tables(host, device):
+    """:func:`split_map` as an int32 tensor on ``device`` (a
+    ``codes.tables`` item)."""
+    return torch.tensor(split_map(host), device=device)
 
 
 def launch_plan(m: int, n: int, dc: int, dv: int, extra_words: int = 0,
-                table_words: int = 0) -> LaunchPlan | None:
+                table_words: int = 0, lanes: int | None = None
+                ) -> LaunchPlan | None:
     """The launch plan of an (m, n) code of largest degrees (dc, dv): the
     first bucket that takes the degrees, the fewest warps whose lanes own
-    every check and variable, ``max(1, 4 // warps)`` frames a block; None
-    when no bucket takes the degrees, a frame would need more than 16 warps
-    or a block (``table_words`` once, ``extra_words`` a frame) exceeds the
-    227 KB of shared memory a block can use."""
+    every check (at the split bucket, ``lanes`` of them: :func:`split_lanes`;
+    by default two a check) and variable, ``max(1, 4 // warps)`` frames a
+    block; None when no bucket takes the degrees, a frame would need more
+    than 16 warps or a block (``table_words`` once, ``extra_words`` a
+    frame) exceeds the 227 KB of shared memory a block can use."""
     for bucket, (bdc, bdv, cpl, vpl) in enumerate(BUCKETS):
         if dc > bdc or dv > bdv:
             continue
-        warps = max(1, -(-m // (32 * cpl)), -(-n // (32 * vpl)))
+        if bucket == SPLIT_BUCKET:
+            owners = 2 * m if lanes is None else lanes
+        else:
+            owners = -(-m // cpl)
+        warps = max(1, -(-owners // 32), -(-n // (32 * vpl)))
         if warps > _MAX_WARPS:
             return None
         frames = max(1, _BLOCK_WARPS // warps)
@@ -143,11 +202,28 @@ def kernel_holds(h, variant: str = "NMS-1") -> bool:
     degrees = np.asarray(h, dtype=np.int64).sum(axis=1)
     if degrees.min() < 2:
         return False
-    plan = launch_plan(*np.shape(h), *tables.degrees(h))
+    plan = matrix_plan(h)
     if variant == "NMS-r":
         return (plan is not None and plan.bucket == NMSR_BUCKET
                 and bool((degrees == degrees[0]).all()))
     return plan is not None
+
+
+def matrix_plan(h, extra_words: int = 0, table_words: int = 0
+                ) -> LaunchPlan | None:
+    """:func:`launch_plan` of the matrix ``h``: its shape, its largest
+    degrees and the lanes its checks take at the split bucket."""
+    return launch_plan(*np.shape(h), *tables.degrees(h), extra_words,
+                       table_words, split_lanes(h))
+
+
+def split_operand(h, plan: LaunchPlan, device):
+    """The kernels' lane-map operand for ``plan`` on ``h``: the
+    :func:`split_map` tensor on ``device`` at the split bucket, else None
+    (the kernels refuse a map anywhere else)."""
+    if plan.bucket != SPLIT_BUCKET:
+        return None
+    return tables.get(h, _split_tables, device)
 
 
 def _edge_tables(h, device):
@@ -240,7 +316,7 @@ def _kernel_tables(llr, h):
     dv, n = var_edges.shape
     if llr.shape[1] != n:
         raise ValueError(f"llr has {llr.shape[1]} columns, h has {n}")
-    plan = launch_plan(m, n, dc, dv)
+    plan = matrix_plan(h)
     if plan is None:
         raise ValueError(f"no launch plan of the edge kernels holds an ({m}, "
                          f"{n}) code of degrees ({dc}, {dv})")
@@ -249,28 +325,39 @@ def _kernel_tables(llr, h):
     return edge_col, var_edges, plan
 
 
+def count_split(plan: LaunchPlan, frames: int) -> None:
+    """``split.frames``: the frames or slots of a launch that succeeded at
+    the split bucket."""
+    if plan.bucket == SPLIT_BUCKET:
+        profiling.count("split.frames", frames)
+
+
 def _decode_edge_kernel(llr, h, num_iterations, weights, traj,
                         extended=False):
     """Launch ``nms_edge_decode`` (K1, or K2 with ``traj``); with
     ``extended`` (ENMS's matrix) counts the frames decoded after a launch
-    that succeeded, ``enms.frames``."""
+    that succeeded, ``enms.frames``, and at the split bucket
+    ``split.frames``."""
     edge_col, var_edges, plan = _kernel_tables(llr, h)
     (dc, m), (dv, n), batch = edge_col.shape, var_edges.shape, llr.shape[0]
     if num_iterations == 0 and not traj:
         return weights[2] * llr
     shape = (num_iterations + 1, batch, n) if traj else (batch, n)
     out = torch.empty(shape, dtype=torch.float32, device=llr.device)
+    split = split_operand(h, plan, llr.device)
     lib = _kernels.library("nms_edge")
     status = lib.nms_edge_decode(
         llr.data_ptr(), out.data_ptr(), edge_col.data_ptr(),
-        var_edges.data_ptr(), batch, n, m, dc, dv, num_iterations, *weights,
-        int(traj), plan.bucket, plan.warps, plan.frames,
+        var_edges.data_ptr(), None if split is None else split.data_ptr(),
+        batch, n, m, dc, dv, num_iterations, *weights, int(traj),
+        plan.bucket, plan.warps, plan.frames, split_lanes(h),
         _kernels.stream_handle(llr.device),
     )
     _kernels.check(status, "nms_edge_decode")
     _kernels.LAUNCHES["nms_edge_traj" if traj else "nms_edge_final"] += 1
     if extended:
         profiling.count("enms.frames", batch)
+    count_split(plan, batch)
     return out
 
 
@@ -511,16 +598,14 @@ class MCSetup:
     def plan(self) -> LaunchPlan | None:
         """The launch plan of ``mc_frames`` for this code (None: the
         kernels do not hold it)."""
-        dc, m = self.edge_col.shape
-        dv, n = self.var_edges.shape
-        return mc_plan(m, n, dc, dv, self.k)
+        return mc_plan(self.h, self.k)
 
 
-def mc_plan(m: int, n: int, dc: int, dv: int, k: int) -> LaunchPlan | None:
-    """The launch plan of ``mc_frames`` (csrc/mc_fused.cu): a frame also
-    keeps its ceil(k/32) message words and 2 flags, a block its 64 bytes of
-    counters."""
-    return launch_plan(m, n, dc, dv, extra_words=(k + 31) // 32 + 2,
+def mc_plan(h, k: int) -> LaunchPlan | None:
+    """The launch plan of ``mc_frames`` (csrc/mc_fused.cu) on the matrix
+    ``h``: a frame also keeps its ceil(k/32) message words and 2 flags, a
+    block its 64 bytes of counters."""
+    return matrix_plan(h, extra_words=(k + 31) // 32 + 2,
                        table_words=_MC_COUNT_WORDS)
 
 
@@ -638,7 +723,8 @@ def _mc_frames_kernel(mc: MCSetup, iters: int, count: int, ids=None,
     :func:`_mc_frames_plain`.  Counts G's columns of each kind, once a
     launch: ``mc.columns_as_bit`` (unit columns, read as a message bit) and
     ``mc.columns_encoded`` (the others, popcounted); on ENMS's extended
-    matrix also the launch's ``count`` slots, ``enms.frames``."""
+    matrix also the launch's ``count`` slots, ``enms.frames``, and at the
+    split bucket ``split.frames``."""
     if ids is not None:
         _check_i32("ids", ids, count, mc.device)
     if (msgs_in is None) != (src is None) or (keep and not stage):
@@ -670,11 +756,12 @@ def _mc_frames_kernel(mc: MCSetup, iters: int, count: int, ids=None,
                             device=mc.device) if keep else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     p = mc.parity_columns
+    split = split_operand(mc.h, plan, mc.device)
     status = lib.mc_frames(
         ptr(ids), ptr(src), ptr(msgs_in), ptr(msgs_out), ptr(stat),
         counters.data_ptr(), mc.edge_col.data_ptr(), mc.var_edges.data_ptr(),
-        mc.encode.data_ptr(), count, n, m, dc, dv, mc.k, p, iters,
-        plan.bucket, plan.warps, plan.frames, grid,
+        ptr(split), mc.encode.data_ptr(), count, n, m, dc, dv, mc.k, p, iters,
+        plan.bucket, plan.warps, plan.frames, split_lanes(mc.h), grid,
         occ["table_shared"], mc.seed, mc.sigma, 1.0, *mc.weights,
         _kernels.stream_handle(mc.device))
     _kernels.check(status, "mc_frames")
@@ -682,6 +769,7 @@ def _mc_frames_kernel(mc: MCSetup, iters: int, count: int, ids=None,
     profiling.count("mc.columns_encoded", p)
     if mc.extended:
         profiling.count("enms.frames", count)
+    count_split(plan, count)
     return counters, stat, msgs_out
 
 

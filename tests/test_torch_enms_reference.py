@@ -132,8 +132,13 @@ def test_mc_plan_of_the_wimax_extended_matrix():
                            1, "cpu")
     assert tuple(mc.edge_col.shape) == (36, 220)
     assert tuple(mc.var_edges.shape) == (6, 1056)
-    assert mc.plan == nms_edge.LaunchPlan(bucket=4, warps=9, frames=1)
+    # the split bucket: 264 segment lanes (44 checks of degree 36 on two
+    # lanes each, 176 of degree 20 on one) of 288, 21-word segment rows
+    assert mc.plan == nms_edge.LaunchPlan(bucket=nms_edge.SPLIT_BUCKET,
+                                          warps=9, frames=1)
+    assert nms_edge.split_lanes(mc.h) == 264
     words = nms_edge.region_words(4, 9 * 32, (880 + 31) // 32 + 2)
+    assert words == 4 * 288 + 1 + 288 * 21 + 1 + 30
     assert 4 * (16 + words) <= nms_edge.SMEM_LIMIT
 
 

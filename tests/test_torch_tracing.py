@@ -242,6 +242,79 @@ def test_launch_counts_enms_frames(monkeypatch, variant, status):
     assert counters.get("enms.frames") == want
 
 
+@pytest.mark.parametrize("status", [0, 719])
+@pytest.mark.parametrize("code_name,variant,bucket", [
+    ("wimax_1056_880", "ENMS", 4), ("wimax_1056_880", "NMS-1", 2),
+    ("ccsds_128_64", "NMS-1", 0)])
+def test_launch_counts_split_frames(monkeypatch, code_name, variant, bucket,
+                                    status):
+    """Each ``mc_frames`` and K1/K2 launch that succeeded at the split
+    bucket (WiMAX's extended matrix) adds its slots or frames to
+    ``split.frames``, handing the kernel the lane map and the lanes its
+    checks take; buckets 0 and 2 hand neither and count none, nor does a
+    refused launch.  The launches are stand-ins: there is no card here."""
+    code = get_code(code_name)
+    params = nms.init_params(variant)
+    mc = nms_edge.mc_setup(code, params, variant, 4.0, 1, "cpu")
+    assert mc.plan.bucket == bucket
+    launched = []
+
+    class Library:
+        def mc_frames(self, *args):
+            launched.append(("mc_frames", args[8], args[21]))
+            return status
+
+        def nms_edge_decode(self, *args):
+            launched.append(("nms_edge_decode", args[4], args[18]))
+            return status
+
+    monkeypatch.setattr(nms_edge._kernels, "library", lambda name: Library())
+    monkeypatch.setattr(nms_edge._kernels, "stream_handle", lambda dev: 0)
+    monkeypatch.setattr(nms_edge, "mc_occupancy", lambda *a: {
+        "blocks_per_sm": 1, "sms": 132, "table_shared": 1})
+    llr = torch.zeros((16, code.n))
+    weights = nms.scalar_weights(params, variant)
+    with profiling.recording():
+        for call in (lambda: nms_edge._mc_frames_kernel(mc, 4, 1024),
+                     lambda: nms_edge._decode_edge_kernel(
+                         llr, mc.h, 3, weights, False, variant == "ENMS"),
+                     lambda: nms_edge._decode_edge_kernel(
+                         llr, mc.h, 3, weights, True, variant == "ENMS")):
+            if status:
+                with pytest.raises(RuntimeError, match="cudaError 719"):
+                    call()
+            else:
+                call()
+    split = bucket == nms_edge.SPLIT_BUCKET
+    lane_map = nms_edge.split_operand(mc.h, mc.plan, "cpu")
+    assert (lane_map is not None) == split
+    want_ptr = lane_map.data_ptr() if split else None
+    lanes = 264 if split else code.h.shape[0]
+    assert launched == [("mc_frames", want_ptr, lanes)] + [
+        ("nms_edge_decode", want_ptr, lanes)] * 2
+    counters = profiling.snapshot()["counters"]
+    want = 1024 + 2 * 16 if split and not status else None
+    assert counters.get("split.frames") == want
+    if variant == "ENMS" and not status:
+        assert counters["split.frames"] == counters["enms.frames"]
+
+
+def test_split_twins_count_no_frames():
+    """The CPU twins of K3's chain, K4 and K1 on WiMAX's extended matrix
+    (the split bucket's) count no ``split.frames``."""
+    code = get_code("wimax_1056_880")
+    params = nms.init_params("ENMS")
+    with profiling.recording():
+        nms_edge.fused_counters_edge_compact(
+            code, params, "ENMS", 6, 4.0, 128, seed=3, block_frames=128,
+            device="cpu")
+        nms_edge.fused_counters_edge(code, params, "ENMS", 4, 4.0, 32, seed=3,
+                                     device="cpu")
+        nms_edge.decode_final_edge(params, code.extended().h,
+                                   torch.zeros((8, code.n)), 3, "ENMS")
+    assert "split.frames" not in profiling.snapshot()["counters"]
+
+
 def test_enms_twins_count_no_frames():
     """On the CPU the fused step and the edge wrappers run the kernels'
     twins on ENMS's extended matrix: no ``enms.frames``."""
