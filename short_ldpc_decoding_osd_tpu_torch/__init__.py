@@ -16,3 +16,9 @@ the call and restores the caller's: the JAX package runs those
 contractions at ``Precision.HIGHEST``, and a TF32 product flips
 reliability ranks near ties.
 """
+
+from time import perf_counter as _perf_counter
+
+# the start of set-up span "setup.import", which the process's first other
+# set-up span closes (``utils.profiling.setup_span``)
+IMPORT_T0 = _perf_counter()

@@ -7,16 +7,33 @@ import contextlib
 import torch
 
 
+# the CUDA devices this process has started (set-up span "setup.device")
+_STARTED: set[torch.device] = set()
+
+
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``torch.device`` for ``device``; raises when CUDA is asked for and
-    absent (the port never falls back to the CPU silently)."""
+    absent (the port never falls back to the CPU silently).  The first
+    call for a CUDA device makes its primary context, with a one-element
+    allocation, inside set-up span ``setup.device``; later calls look the
+    device up in a set."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain PyTorch versions"
-        )
+    if dev.type == "cuda" and dev not in _STARTED:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' requested but torch.cuda.is_available() is False; "
+                "pass device='cpu' to run the plain PyTorch versions"
+            )
+        _start(dev)
     return dev
+
+
+def _start(dev: torch.device) -> None:
+    from .utils import profiling  # which imports this module
+
+    with profiling.setup_span("device", dev):
+        torch.empty(1, device=dev)
+    _STARTED.add(dev)
 
 
 def device_name(device: torch.device) -> str:

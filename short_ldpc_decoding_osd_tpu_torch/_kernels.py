@@ -25,6 +25,8 @@ import time
 
 import torch
 
+from .utils import profiling
+
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
@@ -146,7 +148,9 @@ def _lib_path(name: str) -> str:
 
 def build_all() -> dict[str, float]:
     """Compile every source that has no current build, in parallel; return
-    the seconds each build took (0 for a library already built)."""
+    the seconds each build took (0 for a library already built).  Each
+    build that succeeded adds one to the set-up counter
+    ``kernels_built``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -169,22 +173,25 @@ def build_all() -> dict[str, float]:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
+        profiling.setup_count("kernels_built", 1)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return dict(BUILD_SECONDS)
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, building all sources on first use."""
+    """The loaded kernel library ``name``, building all sources on first use
+    (set-up span ``setup.kernels``)."""
     with _lock:
         if name not in _libs:
-            build_all()
-            for src in SOURCES:
-                lib = ctypes.CDLL(_lib_path(src))
-                for fn, argtypes in _SIGNATURES[src].items():
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-                _libs[src] = lib
+            with profiling.setup_span("kernels"):
+                build_all()
+                for src in SOURCES:
+                    lib = ctypes.CDLL(_lib_path(src))
+                    for fn, argtypes in _SIGNATURES[src].items():
+                        getattr(lib, fn).argtypes = argtypes
+                        getattr(lib, fn).restype = ctypes.c_int
+                    _libs[src] = lib
         return _libs[name]
 
 

@@ -27,6 +27,7 @@ from ._device import resolve_device
 from .codes import Code, get_code
 from .models import extras
 from .models.dia import StopperFcn, canonical_dia_name, make_dia
+from .utils import profiling
 
 
 def _reconstruct_array(fun, args, arr_state, aval_state):
@@ -256,8 +257,14 @@ def load_run(run_dir: str, device: str | torch.device = "cuda") -> dict:
     Returns ``config``, ``code`` (a :class:`Code`), ``variant``,
     ``num_iterations``, ``nms_params``, ``dia`` (the config's refiner on
     ``device``, eval mode), ``fcn`` and ``path``.  ``device`` is the card
-    unless the caller passes ``"cpu"``."""
+    unless the caller passes ``"cpu"``.  Set-up span ``setup.load_run``,
+    closed by the device's synchronisation."""
     device = resolve_device(device)
+    with profiling.setup_span("load_run", device):
+        return _load_run(run_dir, device)
+
+
+def _load_run(run_dir: str, device: torch.device) -> dict:
     with open(os.path.join(run_dir, "config.json")) as fh:
         cfg = json.load(fh)
     code: Code = get_code(cfg.get("code_name", "ccsds_128_64"))

@@ -883,6 +883,11 @@ def _compact_plain(mc: MCSetup, batch: int, block_frames: int, rows_schedule,
     return total
 
 
+# the process's first fused step, one-shot or compacted, runs inside set-up
+# span "setup.first_unit"
+_FIRST_STEP = profiling.FirstUnit()
+
+
 def fused_counters_edge(code, params: dict, variant: str, num_iterations: int,
                         snr_db: float, batch: int, seed: int,
                         device: str | torch.device = "cuda") -> torch.Tensor:
@@ -891,6 +896,15 @@ def fused_counters_edge(code, params: dict, variant: str, num_iterations: int,
     on ``mc_setup``'s matrix (ENMS: the extended one);
     returns (5,) int64 [frames, frame_err, bit_err, detected, undetected]
     on ``device``.  Span ``mc.step``, its set-up ``mc.setup``."""
+    args = (code, params, variant, num_iterations, snr_db, batch, seed, device)
+    if _FIRST_STEP.pending:
+        with _FIRST_STEP.span(resolve_device(device)):
+            return _oneshot_step(*args)
+    return _oneshot_step(*args)
+
+
+def _oneshot_step(code, params, variant, num_iterations, snr_db, batch, seed,
+                  device):
     with profiling.span("mc.step"):
         with profiling.span("mc.setup"):
             mc = mc_setup(code, params, variant, snr_db, seed, device)
@@ -919,13 +933,25 @@ def fused_counters_edge_compact(code, params: dict, variant: str,
     unconverged frames the first ``rows`` (in frame order) go on, the rest
     keep the stage's decision and count in lane 5.  Frames covered through
     every stage are judged after all ``num_iterations``.  Span
-    ``mc.step``, its set-up ``mc.setup``."""
+    ``mc.step``, its set-up ``mc.setup``.  The process's first fused step,
+    of this function or :func:`fused_counters_edge`, is set-up span
+    ``setup.first_unit``."""
     if batch % block_frames:
         raise ValueError(f"batch {batch} not a multiple of {block_frames}")
     if schedule is None:
         schedule = ((t1, compact_frac),)
     rows_schedule, final_iters = build_rows_schedule(
         schedule, block_frames, num_iterations)
+    args = (code, params, variant, snr_db, batch, seed, block_frames,
+            rows_schedule, final_iters, device)
+    if _FIRST_STEP.pending:
+        with _FIRST_STEP.span(resolve_device(device)):
+            return _compact_step(*args)
+    return _compact_step(*args)
+
+
+def _compact_step(code, params, variant, snr_db, batch, seed, block_frames,
+                  rows_schedule, final_iters, device):
     with profiling.span("mc.step"):
         with profiling.span("mc.setup"):
             mc = mc_setup(code, params, variant, snr_db, seed, device)

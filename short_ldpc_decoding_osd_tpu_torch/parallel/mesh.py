@@ -89,12 +89,14 @@ def init_multihost(coordinator: str | None = None, num_processes: int = 1,
     card a process; two gloo processes on one card share it)."""
     if coordinator is None or num_processes <= 1:
         return
-    dev = resolve_device(device)
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.is_available():
+        # before resolve_device makes a context on the current device
+        torch.cuda.set_device(process_id % torch.cuda.device_count())
+    dev = resolve_device(dev)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     if backend == "nccl" and not dist.is_nccl_available():
         raise RuntimeError("backend 'nccl' requested but this torch has no NCCL")
-    if dev.type == "cuda":
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
     dist.init_process_group(backend=backend, init_method=f"tcp://{coordinator}",
                             world_size=num_processes, rank=process_id)

@@ -60,13 +60,23 @@ STAGE_SPANS = (("capture_step_k1", "capture"), ("traj_redecode_k2", "redecode"),
                ("stopper_walk", "walk"), ("sliding_osd_total", "osd"))
 
 
+# the process's first round runs inside set-up span "setup.first_unit"
+_FIRST_ROUND = profiling.FirstUnit()
+
+
 class TwoPhase:
-    """A run directory's two-phase system, loaded on ``device``."""
+    """A run directory's two-phase system, loaded on ``device``: set-up
+    span ``setup.two_phase``, closed by the device's synchronisation."""
 
     def __init__(self, run_dir: str | None = None, cap_b: int = 262_144,
                  cap: int = 32_768, snr_db: float = 3.0,
                  device: str | torch.device = "cuda", seed: int = 77):
         self.device = dev = resolve_device(device)
+        with profiling.setup_span("two_phase", dev):
+            self._build(run_dir, cap_b, cap, snr_db, seed)
+
+    def _build(self, run_dir, cap_b, cap, snr_db, seed) -> None:
+        dev = self.device
         self.run_dir = run_dir or DEFAULT_RUN
         self.cap_b, self.cap, self.snr_db, self.seed = cap_b, cap, snr_db, seed
         run = load_run(self.run_dir, dev)
@@ -101,7 +111,14 @@ class TwoPhase:
 
         Span ``round`` around spans ``capture`` and ``phase2``; counts
         ``osd.rows`` (the rows phase 2 walks) and ``osd.failures`` (the real
-        failures among them, kept on the device until read)."""
+        failures among them, kept on the device until read).  The process's
+        first round is set-up span ``setup.first_unit``."""
+        if _FIRST_ROUND.pending:
+            with _FIRST_ROUND.span(self.device):
+                return self._round(i)
+        return self._round(i)
+
+    def _round(self, i: int):
         with profiling.span("round"):
             counters, buf = self.capture_round(i)
             out, _, detected = self.phase2(self.nms_params, buf["llr"],

@@ -15,6 +15,12 @@ kernels it encloses) and an in-memory aggregate per name of calls, host
 seconds and self host seconds; :func:`snapshot` reads the aggregates and
 counters, :func:`reset` clears them.  Custom-kernel launches are counted
 apart, in ``_kernels.LAUNCHES``.
+
+The set-up record is a second record, always on: the port opens
+:func:`setup_span` around each one-time stage of a process's start
+(:data:`SETUP_STAGES`), with or without a :func:`recording` block, into a
+record and stack of its own that :func:`reset` leaves alone, since they
+describe the process and not a window; :func:`setup_snapshot` reads them.
 """
 
 from __future__ import annotations
@@ -99,12 +105,15 @@ class Record:
 
 class _Span:
     """An open span while recording: a ``sldpc.<name>`` profiler range and
-    its share of the record's aggregate."""
+    its share of the record's aggregate.  ``device`` (default: the
+    state's) closes it with its synchronisation."""
 
-    __slots__ = ("name", "range", "state", "t0", "children")
+    __slots__ = ("name", "range", "state", "device", "t0", "children")
 
-    def __init__(self, name: str, state: _State):
+    def __init__(self, name: str, state: _State,
+                 device: torch.device | None = None):
         self.name, self.state = name, state
+        self.device = state.synchronize if device is None else device
         self.range = record_function("sldpc." + name)
 
     def __enter__(self):
@@ -115,8 +124,8 @@ class _Span:
 
     def __exit__(self, *exc):
         state = self.state
-        if state.synchronize is not None:
-            synchronize(state.synchronize)
+        if self.device is not None:
+            synchronize(self.device)
         dt = time.perf_counter() - self.t0
         self.range.__exit__(*exc)
         state.stack.pop()
@@ -191,8 +200,69 @@ def snapshot() -> dict:
 
 
 def reset() -> None:
-    """Clear the shared record."""
+    """Clear the shared record (not the set-up record)."""
     _SHARED.reset()
+
+
+# the one-time stages of a process's start, each a set-up span: the port's
+# imports (from the package's first line to the first other set-up span),
+# the first CUDA use of a device, loading a run directory, building a
+# two-phase system, building and loading the kernel libraries, and the
+# first round or fused step
+SETUP_STAGES = ("setup.import", "setup.device", "setup.load_run",
+                "setup.two_phase", "setup.kernels", "setup.first_unit")
+# the process's set-up record: always on, never reset
+_SETUP = _State(Record())
+
+
+def _close_import(record: Record) -> None:
+    from .. import IMPORT_T0
+
+    dt = time.perf_counter() - IMPORT_T0
+    record.spans["setup.import"] = {"calls": 1, "seconds": dt,
+                                    "self_seconds": dt, "parents": {None: 1}}
+
+
+def setup_span(name: str, device: torch.device | None = None) -> _Span:
+    """Span ``setup.<name>`` of a one-time stage (:data:`SETUP_STAGES`),
+    recorded into the set-up record whether or not anything records; a
+    ``device`` closes it with its synchronisation, so it times the stage's
+    work and not its enqueue.  The process's first set-up span closes
+    ``setup.import``, open since the package's first line."""
+    if "setup.import" not in _SETUP.record.spans:
+        _close_import(_SETUP.record)
+    return _Span("setup." + name, _SETUP, device)
+
+
+def setup_count(name: str, n: int) -> None:
+    """Add ``n`` to the set-up record's counter ``name``."""
+    counters = _SETUP.record.counters
+    counters[name] = counters.get(name, 0) + n
+
+
+def setup_snapshot() -> dict:
+    """``{"spans": {name: {calls, seconds, self_seconds, parents}},
+    "kernels_built": int}`` of the set-up record: its spans so far, and the
+    kernel sources ``nvcc`` compiled in this process."""
+    snap = _SETUP.record.snapshot()
+    return {"spans": snap["spans"],
+            "kernels_built": snap["counters"].get("kernels_built", 0)}
+
+
+class FirstUnit:
+    """The flag of a unit (a round, a fused step) whose first call in the
+    process runs inside set-up span ``setup.first_unit``: ``pending`` until
+    :meth:`span` clears it and returns that span, closed by ``device``'s
+    synchronisation; a later call of the unit tests the flag only."""
+
+    __slots__ = ("pending",)
+
+    def __init__(self):
+        self.pending = True
+
+    def span(self, device: torch.device) -> _Span:
+        self.pending = False
+        return setup_span("first_unit", device)
 
 
 class Timer:

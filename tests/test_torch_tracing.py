@@ -47,7 +47,14 @@ TREE = {
 
 @pytest.fixture(scope="module")
 def two_phase():
-    return system.TwoPhase(cap_b=CAP_B, cap=CAP, device="cpu", seed=5)
+    """The system, after the process's first round and first fused step:
+    those run inside set-up span ``setup.first_unit``
+    (``tests/test_torch_setup_spans.py``), and the tests here are about the
+    units after them."""
+    tp = system.TwoPhase(cap_b=CAP_B, cap=CAP, device="cpu", seed=5)
+    tp.full_round(10**6)
+    _step()
+    return tp
 
 
 @pytest.fixture(autouse=True)
